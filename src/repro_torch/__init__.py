@@ -1,0 +1,23 @@
+"""PyTorch + CUDA port of the ``repro`` package for one NVIDIA H100.
+
+The JAX package (``src/repro``) is the reference this port is held
+against; the port imports neither it nor ``jax``.  Layouts at the public
+functions are the reference's own (images NHWC, conv weights HWIO, FC
+weights (in, out)), so both packages take the same numpy arrays.
+
+Ported so far — serving the paper's AlexNet:
+
+  configs/         AlexNet configs (``ALEXNET``, ``ALEXNET_FAITHFUL``, ...)
+  kernels/         hand-written CUDA kernels for sm_90a (grouped
+                   implicit-GEMM conv, cross-channel LRN), each beside its
+                   plain PyTorch version, selected by ``KernelPolicy``
+  models/          ``AlexNet`` (``nn.Module``), ``init``, the conv-family
+                   ``DecodeState``
+  weights          the bridge to and from the reference's params
+  serving/         ``ServingEngine`` for image classification, sampling
+  launch/serve.py  the serving CLI
+
+Entry points run on ``cuda`` unless the caller asks for the CPU
+(``device="cpu"``, ``--device cpu``); on the CPU every kernel runs its
+plain version.  Importing this package imports nothing heavy.
+"""

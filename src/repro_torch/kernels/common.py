@@ -1,0 +1,97 @@
+"""Kernel selection shared by every op of the port.
+
+``KernelPolicy`` is carried on the model config, as in the reference.
+Each op resolves to one of two implementations:
+
+  ``cuda``   the hand-written kernel (``kernels/*/csrc/*.cu``); it needs
+             CUDA tensors and raises on anything else
+  ``plain``  the plain PyTorch version beside the kernel, on any device
+
+``auto`` (the default) picks the kernel for a CUDA tensor and the plain
+version for a CPU tensor.  ``plain`` on a CUDA tensor is an explicit
+request (parity checks on the card); nothing falls back to it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+BACKENDS = ("auto", "plain", "cuda")
+
+
+def _check_backend(name: str, value) -> None:
+    if value not in BACKENDS:
+        raise ValueError(f"{name} must be one of {BACKENDS}, got {value!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPolicy:
+    """Per-run kernel selection: ``backend`` applies to every op."""
+    backend: str = "auto"
+
+    def __post_init__(self):
+        _check_backend("backend", self.backend)
+
+    def describe(self) -> dict:
+        """Stable summary for logging."""
+        return dataclasses.asdict(self)
+
+
+def policy_of(cfg) -> KernelPolicy:
+    """The config's policy, defaulting for configs without the field."""
+    pol = getattr(cfg, "kernels", None)
+    return pol if pol is not None else KernelPolicy()
+
+
+def route(backend: str, x: torch.Tensor) -> str:
+    """``"cuda"`` or ``"plain"`` for an op called with ``backend`` on
+    ``x``.  A forced ``cuda`` backend on a CPU tensor raises."""
+    _check_backend("backend", backend)
+    if backend == "auto":
+        return "cuda" if x.is_cuda else "plain"
+    if backend == "cuda" and not x.is_cuda:
+        raise ValueError(f"backend 'cuda' needs CUDA tensors, got a tensor "
+                         f"on {x.device}")
+    return backend
+
+
+def device_of(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for another.  Raises when CUDA is asked for (or defaulted to) and
+    absent — nothing continues quietly on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available on this host; pass device='cpu' "
+            "(--device cpu) to run the plain versions on the CPU")
+    return dev
+
+
+def check_operand(name: str, t: torch.Tensor, ndim: int) -> None:
+    """What every CUDA kernel of the port takes: a contiguous fp32 CUDA
+    tensor of rank ``ndim`` that 32-bit offsets can index, on the
+    current device."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name} lies on {t.device}, not on the current "
+                         f"device cuda:{torch.cuda.current_device()}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have rank {ndim}, got shape "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.numel() >= 2 ** 31:
+        raise ValueError(f"{name} has {t.numel()} elements; the kernel "
+                         "indexes with 32-bit offsets")
+
+
+def check_no_grad(*tensors: torch.Tensor) -> None:
+    """The kernels have no backward yet (training is the next slice)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "this CUDA kernel has no backward yet: call it under "
+            "torch.no_grad() / torch.inference_mode()")

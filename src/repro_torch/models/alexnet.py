@@ -1,0 +1,119 @@
+"""AlexNet in PyTorch — the paper's own architecture.
+
+The counterpart of ``repro/models/alexnet.py``: 5 conv layers (LRN after
+conv1/2, 3x3 stride-2 max-pool after conv1/2/5), two 4096-d
+fully-connected layers, logits over 1000 classes.  With ``cfg.faithful``
+conv2/4/5 are 2-group convolutions and LRN runs *after* pool1/pool2;
+otherwise LRN runs before the pool and the convs are ungrouped.
+
+Layouts are the reference's: images and activations NHWC, conv weights
+HWIO, FC weights (in, out), and the flatten before FC1 is in NHWC order,
+so FC1's rows line up with the reference's.  Conv and LRN go through
+``kernels.conv2d.ops.conv2d_fused`` and ``kernels.lrn.ops.lrn`` (the CUDA
+kernels on the card, their plain versions on the CPU, per
+``cfg.kernels``).  Max-pool and the FC products are library calls, as
+the reference leaves them to XLA.  This slice serves: the forward has no
+dropout and the kernels no backward.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels.common import device_of, policy_of
+from repro_torch.kernels.conv2d.ops import conv2d_fused
+from repro_torch.kernels.lrn.ops import lrn
+
+
+def maxpool(x, size: int = 3, stride: int = 2):
+    """NHWC max-pool, VALID windows.  The NCHW view of a contiguous NHWC
+    tensor is channels-last, which ``max_pool2d`` keeps, so the result is
+    contiguous NHWC again without a copy."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), size, stride)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def param_shapes(cfg) -> dict:
+    """Shapes of every parameter, in the reference's layouts."""
+    convs, c_in, hw = [], cfg.in_channels, cfg.image_size
+    for cs in cfg.convs:
+        convs.append(((cs.kernel, cs.kernel, c_in // cs.groups,
+                       cs.out_channels), (cs.out_channels,)))
+        hw = (hw + 2 * cs.padding - cs.kernel) // cs.stride + 1
+        if cs.pool:
+            hw = (hw - 3) // 2 + 1
+        c_in = cs.out_channels
+    dims = [(hw * hw * c_in, cfg.fc_dim), (cfg.fc_dim, cfg.fc_dim),
+            (cfg.fc_dim, cfg.n_classes)]
+    return {"convs": convs, "fcs": [(d, (d[1],)) for d in dims]}
+
+
+class AlexNet(nn.Module):
+    """Parameters: ``conv_w[i]`` (K,K,Cin/G,Cout), ``conv_b[i]``,
+    ``fc_w[i]`` (in,out), ``fc_b[i]``.  Built uninitialized; ``init``
+    fills them from a generator, ``weights.from_reference`` from the
+    reference's params."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        dev = device_of(device)
+        shapes = param_shapes(cfg)
+
+        def plist(shs):
+            return nn.ParameterList(
+                nn.Parameter(torch.empty(s, device=dev), requires_grad=False)
+                for s in shs)
+
+        self.conv_w = plist([w for w, _ in shapes["convs"]])
+        self.conv_b = plist([b for _, b in shapes["convs"]])
+        self.fc_w = plist([w for w, _ in shapes["fcs"]])
+        self.fc_b = plist([b for _, b in shapes["fcs"]])
+
+    def forward(self, images):
+        """images (B,H,W,C) -> logits (B, n_classes) float32; conv and LRN
+        run the implementations ``cfg.kernels`` selects."""
+        cfg = self.cfg
+        backend = policy_of(cfg).backend
+
+        def _lrn(h):
+            return lrn(h, n=cfg.lrn_n, alpha=cfg.lrn_alpha, beta=cfg.lrn_beta,
+                       k=cfg.lrn_k, backend=backend)
+
+        h = images
+        for w, b, cs in zip(self.conv_w, self.conv_b, cfg.convs):
+            h = conv2d_fused(h, w, stride=cs.stride, padding=cs.padding,
+                             bias=b, relu=True, groups=cs.groups,
+                             backend=backend)
+            # faithful: pool, then normalize the pooled map (Caffe order)
+            if not cfg.faithful and cs.lrn:
+                h = _lrn(h)
+            if cs.pool:
+                h = maxpool(h)
+            if cfg.faithful and cs.lrn:
+                h = _lrn(h)
+        h = h.reshape(h.shape[0], -1)
+        for i, (w, b) in enumerate(zip(self.fc_w, self.fc_b)):
+            if i > 0:
+                h = torch.relu(h)
+            h = torch.matmul(h, w) + b
+        return h.float()
+
+
+@torch.no_grad()
+def init(cfg, generator: torch.Generator, *, device=None) -> AlexNet:
+    """He-initialized weights (the reference's scheme: conv std
+    sqrt(2/fan_in) with fan_in over the group's channels, FC std
+    in**-0.5, zero biases), drawn on the CPU from ``generator`` so the
+    same seed gives the same weights on every device."""
+    model = AlexNet(cfg, device=device)
+    for w in model.conv_w:
+        fan_in = w.shape[0] * w.shape[1] * w.shape[2]
+        w.copy_(torch.randn(w.shape, generator=generator)
+                * (2.0 / fan_in) ** 0.5)
+    for w in model.fc_w:
+        w.copy_(torch.randn(w.shape, generator=generator) * w.shape[0] ** -0.5)
+    for b in list(model.conv_b) + list(model.fc_b):
+        b.zero_()
+    return model

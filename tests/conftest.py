@@ -9,6 +9,12 @@ import pytest
 sys.path.insert(0, os.path.dirname(__file__))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (a hand-written CUDA kernel "
+        "has no CPU mode); skips on hosts without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     import jax

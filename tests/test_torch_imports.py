@@ -1,0 +1,63 @@
+"""The port stands alone: it never imports ``jax`` or the reference
+package ``repro``, at import time or while it serves."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+# `import jax`, `from jax`, `import repro[.]`, `from repro[. ]` — but not
+# the port's own `repro_torch`
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)(\.|\s|,|$)|from\s+(jax|repro)(\.|\s))",
+    re.MULTILINE)
+
+CHILD = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+from repro_torch.launch import serve
+serve.main(["--arch", "alexnet", "--smoke", "--device", "cpu",
+            "--requests", "3", "--slots", "2"])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+assert not bad, bad
+print("imported", len(names), "modules")
+"""
+
+
+def test_port_never_imports_jax_or_the_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", CHILD], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "serve OK" in proc.stdout
+    n = int(re.search(r"imported (\d+) modules", proc.stdout).group(1))
+    assert n == len([f for f in FILES if f.parent != ROOT]) - 1
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[str(f.relative_to(ROOT)) for f in FILES])
+def test_source_has_no_forbidden_import(path):
+    hits = FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+def test_forbidden_pattern_catches_what_it_should():
+    for bad in ("import jax", "import jax.numpy as jnp", "from jax import x",
+                "from repro.models import alexnet", "from repro import models",
+                "import repro.kernels", "  import jax"):
+        assert FORBIDDEN.search(bad), bad
+    for ok in ("from repro_torch import models", "import repro_torch.kernels",
+               "# jax is the reference", "import jaxlib_free_thing"):
+        assert not FORBIDDEN.search(ok), ok
