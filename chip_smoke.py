@@ -6,28 +6,47 @@
 Run from the root of a checkout.  It imports ``repro_torch`` from
 ``src/`` (never ``jax`` or ``repro``) and, in order:
 
-1. prints the card (``nvidia-smi``) and turns TF32 off for fp32 parity;
+1. prints the card (``nvidia-smi``), turns TF32 off and cuDNN's
+   deterministic algorithms on (the trainer's fp32 settings);
 2. builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` and
    prints the build time and ``ptxas``'s report;
-3. kernel phase: at every main-path shape (batch 8) holds each kernel
-   against its plain PyTorch version on the card (conv 2e-4, LRN 2e-5)
+3. kernel phase: at every main-path shape holds each kernel against its
+   plain PyTorch version on the card (conv 2e-4, LRN 2e-5, GEMM 2e-4)
    and times kernel, plain version, the library call that computes the
-   same function (cuDNN conv, ``F.local_response_norm``; yardsticks
-   only, never called by the port) and the card's bound, one JSON line
-   per kernel and shape;
+   same function (cuDNN conv, ``F.local_response_norm``, cuBLAS
+   ``addmm``; yardsticks only, never called by the port) and the card's
+   bound, one JSON line per kernel and shape.  Conv and LRN run at the
+   serving batch (8) and the training batch (128 per replica); the GEMM
+   runs the forward, dx and dw products of every conv of the im2col
+   training phase (32 per replica);
 4. serving phase: serves 32 random 227x227x3 images through
    ``ServingEngine`` on ``ALEXNET_FAITHFUL`` at full width (8 slots,
    greedy) with the launch counts set to 0 just before and read just
    after, checks 5 conv and 2 LRN launches per forward, and holds class
    ids and logits against the same engine under the plain policy; then
-   times images/s and latency p50/p99 over three windows of 4096
-   requests from 8 closed-loop clients on the same model, and one more
-   window under ``torch.profiler`` gives the device time by kernel and,
-   against the unprofiled windows' wall time, the device's idle share;
-5. CLI phase: ``python -m repro_torch.launch.serve --arch alexnet
-   --requests 8`` (legacy ``ALEXNET``) in a subprocess, which must end in
-   ``serve OK``;
-6. prints the card again, the ``{"kernels": [...]}`` line and, last,
+   times images/s and latency p50/p99 over three windows of 2048
+   requests from 8 closed-loop clients, and one more window under
+   ``torch.profiler`` gives the device time by kernel and the device's
+   idle share;
+5. training phase: ``TrainSession`` trains ``ALEXNET_FAITHFUL`` at full
+   width, 2 replicas x 128 images, SGD momentum, every-step all-reduce of
+   weights and momentum, pinned staging, fused conv.  Launch counts are
+   set to 0 before 3 steps and read after (5 conv and 2 LRN per replica
+   and step, no GEMM); losses and params are held against the same run
+   under the plain policy on the card; the replicas' spread is 0 after
+   every step.  Then three timed windows of 10 steps give images/s and
+   step p50/p99, and a traced window the device time by family and the
+   idle share: once with the host preprocess (mean, crop, flip) in the
+   loader thread for every batch, once over a pool preprocessed ahead;
+6. im2col training phase: 3 steps at 2 x 32 under
+   ``--conv-backend im2col_ref`` count the GEMM kernel's launches (5
+   forward, 5 dw and 4 dx per replica and step: conv1's dx is not
+   needed) and hold the losses against the fused backend;
+7. CLI phase: ``repro_torch.launch.serve --arch alexnet --requests 8``,
+   then ``repro_torch.launch.train --faithful --replicas 2 --batch 64``
+   for 4 steps with checkpoints, resumed to 6, against an uninterrupted
+   6-step run;
+8. prints the card again, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -36,6 +55,7 @@ result; it also does so without a CUDA device and outside a checkout.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -49,12 +69,19 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-BATCH = 8
+SERVE_BATCH = 8
+TRAIN_BATCH = 128        # per replica: the paper's global 256 over 2
+IM2COL_BATCH = 32        # per replica, the im2col training phase
+REPLICAS = 2
 FP32_PEAK = 67e12        # H100 SXM fp32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12       # H100 SXM HBM3, bytes/s
 CONV_TOL = 2e-4          # registry tolerance of repro/kernels/conv2d/ops.py
 LRN_TOL = 2e-5           # registry tolerance of repro/kernels/lrn/ops.py
+GEMM_TOL = 2e-4          # the conv registry's, whose GEMM stage this is
 LOGIT_TOL = 1e-3
+LOSS_TOL = 1e-3          # kernel vs plain training losses on the card
+BACKEND_LOSS_TOL = 5e-3  # im2col vs fused: the reference's cross-backend
+                         # tolerance (tests/train_loop/test_golden_traces)
 MARGIN = 1e-3            # class ids are compared where top-2 exceeds this
 CYCLES_PER_MS = 1.0e6    # torch.cuda._sleep rate, measured in main()
 
@@ -105,30 +132,49 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def kernel_family(name: str) -> str:
+    """The family a device kernel's time is booked under."""
+    n = name.lower()
+    for fam, keys in (("conv2d_fused", ("conv2d_fused",)),
+                      ("lrn", ("lrn_kernel",)),
+                      ("matmul_bias", ("matmul_bias",)),
+                      ("max_pool", ("max_pool",)),
+                      ("conv_grad", ("wgrad", "dgrad", "cudnn", "conv",
+                                     "implicit", "winograd", "fft")),
+                      ("gemm", ("gemm",)),
+                      ("elementwise", ("elementwise", "reduce", "fill",
+                                       "vectorized", "unrolled", "copy",
+                                       "cat", "index", "gather",
+                                       "scatter"))):
+        if any(k in n for k in keys):
+            return fam
+    return "other"
+
+
 def device_busy(trace_path: str) -> dict:
-    """Device time by kernel family from a ``torch.profiler`` chrome trace,
-    and the union of the spans in which a kernel or a copy ran."""
+    """Device time by kernel family and the ten longest kernels from a
+    ``torch.profiler`` chrome trace, and the union of the spans in which
+    a kernel or a copy ran."""
     with open(trace_path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not any(e["cat"] == "kernel" for e in events):
         raise AssertionError("the profiler traced no kernel on the device")
-    by = {}
+    by, names = {}, {}
     for e in events:
-        name = e["name"]
-        fam = ("copy" if e["cat"] != "kernel" else
-               "conv2d_fused" if "conv2d_fused" in name else
-               "lrn" if "lrn_kernel" in name else
-               "gemm" if "gemm" in name.lower() else
-               "max_pool" if "max_pool" in name else "other")
+        fam = "copy" if e["cat"] != "kernel" else kernel_family(e["name"])
         by[fam] = by.get(fam, 0.0) + e["dur"] / 1e3
+        if e["cat"] == "kernel":
+            key = e["name"][:100]
+            names[key] = names.get(key, 0.0) + e["dur"] / 1e3
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
-    return {"busy_ms": busy / 1e3, "ms_by_family": by}
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+    return {"busy_ms": busy / 1e3, "ms_by_family": by, "top_kernels": top}
 
 
 def max_err(a, b) -> float:
@@ -143,43 +189,72 @@ def check_close(what, got, want, tol) -> float:
     return err
 
 
-def conv_cases(cfgs):
-    """(config, layer, x shape, ConvSpec) of every conv the configs run
-    at batch 8; a layer seen in an earlier config is not repeated."""
-    seen, cases = set(), []
-    for cfg in cfgs:
+def conv_cases(cases):
+    """(config, batch, layer, x shape, ConvSpec) of every conv the
+    (config, batch) cases run; a layer seen before is not repeated."""
+    seen, out = set(), []
+    for cfg, batch in cases:
         c_in, hw = cfg.in_channels, cfg.image_size
         for i, cs in enumerate(cfg.convs):
-            key = (hw, c_in, cs)
+            key = (batch, hw, c_in, cs)
             if key not in seen:
                 seen.add(key)
-                cases.append((cfg.name, f"conv{i + 1}",
-                              (BATCH, hw, hw, c_in), cs))
+                out.append((cfg.name, batch, f"conv{i + 1}",
+                            (batch, hw, hw, c_in), cs))
             hw = (hw + 2 * cs.padding - cs.kernel) // cs.stride + 1
             if cs.pool:
                 hw = (hw - 3) // 2 + 1
             c_in = cs.out_channels
-    return cases
+    return out
 
 
-def lrn_cases(cfgs):
-    """(config, layer, x shape) of every LRN the configs run at batch 8."""
-    cases = []
-    for cfg in cfgs:
+def lrn_cases(cases):
+    """(config, batch, layer, x shape) of every LRN the cases run."""
+    out = []
+    for cfg, batch in cases:
         c_in, hw = cfg.in_channels, cfg.image_size
         for i, cs in enumerate(cfg.convs):
             hw = (hw + 2 * cs.padding - cs.kernel) // cs.stride + 1
             c_in = cs.out_channels
             if cs.lrn and not cfg.faithful:
-                cases.append((cfg.name, f"lrn{i + 1}", (BATCH, hw, hw, c_in)))
+                out.append((cfg.name, batch, f"lrn{i + 1}",
+                            (batch, hw, hw, c_in)))
             if cs.pool:
                 hw = (hw - 3) // 2 + 1
             if cs.lrn and cfg.faithful:
-                cases.append((cfg.name, f"lrn{i + 1}", (BATCH, hw, hw, c_in)))
-    return cases
+                out.append((cfg.name, batch, f"lrn{i + 1}",
+                            (batch, hw, hw, c_in)))
+    return out
 
 
-def kernel_phase(gen, main_cfg, cfgs):
+def gemm_cases(cfg, batch):
+    """(layer, product, M, K, N, trans_a, trans_b) of every GEMM one
+    replica-step of im2col training runs: per conv the forward
+    patches @ W, dw = patches^T @ dy and, past conv1 (whose input needs
+    no grad), dx = dy @ W^T.  trans_* say which operand is a transposed
+    view of a contiguous matrix."""
+    out = []
+    c_in, hw = cfg.in_channels, cfg.image_size
+    for i, cs in enumerate(cfg.convs):
+        oh = (hw + 2 * cs.padding - cs.kernel) // cs.stride + 1
+        m, k, n = batch * oh * oh, c_in * cs.kernel ** 2, cs.out_channels
+        out.append((f"conv{i + 1}", "forward", m, k, n, False, False))
+        if i > 0:
+            out.append((f"conv{i + 1}", "dx", m, n, k, False, True))
+        out.append((f"conv{i + 1}", "dw", k, m, n, True, False))
+        hw = (oh - 3) // 2 + 1 if cs.pool else oh
+        c_in = cs.out_channels
+    return out
+
+
+def _bound(flops, nbytes):
+    ops, mem = flops / FP32_PEAK, nbytes / HBM_RATE
+    return max(ops, mem) * 1e3, ("operations" if ops >= mem else "bytes")
+
+
+def kernel_phase(gen, main, cases):
+    """Kernel rows at every shape of ``cases``; the totals sum the rows
+    of ``main`` = (config name, batch), the training path's forward."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.conv2d import ops as conv_ops
@@ -191,19 +266,19 @@ def kernel_phase(gen, main_cfg, cfgs):
     totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                      "library_ms": 0.0, "max_abs_err": 0.0, "flops": 0.0,
                      "bytes": 0.0}
-              for name in ("conv2d_fused", "lrn")}
+              for name in ("conv2d_fused", "lrn", "matmul_bias")}
 
-    def account(name, cfg_name, row):
+    def account(name, key, row):
         tot = totals[name]
         tot["max_abs_err"] = max(tot["max_abs_err"], row["max_err"])
-        if cfg_name == main_cfg.name:      # the main path's forward
+        if key == main or name == "matmul_bias":
             for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
                 src = "kernel_ms" if k == "ms" else k
                 tot[k] += row[src]
             tot["flops"] += row["flops"]
             tot["bytes"] += row["bytes"]
 
-    for cfg_name, layer, xs, cs in conv_cases(cfgs):
+    for cfg_name, batch, layer, xs, cs in conv_cases(cases):
         cin = xs[-1]
         cg = cin // cs.groups
         x = torch.randn(xs, generator=gen, device=dev)
@@ -218,8 +293,8 @@ def kernel_phase(gen, main_cfg, cfgs):
             torch.cuda.synchronize()
             want = conv2d_ref(x, w, cs.stride, cs.padding, cs.groups,
                               bias=b, relu=True)
-            err = check_close(f"conv2d_fused {cfg_name} {layer}", got, want,
-                              CONV_TOL)
+            err = check_close(f"conv2d_fused {cfg_name} b{batch} {layer}",
+                              got, want, CONV_TOL)
             # cuDNN yardstick: the same function in channels-last NCHW
             x_cl = x.permute(0, 3, 1, 2)
             w_cl = w.permute(3, 2, 0, 1).contiguous(
@@ -233,37 +308,37 @@ def kernel_phase(gen, main_cfg, cfgs):
             k_ms = time_ms(lambda: conv_ops.conv2d_fused(
                 x, w, backend="cuda", **kw))
             p_ms = time_ms(lambda: conv2d_ref(x, w, cs.stride, cs.padding,
-                                              cs.groups, bias=b, relu=True))
+                                              cs.groups, bias=b, relu=True),
+                           reps=5)
             l_ms = time_ms(library)
         oh, ow = got.shape[1], got.shape[2]
-        flops = 2.0 * BATCH * oh * ow * cs.out_channels * cs.kernel ** 2 * cg
+        flops = 2.0 * batch * oh * ow * cs.out_channels * cs.kernel ** 2 * cg
         nbytes = 4.0 * (x.numel() + w.numel() + b.numel() + got.numel())
-        bound = max(flops / FP32_PEAK, nbytes / HBM_RATE) * 1e3
+        bound, bound_by = _bound(flops, nbytes)
         row = {"phase": "kernel", "kernel": "conv2d_fused",
-               "config": cfg_name, "layer": layer, "x": list(xs),
-               "w": list(w.shape), "stride": cs.stride,
+               "config": cfg_name, "batch": batch, "layer": layer,
+               "x": list(xs), "w": list(w.shape), "stride": cs.stride,
                "padding": cs.padding, "groups": cs.groups,
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-               "bound_ms": bound,
-               "bound_by": ("operations" if flops / FP32_PEAK
-                            >= nbytes / HBM_RATE else "bytes"),
+               "bound_ms": bound, "bound_by": bound_by,
                "assumes": "67 TFLOP/s fp32 non-tensor, 3.35 TB/s",
                "flops": flops, "bytes": nbytes,
                "tflops": flops / (k_ms * 1e-3) / 1e12,
                "max_err": err, "library_err": lib_err}
         emit(row)
-        account("conv2d_fused", cfg_name, row)
+        account("conv2d_fused", (cfg_name, batch), row)
 
-    cfg = main_cfg
-    n, alpha, beta, k = cfg.lrn_n, cfg.lrn_alpha, cfg.lrn_beta, cfg.lrn_k
-    for cfg_name, layer, xs in lrn_cases(cfgs):
+    for cfg_name, batch, layer, xs in lrn_cases(cases):
+        cfg = next(c for c, _ in cases if c.name == cfg_name)
+        n, alpha, beta, k = cfg.lrn_n, cfg.lrn_alpha, cfg.lrn_beta, cfg.lrn_k
         x = torch.randn(xs, generator=gen, device=dev) * 10.0
         with torch.inference_mode():
             got = lrn_ops.lrn(x, n=n, alpha=alpha, beta=beta, k=k,
                               backend="cuda")
             torch.cuda.synchronize()
             want = lrn_ref(x, n=n, alpha=alpha, beta=beta, k=k)
-            err = check_close(f"lrn {cfg_name} {layer}", got, want, LRN_TOL)
+            err = check_close(f"lrn {cfg_name} b{batch} {layer}", got, want,
+                              LRN_TOL)
             # PyTorch's LRN divides alpha by the window size
             x_nchw = x.permute(0, 3, 1, 2).contiguous()
 
@@ -280,16 +355,77 @@ def kernel_phase(gen, main_cfg, cfgs):
             l_ms = time_ms(library)
         nbytes = 8.0 * x.numel()
         row = {"phase": "kernel", "kernel": "lrn", "config": cfg_name,
-               "layer": layer, "x": list(xs), "n": n, "alpha": alpha,
-               "beta": beta, "k": k, "kernel_ms": k_ms, "plain_ms": p_ms,
-               "library_ms": l_ms, "bound_ms": nbytes / HBM_RATE * 1e3,
-               "bound_by": "bytes", "assumes": "3.35 TB/s", "flops": 0.0,
-               "bytes": nbytes,
+               "batch": batch, "layer": layer, "x": list(xs), "n": n,
+               "alpha": alpha, "beta": beta, "k": k, "kernel_ms": k_ms,
+               "plain_ms": p_ms, "library_ms": l_ms,
+               "bound_ms": nbytes / HBM_RATE * 1e3, "bound_by": "bytes",
+               "assumes": "3.35 TB/s", "flops": 0.0, "bytes": nbytes,
                "gbps": nbytes / (k_ms * 1e-3) / 1e9, "max_err": err,
                "library_err": lib_err}
         emit(row)
-        account("lrn", cfg_name, row)
+        account("lrn", (cfg_name, batch), row)
+
+    gemm_phase(gen, totals, account)
     return totals
+
+
+def gemm_phase(gen, totals, account):
+    """``matmul_bias`` at every GEMM of one replica-step of im2col
+    training on ALEXNET_FAITHFUL (batch 32 per replica).  The plain
+    version (``x @ w + b``, ReLU) and the library yardstick (``addmm`` +
+    ReLU, or ``mm`` for the bias-free backward products) are both cuBLAS
+    fp32 GEMMs: nearly the same call, timed apart all the same."""
+    from repro_torch.configs import ALEXNET_FAITHFUL
+    from repro_torch.kernels.conv2d import ops as conv_ops
+    from repro_torch.kernels.conv2d.ref import matmul_bias_ref
+
+    dev = torch.device("cuda")
+    for layer, product, m, k, n, ta, tb in gemm_cases(ALEXNET_FAITHFUL,
+                                                       IM2COL_BATCH):
+        # unit-variance a and b ~ N(0, 1/K), as He-scaled weights or a
+        # normalized cotangent: outputs are O(1) whatever the depth K, so
+        # the mixed abs/rel tolerance means the same at K = 363 and 96,800
+        a = torch.randn((k, m) if ta else (m, k), generator=gen, device=dev)
+        b = torch.randn((n, k) if tb else (k, n), generator=gen,
+                        device=dev) * k ** -0.5
+        a, b = (a.t() if ta else a), (b.t() if tb else b)
+        bias = (torch.randn((n,), generator=gen, device=dev)
+                if product == "forward" else None)
+        relu = product == "forward"
+        with torch.inference_mode():
+            got = conv_ops.matmul_bias(a, b, bias, relu=relu, backend="cuda")
+            torch.cuda.synchronize()
+            want = matmul_bias_ref(a, b, bias, relu)
+            err = check_close(f"matmul_bias {layer} {product}", got, want,
+                              GEMM_TOL)
+
+            def library():
+                y = torch.addmm(bias, a, b) if relu else torch.mm(a, b)
+                return torch.relu(y) if relu else y
+
+            lib_err = max_err(library(), got)
+            k_ms = time_ms(lambda: conv_ops.matmul_bias(
+                a, b, bias, relu=relu, backend="cuda"), reps=10)
+            p_ms = time_ms(lambda: matmul_bias_ref(a, b, bias, relu),
+                           reps=10)
+            l_ms = time_ms(library, reps=10)
+        flops = 2.0 * m * n * k
+        nbytes = 4.0 * (m * k + k * n + m * n + (n if relu else 0))
+        bound, bound_by = _bound(flops, nbytes)
+        row = {"phase": "kernel", "kernel": "matmul_bias",
+               "config": ALEXNET_FAITHFUL.name, "batch": IM2COL_BATCH,
+               "layer": layer, "product": product, "m": m, "k": k, "n": n,
+               "trans_a": ta, "trans_b": tb, "relu": relu,
+               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "library": "plain and library are both cuBLAS fp32 GEMMs",
+               "bound_ms": bound, "bound_by": bound_by,
+               "assumes": "67 TFLOP/s fp32 non-tensor, 3.35 TB/s",
+               "flops": flops, "bytes": nbytes,
+               "tflops": flops / (k_ms * 1e-3) / 1e12,
+               "blocks": -(-m // 64) * -(-n // 64),
+               "max_err": err, "library_err": lib_err}
+        emit(row)
+        account("matmul_bias", None, row)
 
 
 def closed_loop(engine, pool, n_req: int, clients: int):
@@ -316,7 +452,7 @@ def percentile(sorted_xs, q: float) -> float:
     return sorted_xs[min(int(q * len(sorted_xs)), len(sorted_xs) - 1)]
 
 
-def timing_phase(model, cfg, seed, slots, n_req=4096, windows=3,
+def timing_phase(model, cfg, seed, slots, n_req=2048, windows=3,
                  pool_size=256):
     """images/s and latency p50/p99 of ``windows`` windows of ``n_req``
     full-width requests from ``slots`` closed-loop clients (one forward
@@ -367,7 +503,8 @@ def timing_phase(model, cfg, seed, slots, n_req=4096, windows=3,
           "profiled_idle_share": 1.0 - busy["busy_ms"] / 1e3 / prof_wall,
           "device_busy_ms_per_forward": busy["busy_ms"] / forwards,
           "device_ms_per_forward_by_family": {
-              k: v / forwards for k, v in busy["ms_by_family"].items()}})
+              k: v / forwards for k, v in busy["ms_by_family"].items()},
+          "top_kernels_ms": busy["top_kernels"]})
 
 
 def serving_phase(model_cfg, seed):
@@ -464,21 +601,331 @@ def serving_phase(model_cfg, seed):
     return launches
 
 
-def cli_phase():
+def host_pool(cfg, batch: int, n: int, seed: int):
+    """``n`` host batches of the trainer's synthetic stream, drawn once
+    (drawing a full-width batch of 256 costs the host most of a second,
+    which would time numpy, not the card), and their mean image."""
+    from repro_torch.data import synthetic
+
+    it = synthetic.blob_images(cfg.n_classes, batch, cfg.image_size + 8,
+                               seed=seed)
+    pool = [next(it) for _ in range(n)]
+    return pool, synthetic.mean_image(iter(pool), n)
+
+
+def pool_stream(pool, mean, cfg, seed):
+    """A ``make_stream`` for ``TrainSession``: the pool cycled through the
+    trainer's preprocess (mean, crop, flip) and replica reshape."""
+    from repro_torch.core.steps import reshape_for_replicas
+    from repro_torch.data.preprocess import make_image_preprocess
+
+    def make():
+        prep = make_image_preprocess(mean, cfg.image_size, seed=seed)
+        return (reshape_for_replicas(prep(b), REPLICAS)
+                for b in itertools.cycle(pool))
+    return make
+
+
+def init_state(cfg, seed):
+    from repro_torch.core.steps import init_param_avg_state
+    from repro_torch.models import alexnet
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.tree import tree_map
+
+    def init_fn(gen):
+        model = alexnet.init(cfg, gen, device="cuda")
+        return tree_map(lambda p: p.detach(), model.params())
+
+    return init_param_avg_state(torch.Generator().manual_seed(seed), init_fn,
+                                get_optimizer("sgd_momentum"), REPLICAS)
+
+
+def session(cfg, state, make_stream, steps, per_replica, *,
+            staging="pinned", metrics_path=None, spreads=None):
+    """The trainer's session on ``cfg``: SGD momentum (m 0.9, wd 5e-4),
+    LR 0.01, every-step all-reduce of weights and momentum.  With
+    ``spreads`` each step appends the replicas' spread after it."""
+    from repro_torch.core.param_avg import replica_spread
+    from repro_torch.core.steps import make_param_avg_step
+    from repro_torch.models import alexnet
+    from repro_torch.optim import schedules
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.train_loop import TrainSession
+
+    opt = get_optimizer("sgd_momentum")
+
+    def loss(params, batch):
+        return alexnet.loss_fn(params, cfg, batch["images"],
+                               batch["labels"])
+
+    def build_step(sched):
+        step = make_param_avg_step(loss, opt, sched, strategy="all_reduce")
+        if spreads is None:
+            return step
+
+        def checked(st, batch):
+            st, out = step(st, batch)
+            spreads.append(max(replica_spread(st.params),
+                               replica_spread(st.opt_state)))
+            return st, out
+        return checked
+
+    return TrainSession(
+        state=state, build_step=build_step, make_stream=make_stream,
+        controller=schedules.constant(0.01), steps=steps,
+        device=torch.device("cuda"), staging=staging, log_every=10 ** 9,
+        images_per_step=per_replica * REPLICAS, metrics_path=metrics_path)
+
+
+def launch_counts():
+    from repro_torch.kernels.conv2d.ops import conv2d_fused, matmul_bias
+    from repro_torch.kernels.lrn.ops import lrn
+    return {"conv2d_fused": conv2d_fused, "lrn": lrn,
+            "matmul_bias": matmul_bias}
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in launch_counts().items()}
+
+
+def zero_counts() -> None:
+    for fn in launch_counts().values():
+        fn.launches = 0
+
+
+def losses_of(result) -> list:
+    return [loss for _, loss in result.losses]
+
+
+def train_phase(model_cfg, seed):
+    """Full-width training: launch counts and parity against the plain
+    policy over 3 steps, then timed and traced windows."""
+    import dataclasses
+
+    from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(model_cfg, kernels=KernelPolicy("auto"))
+    plain_cfg = dataclasses.replace(model_cfg, kernels=KernelPolicy("plain"))
+    t0 = time.perf_counter()
+    pool, mean = host_pool(cfg, TRAIN_BATCH * REPLICAS, 4, seed + 7)
+    make_stream = pool_stream(pool, mean, cfg, seed)
+    state0 = init_state(cfg, seed)
+    setup_s = time.perf_counter() - t0
+    steps = 3
+    spreads = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.jsonl")
+        sess = session(cfg, state0, make_stream, steps, TRAIN_BATCH,
+                       metrics_path=path, spreads=spreads)
+        torch.cuda.synchronize()
+        zero_counts()
+        res = sess.run()
+        torch.cuda.synchronize()
+        launches = read_counts()
+    n_conv = len(cfg.convs)
+    n_lrn = sum(cs.lrn for cs in cfg.convs)
+    want = {"conv2d_fused": n_conv * REPLICAS * steps,
+            "lrn": n_lrn * REPLICAS * steps, "matmul_bias": 0}
+    if launches != want:
+        raise AssertionError(f"training launches {launches} != {want}")
+    losses = losses_of(res)
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"training losses {losses}")
+    if len(spreads) != steps or max(spreads) != 0.0:
+        raise AssertionError(f"replica spread after each sync {spreads}")
+    plain = session(plain_cfg, state0, make_stream, steps, TRAIN_BATCH,
+                    metrics_path=os.devnull).run()
+    plain_losses = losses_of(plain)
+    loss_errs = [abs(a - b) for a, b in zip(losses, plain_losses)]
+    if max(loss_errs) > LOSS_TOL:
+        raise AssertionError(f"kernel vs plain losses {losses} / "
+                             f"{plain_losses}")
+    param_err = max(max_err(a, b) for a, b in zip(
+        tree_leaves(res.state.params), tree_leaves(plain.state.params)))
+    emit({"phase": "train", "config": cfg.name, "replicas": REPLICAS,
+          "per_replica_batch": TRAIN_BATCH, "steps": steps,
+          "launches": launches, "losses": losses,
+          "plain_losses": plain_losses, "loss_abs_err": loss_errs,
+          "params_max_abs_err": param_err, "replica_spread": spreads,
+          "staging": "pinned", "setup_s": setup_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del plain
+    state = train_timing(cfg, res.state, make_stream, "preprocess per batch")
+    # the same windows with the pool preprocessed once: the loader thread
+    # then only copies into pinned memory, so the step shows the trainer
+    # and the card rather than the host's numpy
+    pre = make_stream()
+    prepped = [next(pre) for _ in pool]
+    train_timing(cfg, state, lambda: itertools.cycle(prepped),
+                 "preprocessed pool")
+    return launches
+
+
+def train_timing(cfg, state, make_stream, stream, windows=3, steps=10):
+    """``windows`` sessions of 1 warm-up + ``steps`` timed steps: images/s
+    and step p50/p99 from the session's Table-1 summary.  One more
+    session of ``steps`` steps under ``torch.profiler`` gives the
+    device's busy time per step by family; the idle share of a window is
+    1 - busy per step / its mean step time.  Returns the state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(windows):
+            path = os.path.join(tmp, f"w{i}.jsonl")
+            res = session(cfg, state, make_stream, steps + 1, TRAIN_BATCH,
+                          metrics_path=path).run()
+            state = res.state
+            summ = res.summary
+            rows.append({"window": i, "timed_steps": summ["timed_steps"],
+                         "images_per_s": summ["images_per_sec"],
+                         "step_ms_p50": summ["step_ms_p50"],
+                         "step_ms_p99": summ["step_ms_p99"],
+                         "step_ms_mean": 1e3 * TRAIN_BATCH * REPLICAS
+                         / summ["images_per_sec"],
+                         "stage_wait_ms_mean": summ.get(
+                             "stage_wait_ms_mean")})
+        sess = session(cfg, state, make_stream, steps, TRAIN_BATCH,
+                       metrics_path=os.path.join(tmp, "traced.jsonl"))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state = sess.run().state
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        trace = os.path.join(tmp, "train_trace.json")
+        prof.export_chrome_trace(trace)
+        busy = device_busy(trace)
+    busy_step = busy["busy_ms"] / steps
+    for row in rows:
+        row["device_idle_share"] = 1.0 - busy_step / row["step_ms_mean"]
+        emit({"phase": "train_window", "config": cfg.name,
+              "stream": stream, **row})
+
+    def spread(key):
+        xs = sorted(r[key] for r in rows)
+        return {"min": xs[0], "median": statistics.median(xs), "max": xs[-1]}
+
+    emit({"phase": "train_timing", "config": cfg.name, "stream": stream,
+          "replicas": REPLICAS, "per_replica_batch": TRAIN_BATCH,
+          "windows": windows, "timed_steps_per_window": steps,
+          **{k: spread(k) for k in ("images_per_s", "step_ms_p50",
+                                    "step_ms_p99", "device_idle_share")},
+          "traced_wall_s": prof_wall,
+          "device_busy_ms_per_step": busy_step,
+          "device_ms_per_step_by_family": {
+              k: v / steps for k, v in busy["ms_by_family"].items()},
+          "top_kernels_ms": busy["top_kernels"]})
+    return state
+
+
+def im2col_phase(model_cfg, seed):
+    """3 steps at 2 x 32 under the im2col_ref conv: the GEMM kernel's
+    launch count, and the losses against the fused conv."""
+    import dataclasses
+
+    from repro_torch.kernels.common import KernelPolicy
+
+    cfg = dataclasses.replace(model_cfg, kernels=KernelPolicy(
+        "auto", conv2d="im2col_ref"))
+    fused_cfg = dataclasses.replace(model_cfg, kernels=KernelPolicy("auto"))
+    pool, mean = host_pool(cfg, IM2COL_BATCH * REPLICAS, 3, seed + 11)
+    make_stream = pool_stream(pool, mean, cfg, seed)
+    state0 = init_state(cfg, seed)
+    steps = 3
+    sess = session(cfg, state0, make_stream, steps, IM2COL_BATCH,
+                   staging="queue", metrics_path=os.devnull)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = sess.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    # per replica and step: 5 forward + 5 dw + 4 dx (conv1's input, the
+    # images, needs no grad); LRN still runs its kernel; no fused conv
+    want = {"conv2d_fused": 0,
+            "lrn": sum(cs.lrn for cs in cfg.convs) * REPLICAS * steps,
+            "matmul_bias": (3 * len(cfg.convs) - 1) * REPLICAS * steps}
+    if launches != want:
+        raise AssertionError(f"im2col launches {launches} != {want}")
+    losses = losses_of(res)
+    fused = losses_of(session(fused_cfg, state0, make_stream, steps,
+                              IM2COL_BATCH, staging="queue",
+                              metrics_path=os.devnull).run())
+    errs = [abs(a - b) for a, b in zip(losses, fused)]
+    if not all(math.isfinite(v) for v in losses) or \
+            max(errs) > BACKEND_LOSS_TOL:
+        raise AssertionError(f"im2col vs fused losses {losses} / {fused}")
+    emit({"phase": "train_im2col", "config": cfg.name,
+          "replicas": REPLICAS, "per_replica_batch": IM2COL_BATCH,
+          "steps": steps, "launches": launches,
+          "matmul_per_replica_step": "5 forward + 5 dw + 4 dx",
+          "losses": losses, "fused_losses": fused, "loss_abs_err": errs,
+          "wall_s": wall})
+    return launches
+
+
+def _run_cli(module, args, timeout=900):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "alexnet", "--requests", "8"], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=600)
-    print(proc.stdout, end="")
-    lines = proc.stdout.strip().splitlines()
-    if proc.returncode or not lines or lines[-1] != "serve OK":
-        raise AssertionError(f"serve CLI failed (exit {proc.returncode}):\n"
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode:
+        raise AssertionError(f"{module} failed (exit {proc.returncode}):\n"
                              f"{proc.stderr[-4000:]}")
-    emit({"phase": "cli", "seconds": time.perf_counter() - t0})
+    return proc.stdout.strip().splitlines(), time.perf_counter() - t0
+
+
+def cli_phase():
+    """The serving CLI, then the training CLI with checkpoints: 4 steps,
+    resumed to 6, against an uninterrupted 6-step run."""
+    from repro_torch.train_loop.metrics import read_jsonl
+
+    lines, serve_s = _run_cli("repro_torch.launch.serve",
+                              ["--arch", "alexnet", "--requests", "8"])
+    if not lines or lines[-1] != "serve OK":
+        raise AssertionError("the serve CLI did not end in 'serve OK'")
+    base = ["--arch", "alexnet", "--faithful", "--replicas", "2",
+            "--batch", "64", "--log-every", "1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, a, c = (os.path.join(tmp, n) for n in ("ck", "a.jsonl",
+                                                   "c.jsonl"))
+        seconds, done = {"serve": serve_s}, {}
+        for name, extra in (
+                ("first", ["--steps", "4", "--ckpt-dir", ck,
+                           "--ckpt-every", "2", "--metrics-out", a]),
+                ("resumed", ["--steps", "6", "--ckpt-dir", ck, "--resume",
+                             "--metrics-out", a]),
+                ("straight", ["--steps", "6", "--metrics-out", c])):
+            lines, seconds[name] = _run_cli("repro_torch.launch.train",
+                                            base + extra)
+            if not lines or not lines[-1].startswith("done:"):
+                raise AssertionError(f"train CLI ({name}) did not end in "
+                                     "'done:'")
+            done[name] = lines[-1]
+        if not done["resumed"].startswith("done: steps 4 -> 6"):
+            raise AssertionError(f"the resumed run: {done['resumed']}")
+        resumed = {r["step"]: r["loss"] for r in read_jsonl(a, "train")}
+        straight = {r["step"]: r["loss"] for r in read_jsonl(c, "train")}
+    if sorted(resumed) != list(range(1, 7)) or sorted(straight) != list(
+            range(1, 7)):
+        raise AssertionError(f"steps {sorted(resumed)} / {sorted(straight)}")
+    diffs = {s: abs(resumed[s] - straight[s]) for s in range(1, 7)}
+    if not all(math.isfinite(v) for v in list(resumed.values())
+               + list(straight.values())):
+        raise AssertionError("non-finite training loss in the CLI runs")
+    if max(diffs.values()) > LOSS_TOL:
+        raise AssertionError(f"resumed vs uninterrupted losses {diffs}")
+    emit({"phase": "cli", "seconds": seconds,
+          "resumed_losses": [resumed[5], resumed[6]],
+          "straight_losses": [straight[5], straight[6]],
+          "abs_diff_by_step": diffs,
+          "bit_exact_resume": all(v == 0.0 for v in diffs.values())})
 
 
 def main() -> int:
@@ -492,10 +939,11 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs import ALEXNET, ALEXNET_FAITHFUL
     from repro_torch.kernels import _build
+    from repro_torch.launch.train import fp32_numerics
 
+    t_start = time.perf_counter()
     print(card(), flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    fp32_numerics(torch.device("cuda"))
     print(sys.version.split()[0], "torch", torch.__version__, "cuda",
           torch.version.cuda, flush=True)
 
@@ -511,27 +959,38 @@ def main() -> int:
     global CYCLES_PER_MS
     CYCLES_PER_MS = _sleep_cycles_per_ms()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    totals = kernel_phase(gen, ALEXNET_FAITHFUL, [ALEXNET_FAITHFUL, ALEXNET])
-    launches = serving_phase(ALEXNET_FAITHFUL, args.seed)
+    totals = kernel_phase(
+        gen, (ALEXNET_FAITHFUL.name, TRAIN_BATCH),
+        [(ALEXNET_FAITHFUL, SERVE_BATCH), (ALEXNET, SERVE_BATCH),
+         (ALEXNET_FAITHFUL, TRAIN_BATCH)])
+    by_path = {"serving": serving_phase(ALEXNET_FAITHFUL, args.seed)}
+    by_path["train"] = train_phase(ALEXNET_FAITHFUL, args.seed)
+    by_path["train_im2col"] = im2col_phase(ALEXNET_FAITHFUL, args.seed)
     cli_phase()
 
     src = "src/repro_torch/kernels"
     meta = {
         "conv2d_fused": (f"{src}/conv2d/csrc/conv2d_fused.cu",
-                         "src/repro/kernels/conv2d/conv2d.py:152"),
-        "lrn": (f"{src}/lrn/csrc/lrn.cu", "src/repro/kernels/lrn/lrn.py:37"),
+                         "src/repro/kernels/conv2d/conv2d.py:152", "train"),
+        "lrn": (f"{src}/lrn/csrc/lrn.cu", "src/repro/kernels/lrn/lrn.py:37",
+                "train"),
+        "matmul_bias": (f"{src}/conv2d/csrc/matmul_bias.cu",
+                        "src/repro/kernels/conv2d/conv2d.py:50",
+                        "train_im2col"),
     }
     kernels = []
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces, path) in meta.items():
         tot = totals[name]
-        bound_by = ("operations" if tot["flops"] / FP32_PEAK
-                    >= tot["bytes"] / HBM_RATE else "bytes")
+        _, bound_by = _bound(tot["flops"], tot["bytes"])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": by_path[path][name],
+            "launches_by_path": {p: c.get(name, 0)
+                                 for p, c in by_path.items()},
             "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": bound_by, "library_ms": tot["library_ms"]})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

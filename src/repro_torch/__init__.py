@@ -5,17 +5,26 @@ against; the port imports neither it nor ``jax``.  Layouts at the public
 functions are the reference's own (images NHWC, conv weights HWIO, FC
 weights (in, out)), so both packages take the same numpy arrays.
 
-Ported so far — serving the paper's AlexNet:
+Ported so far — serving and training the paper's AlexNet:
 
   configs/         AlexNet configs (``ALEXNET``, ``ALEXNET_FAITHFUL``, ...)
   kernels/         hand-written CUDA kernels for sm_90a (grouped
-                   implicit-GEMM conv, cross-channel LRN), each beside its
-                   plain PyTorch version, selected by ``KernelPolicy``
-  models/          ``AlexNet`` (``nn.Module``), ``init``, the conv-family
-                   ``DecodeState``
-  weights          the bridge to and from the reference's params
+                   implicit-GEMM conv, cross-channel LRN, blocked GEMM),
+                   each beside its plain PyTorch version, selected by
+                   ``KernelPolicy``, each differentiable
+  models/          ``AlexNet`` (``nn.Module``) and its functional forward
+                   and loss, ``init``, the conv-family ``DecodeState``
+  weights          the bridge to and from the reference's params and
+                   ``TrainState``
+  tree             nested dict / list trees of tensors
+  optim/           SGD with momentum, LR schedules, the plateau controller
+  core/            the replica exchange and the parameter-averaging step
+  data/            synthetic streams, preprocessing, the prefetching and
+                   pinned-staging loaders
+  checkpoint/      checkpoints in the reference's on-disk format
+  train_loop/      resumable sessions, eval, JSONL metrics
   serving/         ``ServingEngine`` for image classification, sampling
-  launch/serve.py  the serving CLI
+  launch/          the serving and training CLIs
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``, ``--device cpu``); on the CPU every kernel runs its

@@ -1,0 +1,5 @@
+"""Checkpoints in the reference's on-disk format."""
+from repro_torch.checkpoint.checkpoint import (latest_step, load_meta,
+                                               restore, save)
+
+__all__ = ["latest_step", "load_meta", "restore", "save"]

@@ -14,10 +14,15 @@ request (parity checks on the card); nothing falls back to it.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 BACKENDS = ("auto", "plain", "cuda")
+# ``conv2d``: None is the fused implicit-GEMM kernel; ``im2col_ref`` is the
+# two-stage parity path (``F.unfold`` + the ``matmul_bias`` kernel), the
+# reference's ``conv2d="pallas_im2col_ref"``
+CONV2D = (None, "im2col_ref")
 
 
 def _check_backend(name: str, value) -> None:
@@ -27,15 +32,22 @@ def _check_backend(name: str, value) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class KernelPolicy:
-    """Per-run kernel selection: ``backend`` applies to every op."""
+    """Per-run kernel selection: ``backend`` applies to every op;
+    ``conv2d`` picks the conv formulation (``CONV2D``)."""
     backend: str = "auto"
+    conv2d: Optional[str] = None
 
     def __post_init__(self):
         _check_backend("backend", self.backend)
+        if self.conv2d not in CONV2D:
+            raise ValueError(f"conv2d must be one of {CONV2D}, "
+                             f"got {self.conv2d!r}")
 
     def describe(self) -> dict:
-        """Stable summary for logging."""
-        return dataclasses.asdict(self)
+        """Stable summary for logging: the fields that are set."""
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None}
 
 
 def policy_of(cfg) -> KernelPolicy:
@@ -87,11 +99,3 @@ def check_operand(name: str, t: torch.Tensor, ndim: int) -> None:
     if t.numel() >= 2 ** 31:
         raise ValueError(f"{name} has {t.numel()} elements; the kernel "
                          "indexes with 32-bit offsets")
-
-
-def check_no_grad(*tensors: torch.Tensor) -> None:
-    """The kernels have no backward yet (training is the next slice)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "this CUDA kernel has no backward yet: call it under "
-            "torch.no_grad() / torch.inference_mode()")

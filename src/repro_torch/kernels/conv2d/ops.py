@@ -1,37 +1,46 @@
-"""Conv dispatch: the CUDA implicit-GEMM kernel (``csrc/conv2d_fused.cu``)
-or its plain version.
+"""Conv dispatch: the CUDA kernels (``csrc/conv2d_fused.cu``,
+``csrc/matmul_bias.cu``) or their plain versions, each differentiable.
 
 ``conv2d_fused(x, w, ...)`` takes the reference's layouts: x (B,H,W,Cin)
-NHWC, w (K,K,Cin/G,Cout) HWIO, output channels group-major.  Under
-``backend="auto"`` a CUDA tensor runs the kernel and a CPU tensor the
-plain version (``ref.conv2d_ref``); ``conv2d_fused.launches`` counts
-kernel launches.
+NHWC, w (K,K,Cin/G,Cout) HWIO, output channels group-major.  Its backward
+follows ``_conv_fused_bwd`` (``repro/kernels/conv2d/conv2d.py``): the ReLU
+mask, the bias sum, and dx / dw as the conv's transposes, which the
+reference leaves to XLA's conv-grad and this port to the library's
+(``aten.convolution_backward``).
+
+``matmul_bias(x, w, b, ...)`` is (M,K) @ (K,N) + b with the bias/ReLU
+epilogue; its backward is two more launches of the same kernel,
+``dx = dy @ w^T`` and ``dw = x^T @ dy``, with the transposes read in
+place.  ``conv2d_im2col`` is the two-stage parity formulation built on
+it: ``F.unfold`` patches (the reference's XLA patch extraction) times
+the reordered, block-diagonal weight matrix.
+
+Under ``backend="auto"`` a CUDA tensor runs the kernels and a CPU tensor
+the plain versions (``ref``).  ``conv2d_fused.launches`` counts forward
+launches (its backward is the library's); ``matmul_bias.launches``
+counts every launch, backward included.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build, common
 from repro_torch.kernels.conv2d import ref as conv_ref
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
-             + [ctypes.c_void_p])
+_CONV_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
+                  + [ctypes.c_void_p])
+_MATMUL_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    ctypes.c_void_p]
 
 
-def conv2d_fused(x, w, *, stride: int, padding: int, bias=None,
-                 relu: bool = False, groups: int = 1,
-                 backend: str = "auto"):
-    """x (B,H,W,Cin), w (K,K,Cin/G,Cout) -> (B,OH,OW,Cout) float32, with
-    the bias add and optional ReLU fused."""
-    k, _, wcin, cout = w.shape
-    cin = x.shape[-1]
-    if wcin * groups != cin:
-        raise ValueError(f"w in-channels {wcin} x groups {groups} != "
-                         f"x channels {cin}")
-    if cout % groups:
-        raise ValueError(f"cout {cout} not divisible by groups {groups}")
+# ------------------------------------------------------- fused conv ------
+
+def _conv_forward(x, w, bias, stride, padding, relu, groups, backend):
+    """One forward: the kernel launch, or the plain version."""
+    k, _, _, cout = w.shape
     if common.route(backend, x) == "plain":
         return conv_ref.conv2d_ref(x, w, stride, padding, groups,
                                    bias=bias, relu=relu)
@@ -42,20 +51,19 @@ def conv2d_fused(x, w, *, stride: int, padding: int, bias=None,
         if bias.shape[0] != cout:
             raise ValueError(f"bias has {bias.shape[0]} entries, "
                              f"cout is {cout}")
-    common.check_no_grad(x, w, *(() if bias is None else (bias,)))
     if w.shape[1] != k:
         raise ValueError(f"the kernel takes square windows, got "
                          f"{tuple(w.shape[:2])}")
     if stride < 1 or padding < 0:
         raise ValueError(f"stride {stride} / padding {padding} out of range")
-    b_, h, wd, _ = x.shape
+    b_, h, wd, cin = x.shape
     oh = (h + 2 * padding - k) // stride + 1
     ow = (wd + 2 * padding - k) // stride + 1
     if b_ < 1 or oh < 1 or ow < 1:
         raise ValueError(f"empty output: batch {b_}, {oh}x{ow} map")
     y = torch.empty((b_, oh, ow, cout), device=x.device, dtype=torch.float32)
     common.check_operand("y", y, 4)
-    fn = _build.function("conv2d_fused_f32", _ARGTYPES)
+    fn = _build.function("conv2d_fused_f32", _CONV_ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(),
              None if bias is None else bias.data_ptr(), y.data_ptr(),
              b_, h, wd, cin, oh, ow, cout, k, stride, padding, groups,
@@ -66,4 +74,189 @@ def conv2d_fused(x, w, *, stride: int, padding: int, bias=None,
     return y
 
 
+def conv_transpose_grads(dy, x, w, stride: int, padding: int, groups: int,
+                         need_x: bool = True, need_w: bool = True):
+    """dx (NHWC) and dw (HWIO) of the grouped conv y = conv(x, w) for the
+    cotangent dy (NHWC): the library's conv-grad on channels-last views,
+    the counterpart of XLA's conv-transpose in the reference.  A grad
+    that is not needed comes back as None."""
+    w_oihw = w.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w_oihw, None,
+        [stride, stride], [padding, padding], [1, 1], False, [0, 0],
+        groups, [need_x, need_w, False])
+    return (dx.permute(0, 2, 3, 1).contiguous() if need_x else None,
+            dw.permute(2, 3, 1, 0).contiguous() if need_w else None)
+
+
+class _ConvFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias, stride, padding, relu, groups, backend):
+        y = _conv_forward(x, w, bias, stride, padding, relu, groups,
+                          backend)
+        ctx.save_for_backward(x, w, y)
+        ctx.conf = (stride, padding, relu, groups)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, y = ctx.saved_tensors
+        stride, padding, relu, groups = ctx.conf
+        if relu:
+            dy = dy * (y > 0).to(dy.dtype)
+        db = dy.sum((0, 1, 2)) if ctx.needs_input_grad[2] else None
+        dx, dw = conv_transpose_grads(dy, x, w, stride, padding, groups,
+                                      ctx.needs_input_grad[0],
+                                      ctx.needs_input_grad[1])
+        return dx, dw, db, None, None, None, None, None
+
+
+def conv2d_fused(x, w, *, stride: int, padding: int, bias=None,
+                 relu: bool = False, groups: int = 1,
+                 backend: str = "auto"):
+    """x (B,H,W,Cin), w (K,K,Cin/G,Cout) -> (B,OH,OW,Cout) float32, with
+    the bias add and optional ReLU fused.  Differentiable."""
+    _, _, wcin, cout = w.shape
+    cin = x.shape[-1]
+    if wcin * groups != cin:
+        raise ValueError(f"w in-channels {wcin} x groups {groups} != "
+                         f"x channels {cin}")
+    if cout % groups:
+        raise ValueError(f"cout {cout} not divisible by groups {groups}")
+    return _ConvFused.apply(x, w, bias, stride, padding, relu, groups,
+                            backend)
+
+
 conv2d_fused.launches = 0
+
+
+# --------------------------------------------------- blocked GEMM --------
+
+def _layout(name: str, t: torch.Tensor) -> int:
+    """1 when ``t`` is the transpose of a contiguous matrix (the kernel
+    reads it in place), 0 when it is contiguous; raises otherwise."""
+    if t.dim() != 2:
+        raise ValueError(f"{name} must be a matrix, got shape "
+                         f"{tuple(t.shape)}")
+    if t.is_contiguous():
+        common.check_operand(name, t, 2)
+        return 0
+    if t.t().is_contiguous():
+        common.check_operand(f"{name}^T", t.t(), 2)
+        return 1
+    raise ValueError(f"{name} must be contiguous or the transpose of a "
+                     "contiguous matrix")
+
+
+def _matmul(x, w, b, relu, backend):
+    """One product: the kernel launch, or the plain version."""
+    if common.route(backend, x) == "plain":
+        return conv_ref.matmul_bias_ref(x, w, b, relu)
+    m, k = x.shape
+    n = w.shape[1]
+    trans_a = _layout("x", x)
+    trans_b = _layout("w", w)
+    if b is not None:
+        common.check_operand("b", b, 1)
+    if n > 65535 * 64:
+        raise ValueError(f"N = {n} exceeds the kernel's grid")
+    y = torch.empty((m, n), device=x.device, dtype=torch.float32)
+    common.check_operand("y", y, 2)
+    fn = _build.function("matmul_bias_f32", _MATMUL_ARGTYPES)
+    err = fn(x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+             y.data_ptr(), m, n, k, trans_a, trans_b, int(relu),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise _build.launch_error("matmul_bias_f32", err)
+    matmul_bias.launches += 1
+    return y
+
+
+class _MatmulBias(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, relu, backend):
+        y = _matmul(x, w, b, relu, backend)
+        ctx.save_for_backward(x, w, y)
+        ctx.conf = (relu, backend)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, y = ctx.saved_tensors
+        relu, backend = ctx.conf
+        if relu:
+            dy = dy * (y > 0).to(dy.dtype)
+        dy = dy.contiguous()
+        db = dy.sum(0) if ctx.needs_input_grad[2] else None
+        # the same kernel on permuted operands, transposes read in place
+        dx = (_matmul(dy, w.t(), None, False, backend)
+              if ctx.needs_input_grad[0] else None)
+        dw = (_matmul(x.t(), dy, None, False, backend)
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw, db, None, None
+
+
+def matmul_bias(x, w, b=None, *, relu: bool = False, backend: str = "auto"):
+    """(M,K) @ (K,N) + b(N,) -> (M,N) float32 with the bias add and
+    optional ReLU fused.  ``x`` and ``w`` may be transposed views of
+    contiguous matrices.  Differentiable."""
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w.shape)} do "
+                         "not chain")
+    if x.shape[0] < 1 or w.shape[1] < 1:
+        raise ValueError(f"empty output {x.shape[0]} x {w.shape[1]}")
+    if b is not None and tuple(b.shape) != (w.shape[1],):
+        raise ValueError(f"b has shape {tuple(b.shape)}, expected "
+                         f"({w.shape[1]},)")
+    return _MatmulBias.apply(x, w, b, relu, backend)
+
+
+matmul_bias.launches = 0
+
+
+# ------------------------------------------------ two-stage im2col -------
+
+def im2col(x, kernel: int, stride: int, padding: int):
+    """x (B,H,W,C) -> patches (B, OH, OW, C*K*K), channel-major features
+    (c*K*K + kh*K + kw), the layout of the reference's
+    ``conv_general_dilated_patches``."""
+    b_, h, wd, _ = x.shape
+    oh = (h + 2 * padding - kernel) // stride + 1
+    ow = (wd + 2 * padding - kernel) // stride + 1
+    cols = F.unfold(x.permute(0, 3, 1, 2), kernel, padding=padding,
+                    stride=stride)                      # (B, C*K*K, L)
+    return cols.transpose(1, 2).reshape(b_, oh, ow, -1)
+
+
+def reorder_weights(w, groups: int = 1):
+    """(K,K,Cin/G,Cout) -> (Cin*K*K, Cout) rows in the patches'
+    channel-major order; a grouped conv embeds as the block-diagonal
+    matrix, so one GEMM runs every group.  Recomputed per call (a cheap
+    reshape of the weights) so autograd sees the live weight."""
+    wm = w.permute(2, 0, 1, 3).reshape(-1, w.shape[-1])
+    if groups == 1:
+        return wm
+    npg = w.shape[-1] // groups
+    return torch.block_diag(*[wm[:, g * npg:(g + 1) * npg]
+                              for g in range(groups)])
+
+
+def conv2d_im2col(x, w, *, stride: int, padding: int, bias=None,
+                  relu: bool = False, groups: int = 1,
+                  backend: str = "auto"):
+    """Two-stage conv: ``F.unfold`` patches, then ``matmul_bias`` against
+    the reordered weights.  x (B,H,W,Cin), w (K,K,Cin/G,Cout) ->
+    (B,OH,OW,Cout).  Differentiable."""
+    k, _, wcin, cout = w.shape
+    if wcin * groups != x.shape[-1]:
+        raise ValueError(f"w in-channels {wcin} x groups {groups} != "
+                         f"x channels {x.shape[-1]}")
+    if cout % groups:
+        raise ValueError(f"cout {cout} not divisible by groups {groups}")
+    patches = im2col(x, k, stride, padding)
+    b_, oh, ow, feat = patches.shape
+    y = matmul_bias(patches.reshape(b_ * oh * ow, feat),
+                    reorder_weights(w, groups), bias, relu=relu,
+                    backend=backend)
+    return y.reshape(b_, oh, ow, cout)

@@ -1,7 +1,7 @@
-"""Plain PyTorch version of the fused conv: grouped NHWC x HWIO conv with
-bias and ReLU.
+"""Plain PyTorch versions of the conv kernels: the grouped NHWC x HWIO conv
+with bias and ReLU, and the blocked GEMM with its bias/ReLU epilogue.
 
-It repeats the arithmetic of the reference kernel
+``conv2d_ref`` repeats the arithmetic of the reference kernel
 (``repro/kernels/conv2d/conv2d.py::_conv_fused_kernel``): for every kernel
 offset (kh, kw) the strided window slice of the zero-padded image is that
 offset's (M, Cg) slab of the im2col matrix, and the conv is the sum of
@@ -44,4 +44,14 @@ def conv2d_ref(x, w, stride: int, padding: int, groups: int = 1, *,
     y = outs[0] if groups == 1 else torch.cat(outs, dim=-1)
     if bias is not None:
         y = y + bias.float()
+    return torch.relu(y) if relu else y
+
+
+def matmul_bias_ref(x, w, b=None, relu: bool = False):
+    """(M,K) @ (K,N) + b(N,) in fp32, optional ReLU: the arithmetic of
+    ``repro/kernels/conv2d/ref.py::matmul_bias_ref``.  Takes transposed
+    views as they are."""
+    y = x.float() @ w.float()
+    if b is not None:
+        y = y + b.float()
     return torch.relu(y) if relu else y

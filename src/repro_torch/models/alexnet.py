@@ -9,11 +9,19 @@ otherwise LRN runs before the pool and the convs are ungrouped.
 Layouts are the reference's: images and activations NHWC, conv weights
 HWIO, FC weights (in, out), and the flatten before FC1 is in NHWC order,
 so FC1's rows line up with the reference's.  Conv and LRN go through
-``kernels.conv2d.ops.conv2d_fused`` and ``kernels.lrn.ops.lrn`` (the CUDA
-kernels on the card, their plain versions on the CPU, per
-``cfg.kernels``).  Max-pool and the FC products are library calls, as
-the reference leaves them to XLA.  This slice serves: the forward has no
-dropout and the kernels no backward.
+``kernels.conv2d.ops`` and ``kernels.lrn.ops.lrn`` (the CUDA kernels on
+the card, their plain versions on the CPU, per ``cfg.kernels``); every
+one is differentiable.  ``cfg.kernels.conv2d`` picks the conv
+formulation: the fused implicit-GEMM kernel (``None``) or the two-stage
+``im2col_ref`` path through the ``matmul_bias`` kernel.  Max-pool and the
+FC products are library calls, as the reference leaves them to XLA.
+
+``forward(params, cfg, images)`` and ``loss_fn`` are functions of a
+params tree in the reference's structure (``{"convs": [{"w", "b"}],
+"fcs": [...]}``) so the trainer can run them on one replica's slice of
+stacked parameters; ``AlexNet.forward`` runs them on the module's own.
+Dropout (``train=True``) draws its masks from an explicit
+``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -22,8 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.common import device_of, policy_of
-from repro_torch.kernels.conv2d.ops import conv2d_fused
+from repro_torch.kernels.conv2d.ops import conv2d_fused, conv2d_im2col
 from repro_torch.kernels.lrn.ops import lrn
+from repro_torch.models.layers import softmax_xent
 
 
 def maxpool(x, size: int = 3, stride: int = 2):
@@ -49,6 +58,58 @@ def param_shapes(cfg) -> dict:
     return {"convs": convs, "fcs": [(d, (d[1],)) for d in dims]}
 
 
+def dropout(h, rate: float, generator):
+    """Keep each activation with probability 1 - ``rate`` and scale the
+    kept ones by 1 / (1 - rate), as the reference's ``train`` forward;
+    the mask comes from ``generator`` (on ``h``'s device)."""
+    if generator is None:
+        raise ValueError("dropout needs a torch.Generator for its masks")
+    keep = torch.rand(h.shape, generator=generator, device=h.device) >= rate
+    return torch.where(keep, h / (1 - rate), torch.zeros((), device=h.device))
+
+
+def forward(params, cfg, images, *, train: bool = False, generator=None):
+    """images (B,H,W,C) -> logits (B, n_classes) float32.  ``params`` is a
+    tree in the reference's structure; conv and LRN run the
+    implementations ``cfg.kernels`` selects.  ``train=True`` applies the
+    FC dropout with masks drawn from ``generator`` (on the images'
+    device)."""
+    pol = policy_of(cfg)
+    backend = pol.backend
+    conv = conv2d_im2col if pol.conv2d == "im2col_ref" else conv2d_fused
+
+    def _lrn(h):
+        return lrn(h, n=cfg.lrn_n, alpha=cfg.lrn_alpha, beta=cfg.lrn_beta,
+                   k=cfg.lrn_k, backend=backend)
+
+    h = images
+    for cp, cs in zip(params["convs"], cfg.convs):
+        h = conv(h, cp["w"], stride=cs.stride, padding=cs.padding,
+                 bias=cp["b"], relu=True, groups=cs.groups, backend=backend)
+        # faithful: pool, then normalize the pooled map (Caffe order)
+        if not cfg.faithful and cs.lrn:
+            h = _lrn(h)
+        if cs.pool:
+            h = maxpool(h)
+        if cfg.faithful and cs.lrn:
+            h = _lrn(h)
+    h = h.reshape(h.shape[0], -1)
+    for i, fp in enumerate(params["fcs"]):
+        if i > 0:
+            h = torch.relu(h)
+            if train and cfg.dropout > 0:
+                h = dropout(h, cfg.dropout, generator)
+        h = torch.matmul(h, fp["w"]) + fp["b"]
+    return h.float()
+
+
+def loss_fn(params, cfg, images, labels, *, train: bool = False,
+            generator=None):
+    """Mean softmax cross-entropy of the logits against int ``labels``."""
+    logits = forward(params, cfg, images, train=train, generator=generator)
+    return softmax_xent(logits[:, None, :], labels[:, None])
+
+
 class AlexNet(nn.Module):
     """Parameters: ``conv_w[i]`` (K,K,Cin/G,Cout), ``conv_b[i]``,
     ``fc_w[i]`` (in,out), ``fc_b[i]``.  Built uninitialized; ``init``
@@ -63,42 +124,24 @@ class AlexNet(nn.Module):
 
         def plist(shs):
             return nn.ParameterList(
-                nn.Parameter(torch.empty(s, device=dev), requires_grad=False)
-                for s in shs)
+                nn.Parameter(torch.empty(s, device=dev)) for s in shs)
 
         self.conv_w = plist([w for w, _ in shapes["convs"]])
         self.conv_b = plist([b for _, b in shapes["convs"]])
         self.fc_w = plist([w for w, _ in shapes["fcs"]])
         self.fc_b = plist([b for _, b in shapes["fcs"]])
 
-    def forward(self, images):
-        """images (B,H,W,C) -> logits (B, n_classes) float32; conv and LRN
-        run the implementations ``cfg.kernels`` selects."""
-        cfg = self.cfg
-        backend = policy_of(cfg).backend
+    def params(self) -> dict:
+        """The module's parameters as the reference's tree."""
+        return {"convs": [{"w": w, "b": b}
+                          for w, b in zip(self.conv_w, self.conv_b)],
+                "fcs": [{"w": w, "b": b}
+                        for w, b in zip(self.fc_w, self.fc_b)]}
 
-        def _lrn(h):
-            return lrn(h, n=cfg.lrn_n, alpha=cfg.lrn_alpha, beta=cfg.lrn_beta,
-                       k=cfg.lrn_k, backend=backend)
-
-        h = images
-        for w, b, cs in zip(self.conv_w, self.conv_b, cfg.convs):
-            h = conv2d_fused(h, w, stride=cs.stride, padding=cs.padding,
-                             bias=b, relu=True, groups=cs.groups,
-                             backend=backend)
-            # faithful: pool, then normalize the pooled map (Caffe order)
-            if not cfg.faithful and cs.lrn:
-                h = _lrn(h)
-            if cs.pool:
-                h = maxpool(h)
-            if cfg.faithful and cs.lrn:
-                h = _lrn(h)
-        h = h.reshape(h.shape[0], -1)
-        for i, (w, b) in enumerate(zip(self.fc_w, self.fc_b)):
-            if i > 0:
-                h = torch.relu(h)
-            h = torch.matmul(h, w) + b
-        return h.float()
+    def forward(self, images, *, train: bool = False, generator=None):
+        """images (B,H,W,C) -> logits (B, n_classes) float32."""
+        return forward(self.params(), self.cfg, images, train=train,
+                       generator=generator)
 
 
 @torch.no_grad()

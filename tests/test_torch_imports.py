@@ -1,5 +1,5 @@
 """The port stands alone: it never imports ``jax`` or the reference
-package ``repro``, at import time or while it serves."""
+package ``repro``, at import time, while it serves or while it trains."""
 import os
 import re
 import subprocess
@@ -25,9 +25,13 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 serve.main(["--arch", "alexnet", "--smoke", "--device", "cpu",
             "--requests", "3", "--slots", "2"])
+train.main(["--arch", "alexnet", "--smoke", "--faithful", "--device", "cpu",
+            "--steps", "2", "--batch", "4", "--replicas", "2",
+            "--image-size", "48", "--staging", "queue", "--eval-every", "1",
+            "--eval-batches", "1"])
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -42,6 +46,7 @@ def test_port_never_imports_jax_or_the_reference():
                           text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "serve OK" in proc.stdout
+    assert "done: steps 0 -> 2" in proc.stdout
     n = int(re.search(r"imported (\d+) modules", proc.stdout).group(1))
     assert n == len([f for f in FILES if f.parent != ROOT]) - 1
 

@@ -1,0 +1,208 @@
+"""The port's blocked GEMM and two-stage im2col conv against the
+reference's.
+
+On the CPU ``repro_torch``'s ``matmul_bias`` runs its plain version and
+the reference's its Pallas kernel in interpret mode, on the same numpy
+inputs; grads go through the port's ``torch.autograd.Function`` and
+``jax.grad`` through the reference's ``custom_vjp``.  The tests marked
+``cuda`` hold the CUDA kernel against the plain version on the card and
+skip on a host without one; they import no JAX.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.conv2d import ops, ref
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from repro.kernels.conv2d import conv2d as jax_conv
+    from repro.kernels.conv2d import ops as jax_ops
+except ImportError:      # a GPU host without JAX runs only the cuda tests
+    jax = jnp = jax_conv = jax_ops = None
+
+TOL = 1e-5               # tests/kernels/test_conv2d.py's matmul tolerance
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+CONV_TOL = 2e-4          # the conv registry's tolerance
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _mats(m, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(m, k)).astype(np.float32),
+            rng.normal(size=(k, n)).astype(np.float32),
+            rng.normal(size=(n,)).astype(np.float32))
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["linear", "relu"])
+@pytest.mark.parametrize("m,k,n", [(100, 70, 50), (150, 93, 37)])
+def test_forward_matches_reference(m, k, n, relu):
+    x, w, b = _mats(m, k, n)
+    got = ops.matmul_bias(torch.from_numpy(x), torch.from_numpy(w),
+                          torch.from_numpy(b), relu=relu)
+    want = jax_conv.matmul_bias(jnp.asarray(x), jnp.asarray(w),
+                                jnp.asarray(b), relu=relu, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["linear", "relu"])
+def test_grads_match_jax_grad(relu):
+    x, w, b = _mats(64, 48, 40, seed=1)
+
+    def jloss(x_, w_, b_):
+        return jnp.sum(jnp.cos(jax_conv.matmul_bias(x_, w_, b_, relu=relu,
+                                                    interpret=True)))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w),
+                                              jnp.asarray(b))
+    xt, wt, bt = (torch.tensor(a, requires_grad=True) for a in (x, w, b))
+    torch.cos(ops.matmul_bias(xt, wt, bt, relu=relu)).sum().backward()
+    for got, ref_ in zip((xt.grad, wt.grad, bt.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref_),
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def test_transposed_views_are_read_in_place():
+    x, w, b = _mats(30, 20, 10, seed=2)
+    xt = torch.from_numpy(np.ascontiguousarray(x.T)).t()
+    wt = torch.from_numpy(np.ascontiguousarray(w.T)).t()
+    assert not xt.is_contiguous() and not wt.is_contiguous()
+    got = ops.matmul_bias(xt, wt, torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), x @ w + b, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("xs,ws,bs,match", [
+    ((4, 5), (6, 3), None, "do not chain"),
+    ((4, 5), (5, 3), (4,), "b has shape"),
+    ((0, 5), (5, 3), None, "empty output"),
+])
+def test_shape_errors(xs, ws, bs, match):
+    with pytest.raises(ValueError, match=match):
+        ops.matmul_bias(torch.zeros(xs), torch.zeros(ws),
+                        None if bs is None else torch.zeros(bs))
+
+
+def test_cuda_backend_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.matmul_bias(torch.zeros(4, 5), torch.zeros(5, 3),
+                        backend="cuda")
+
+
+def _registry_example(grouped, seed=0):
+    rng = np.random.default_rng(seed)
+    c, co = (8, 12) if grouped else (5, 11)
+    x = rng.normal(size=(2, 13, 13, c)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, c // (2 if grouped else 1), co))
+         * 0.2).astype(np.float32)
+    return x, w
+
+
+@pytest.mark.parametrize("grouped,stride,groups", [
+    (False, 2, 1),          # registry op "conv2d": stride 2, pad 1
+    (True, 1, 2),           # registry op "conv2d_grouped": stride 1, pad 1
+], ids=["conv2d", "conv2d_grouped"])
+def test_im2col_conv_matches_reference(grouped, stride, groups):
+    x, w = _registry_example(grouped)
+    b = np.linspace(-0.5, 0.5, w.shape[-1]).astype(np.float32)
+    kw = dict(stride=stride, padding=1, relu=True, groups=groups)
+
+    def jloss(x_, w_, b_):
+        y = jax_ops.conv2d_im2col(x_, w_, bias=b_, interpret=True, **kw)
+        return jnp.sum(jnp.sin(y)), y
+
+    (_, jy), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                     has_aux=True)(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    xt, wt, bt = (torch.tensor(a, requires_grad=True) for a in (x, w, b))
+    y = ops.conv2d_im2col(xt, wt, bias=bt, **kw)
+    torch.sin(y).sum().backward()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy),
+                               rtol=CONV_TOL, atol=CONV_TOL)
+    for got, want in zip((xt.grad, wt.grad, bt.grad), jg):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=CONV_TOL, atol=CONV_TOL)
+
+
+def test_im2col_features_are_channel_major_like_the_reference():
+    """``F.unfold``'s features and XLA's patches agree at groups=2, and
+    the block-diagonal weights line up with them."""
+    x, w = _registry_example(True, seed=3)
+    got = ops.im2col(torch.from_numpy(x), 3, 1, 1)
+    want = jax_ops.im2col(jnp.asarray(x), 3, 1, 1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        ops.reorder_weights(torch.from_numpy(w), 2).numpy(),
+        np.asarray(jax_ops._reorder(jnp.asarray(w), 2)))
+
+
+# kernel edge cases: M, K or N of 1, K off the 16-wide chunk, ragged
+# 64-wide tiles, every transposed-operand flag, ReLU on and off
+CUDA_CASES = [
+    # m, k, n, trans_a, trans_b, bias, relu
+    (1, 16, 64, False, False, True, True),
+    (64, 1, 64, False, False, True, False),
+    (65, 17, 1, False, False, False, False),
+    (100, 70, 50, False, False, True, True),
+    (150, 93, 37, True, False, False, False),
+    (97, 363, 96, False, True, False, False),
+    (363, 1000, 96, True, False, False, False),
+    (130, 33, 129, True, True, True, True),
+    (1, 1, 1, True, True, True, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,trans_a,trans_b,bias,relu", CUDA_CASES)
+def test_cuda_kernel_matches_plain(cuda, m, k, n, trans_a, trans_b, bias,
+                                   relu):
+    x, w, b = _mats(m, k, n, seed=5)
+    xt = (torch.from_numpy(np.ascontiguousarray(x.T)).to(cuda).t()
+          if trans_a else torch.from_numpy(x).to(cuda))
+    wt = (torch.from_numpy(np.ascontiguousarray(w.T)).to(cuda).t()
+          if trans_b else torch.from_numpy(w).to(cuda))
+    bt = torch.from_numpy(b).to(cuda) if bias else None
+    before = ops.matmul_bias.launches
+    with torch.no_grad():
+        got = ops.matmul_bias(xt, wt, bt, relu=relu)
+        torch.cuda.synchronize()
+    assert ops.matmul_bias.launches == before + 1
+    want = ref.matmul_bias_ref(xt, wt, bt, relu)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_launches_the_kernel_twice(cuda):
+    x, w, b = _mats(200, 75, 40, seed=6)
+    xt, wt, bt = (torch.tensor(a, device=cuda, requires_grad=True)
+                  for a in (x, w, b))
+    before = ops.matmul_bias.launches
+    torch.cos(ops.matmul_bias(xt, wt, bt, relu=True)).sum().backward()
+    torch.cuda.synchronize()
+    assert ops.matmul_bias.launches == before + 3
+    xp, wp, bp = (torch.tensor(a, device=cuda, requires_grad=True)
+                  for a in (x, w, b))
+    torch.cos(torch.relu(xp @ wp + bp)).sum().backward()
+    for got, want in ((xt.grad, xp.grad), (wt.grad, wp.grad),
+                      (bt.grad, bp.grad)):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_im2col_conv_matches_fused(cuda):
+    x, w = _registry_example(True, seed=7)
+    xt, wt = (torch.from_numpy(a).to(cuda) for a in (x, w))
+    with torch.no_grad():
+        got = ops.conv2d_im2col(xt, wt, stride=1, padding=1, groups=2,
+                                relu=True)
+        want = ops.conv2d_fused(xt, wt, stride=1, padding=1, groups=2,
+                                relu=True)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
