@@ -19,7 +19,14 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    serving batch (8) and the training batch (128 per replica); the GEMM
    runs the forward, dx and dw products of every conv of the im2col
    training phase (32 per replica);
-4. serving phase: serves 32 random 227x227x3 images through
+4. flash kernel phase: the flash-attention forward, dq and dk/dv kernels
+   against their plain versions (fp32: 2e-4 forward, 2e-3 grads; bf16:
+   3e-2) at the LM training shape (B=4, H=16, S=2048, hd=128, causal) and
+   at GQA (32 / 8 heads, ragged S=1000), window-256, hd-64 and hd-256
+   shapes, in fp32 and bf16, timed beside their plain versions,
+   ``F.scaled_dot_product_attention``'s forward and backward (a yardstick
+   only) and the bound over the unmasked (q, k) pairs;
+5. serving phase: serves 32 random 227x227x3 images through
    ``ServingEngine`` on ``ALEXNET_FAITHFUL`` at full width (8 slots,
    greedy) with the launch counts set to 0 just before and read just
    after, checks 5 conv and 2 LRN launches per forward, and holds class
@@ -28,7 +35,7 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    requests from 8 closed-loop clients, and one more window under
    ``torch.profiler`` gives the device time by kernel and the device's
    idle share;
-5. training phase: ``TrainSession`` trains ``ALEXNET_FAITHFUL`` at full
+6. training phase: ``TrainSession`` trains ``ALEXNET_FAITHFUL`` at full
    width, 2 replicas x 128 images, SGD momentum, every-step all-reduce of
    weights and momentum, pinned staging, fused conv.  Launch counts are
    set to 0 before 3 steps and read after (5 conv and 2 LRN per replica
@@ -38,15 +45,27 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    step p50/p99, and a traced window the device time by family and the
    idle share: once with the host preprocess (mean, crop, flip) in the
    loader thread for every batch, once over a pool preprocessed ahead;
-6. im2col training phase: 3 steps at 2 x 32 under
+7. im2col training phase: 3 steps at 2 x 32 under
    ``--conv-backend im2col_ref`` count the GEMM kernel's launches (5
    forward, 5 dw and 4 dx per replica and step: conv1's dx is not
    needed) and hold the losses against the fused backend;
-7. CLI phase: ``repro_torch.launch.serve --arch alexnet --requests 8``,
+8. LM training phase: ``TrainSession`` trains ``olmo-1b`` at full width
+   (16 layers, d_model 2048, bf16 params, fp32 velocity), 2 replicas x 4
+   sequences x 2048 tokens, SGD momentum, every-step all-reduce, on
+   ``markov_lm`` tokens.  Launch counts are set to 0 before 3 steps and
+   read after (2 replicas x 16 layers of each flash kernel per step),
+   the spread is 0 after every step; the same width at 4 layers in fp32
+   (2 x 2 x 2048) holds kernel against plain (losses and params within
+   1e-3 after 3 steps).  Then the peak memory, the device time of the
+   update alone, three timed windows of 5 steps (tokens/s, step
+   p50/p99, stage wait, idle share) and a traced window (device ms by
+   family);
+9. CLI phase: ``repro_torch.launch.serve --arch alexnet --requests 8``,
    then ``repro_torch.launch.train --faithful --replicas 2 --batch 64``
-   for 4 steps with checkpoints, resumed to 6, against an uninterrupted
-   6-step run;
-8. prints the card again, the ``{"kernels": [...]}`` line and, last,
+   and ``--arch olmo-1b --layers 2 --seq-len 256 --batch 4``, each for 4
+   steps with checkpoints, resumed to 6, against an uninterrupted 6-step
+   run (the LM's losses equal bit for bit);
+10. prints the card again, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -55,6 +74,7 @@ result; it also does so without a CUDA device and outside a checkout.
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import math
@@ -84,6 +104,16 @@ BACKEND_LOSS_TOL = 5e-3  # im2col vs fused: the reference's cross-backend
                          # tolerance (tests/train_loop/test_golden_traces)
 MARGIN = 1e-3            # class ids are compared where top-2 exceeds this
 CYCLES_PER_MS = 1.0e6    # torch.cuda._sleep rate, measured in main()
+# flash attention: fp32 forward at the registry tolerance
+# (repro/kernels/flash_attention/ops.py:51), grads at its 10x
+# (tests/kernels/test_grad_parity.py:203-205); bf16 at
+# tests/kernels/test_flash_attention.py:36-43's
+FLASH_TOL = {torch.float32: (2e-4, 2e-3), torch.bfloat16: (3e-2, 3e-2)}
+LM_ARCH = "olmo-1b"
+LM_SEQ = 2048            # OLMo-1B's training context (arXiv:2402.00838)
+LM_BATCH = 4             # sequences per replica
+LM_PARITY_LAYERS = 4     # kernel-vs-plain run: same width, fp32
+LM_PARITY_BATCH = 2
 
 
 def emit(obj) -> None:
@@ -151,7 +181,26 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
-def device_busy(trace_path: str) -> dict:
+def lm_family(name: str) -> str:
+    """The family a device kernel of the LM step is booked under."""
+    n = name.lower()
+    for fam, keys in (("flash_fwd", ("flash_fwd_kernel",)),
+                      ("flash_dq", ("flash_dq_kernel",)),
+                      ("flash_dkv", ("flash_dkv_kernel",)),
+                      ("gemm", ("gemm", "nvjet", "xmma", "cutlass",
+                                "cublas")),
+                      ("embed_xent", ("embedding", "indexselect",
+                                      "index_select", "gather", "scatter",
+                                      "logsumexp", "softmax")),
+                      ("elementwise", ("elementwise", "reduce", "fill",
+                                       "vectorized", "unrolled", "copy",
+                                       "cat", "norm", "index"))):
+        if any(k in n for k in keys):
+            return fam
+    return "other"
+
+
+def device_busy(trace_path: str, family=kernel_family) -> dict:
     """Device time by kernel family and the ten longest kernels from a
     ``torch.profiler`` chrome trace, and the union of the spans in which
     a kernel or a copy ran."""
@@ -162,7 +211,7 @@ def device_busy(trace_path: str) -> dict:
         raise AssertionError("the profiler traced no kernel on the device")
     by, names = {}, {}
     for e in events:
-        fam = "copy" if e["cat"] != "kernel" else kernel_family(e["name"])
+        fam = "copy" if e["cat"] != "kernel" else family(e["name"])
         by[fam] = by.get(fam, 0.0) + e["dur"] / 1e3
         if e["cat"] == "kernel":
             key = e["name"][:100]
@@ -640,23 +689,33 @@ def init_state(cfg, seed):
                                 get_optimizer("sgd_momentum"), REPLICAS)
 
 
-def session(cfg, state, make_stream, steps, per_replica, *,
+def alexnet_loss(cfg):
+    from repro_torch.models import alexnet
+
+    def loss(params, batch):
+        return alexnet.loss_fn(params, cfg, batch["images"],
+                               batch["labels"])
+    return loss
+
+
+def lm_loss(cfg):
+    from repro_torch import models
+    return lambda params, batch: models.loss_fn(params, cfg, batch)
+
+
+def session(loss, state, make_stream, steps, items_per_step, *,
             staging="pinned", metrics_path=None, spreads=None):
-    """The trainer's session on ``cfg``: SGD momentum (m 0.9, wd 5e-4),
-    LR 0.01, every-step all-reduce of weights and momentum.  With
-    ``spreads`` each step appends the replicas' spread after it."""
+    """The trainer's session on the loss ``loss(params, batch)``: SGD
+    momentum (m 0.9, wd 5e-4), LR 0.01, every-step all-reduce of weights
+    and momentum.  With ``spreads`` each step appends the replicas'
+    spread after it."""
     from repro_torch.core.param_avg import replica_spread
     from repro_torch.core.steps import make_param_avg_step
-    from repro_torch.models import alexnet
     from repro_torch.optim import schedules
     from repro_torch.optim.optimizers import get_optimizer
     from repro_torch.train_loop import TrainSession
 
     opt = get_optimizer("sgd_momentum")
-
-    def loss(params, batch):
-        return alexnet.loss_fn(params, cfg, batch["images"],
-                               batch["labels"])
 
     def build_step(sched):
         step = make_param_avg_step(loss, opt, sched, strategy="all_reduce")
@@ -674,14 +733,17 @@ def session(cfg, state, make_stream, steps, per_replica, *,
         state=state, build_step=build_step, make_stream=make_stream,
         controller=schedules.constant(0.01), steps=steps,
         device=torch.device("cuda"), staging=staging, log_every=10 ** 9,
-        images_per_step=per_replica * REPLICAS, metrics_path=metrics_path)
+        images_per_step=items_per_step, metrics_path=metrics_path)
 
 
 def launch_counts():
     from repro_torch.kernels.conv2d.ops import conv2d_fused, matmul_bias
+    from repro_torch.kernels.flash_attention.ops import (flash_dkv, flash_dq,
+                                                         flash_fwd)
     from repro_torch.kernels.lrn.ops import lrn
     return {"conv2d_fused": conv2d_fused, "lrn": lrn,
-            "matmul_bias": matmul_bias}
+            "matmul_bias": matmul_bias, "flash_fwd": flash_fwd,
+            "flash_dq": flash_dq, "flash_dkv": flash_dkv}
 
 
 def read_counts() -> dict:
@@ -714,9 +776,10 @@ def train_phase(model_cfg, seed):
     setup_s = time.perf_counter() - t0
     steps = 3
     spreads = []
+    items = TRAIN_BATCH * REPLICAS
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "train.jsonl")
-        sess = session(cfg, state0, make_stream, steps, TRAIN_BATCH,
+        sess = session(alexnet_loss(cfg), state0, make_stream, steps, items,
                        metrics_path=path, spreads=spreads)
         torch.cuda.synchronize()
         zero_counts()
@@ -726,7 +789,8 @@ def train_phase(model_cfg, seed):
     n_conv = len(cfg.convs)
     n_lrn = sum(cs.lrn for cs in cfg.convs)
     want = {"conv2d_fused": n_conv * REPLICAS * steps,
-            "lrn": n_lrn * REPLICAS * steps, "matmul_bias": 0}
+            "lrn": n_lrn * REPLICAS * steps, "matmul_bias": 0,
+            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
     if launches != want:
         raise AssertionError(f"training launches {launches} != {want}")
     losses = losses_of(res)
@@ -734,8 +798,8 @@ def train_phase(model_cfg, seed):
         raise AssertionError(f"training losses {losses}")
     if len(spreads) != steps or max(spreads) != 0.0:
         raise AssertionError(f"replica spread after each sync {spreads}")
-    plain = session(plain_cfg, state0, make_stream, steps, TRAIN_BATCH,
-                    metrics_path=os.devnull).run()
+    plain = session(alexnet_loss(plain_cfg), state0, make_stream, steps,
+                    items, metrics_path=os.devnull).run()
     plain_losses = losses_of(plain)
     loss_errs = [abs(a - b) for a, b in zip(losses, plain_losses)]
     if max(loss_errs) > LOSS_TOL:
@@ -751,30 +815,35 @@ def train_phase(model_cfg, seed):
           "staging": "pinned", "setup_s": setup_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     del plain
-    state = train_timing(cfg, res.state, make_stream, "preprocess per batch")
+    state = train_timing(alexnet_loss(cfg), res.state, make_stream,
+                         cfg.name, "preprocess per batch", items)
     # the same windows with the pool preprocessed once: the loader thread
     # then only copies into pinned memory, so the step shows the trainer
     # and the card rather than the host's numpy
     pre = make_stream()
     prepped = [next(pre) for _ in pool]
-    train_timing(cfg, state, lambda: itertools.cycle(prepped),
-                 "preprocessed pool")
+    train_timing(alexnet_loss(cfg), state, lambda: itertools.cycle(prepped),
+                 cfg.name, "preprocessed pool", items)
     return launches
 
 
-def train_timing(cfg, state, make_stream, stream, windows=3, steps=10):
-    """``windows`` sessions of 1 warm-up + ``steps`` timed steps: images/s
-    and step p50/p99 from the session's Table-1 summary.  One more
-    session of ``steps`` steps under ``torch.profiler`` gives the
-    device's busy time per step by family; the idle share of a window is
-    1 - busy per step / its mean step time.  Returns the state."""
+def train_timing(loss, state, make_stream, config, stream, items, *,
+                 windows=3, steps=10, family=kernel_family,
+                 tokens_per_item=None):
+    """``windows`` sessions of 1 warm-up + ``steps`` timed steps: items
+    (images or sequences; ``items`` per step) per second and step
+    p50/p99 from the session's Table-1 summary, and tokens/s when
+    ``tokens_per_item`` is given.  One more session of ``steps`` steps
+    under ``torch.profiler`` gives the device's busy time per step by
+    ``family``; the idle share of a window is 1 - busy per step / its
+    mean step time.  Returns the state."""
     from torch.profiler import ProfilerActivity, profile
 
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
         for i in range(windows):
             path = os.path.join(tmp, f"w{i}.jsonl")
-            res = session(cfg, state, make_stream, steps + 1, TRAIN_BATCH,
+            res = session(loss, state, make_stream, steps + 1, items,
                           metrics_path=path).run()
             state = res.state
             summ = res.summary
@@ -782,11 +851,14 @@ def train_timing(cfg, state, make_stream, stream, windows=3, steps=10):
                          "images_per_s": summ["images_per_sec"],
                          "step_ms_p50": summ["step_ms_p50"],
                          "step_ms_p99": summ["step_ms_p99"],
-                         "step_ms_mean": 1e3 * TRAIN_BATCH * REPLICAS
+                         "step_ms_mean": 1e3 * items
                          / summ["images_per_sec"],
                          "stage_wait_ms_mean": summ.get(
                              "stage_wait_ms_mean")})
-        sess = session(cfg, state, make_stream, steps, TRAIN_BATCH,
+            if tokens_per_item:
+                rows[-1]["tokens_per_s"] = (summ["images_per_sec"]
+                                            * tokens_per_item)
+        sess = session(loss, state, make_stream, steps, items,
                        metrics_path=os.path.join(tmp, "traced.jsonl"))
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -795,22 +867,25 @@ def train_timing(cfg, state, make_stream, stream, windows=3, steps=10):
             prof_wall = time.perf_counter() - t0
         trace = os.path.join(tmp, "train_trace.json")
         prof.export_chrome_trace(trace)
-        busy = device_busy(trace)
+        busy = device_busy(trace, family)
     busy_step = busy["busy_ms"] / steps
     for row in rows:
         row["device_idle_share"] = 1.0 - busy_step / row["step_ms_mean"]
-        emit({"phase": "train_window", "config": cfg.name,
+        emit({"phase": "train_window", "config": config,
               "stream": stream, **row})
 
     def spread(key):
         xs = sorted(r[key] for r in rows)
         return {"min": xs[0], "median": statistics.median(xs), "max": xs[-1]}
 
-    emit({"phase": "train_timing", "config": cfg.name, "stream": stream,
-          "replicas": REPLICAS, "per_replica_batch": TRAIN_BATCH,
+    keys = ["images_per_s", "step_ms_p50", "step_ms_p99",
+            "device_idle_share", "stage_wait_ms_mean"]
+    if tokens_per_item:
+        keys.append("tokens_per_s")
+    emit({"phase": "train_timing", "config": config, "stream": stream,
+          "replicas": REPLICAS, "items_per_step": items,
           "windows": windows, "timed_steps_per_window": steps,
-          **{k: spread(k) for k in ("images_per_s", "step_ms_p50",
-                                    "step_ms_p99", "device_idle_share")},
+          **{k: spread(k) for k in keys},
           "traced_wall_s": prof_wall,
           "device_busy_ms_per_step": busy_step,
           "device_ms_per_step_by_family": {
@@ -833,7 +908,8 @@ def im2col_phase(model_cfg, seed):
     make_stream = pool_stream(pool, mean, cfg, seed)
     state0 = init_state(cfg, seed)
     steps = 3
-    sess = session(cfg, state0, make_stream, steps, IM2COL_BATCH,
+    items = IM2COL_BATCH * REPLICAS
+    sess = session(alexnet_loss(cfg), state0, make_stream, steps, items,
                    staging="queue", metrics_path=os.devnull)
     torch.cuda.synchronize()
     zero_counts()
@@ -846,12 +922,13 @@ def im2col_phase(model_cfg, seed):
     # images, needs no grad); LRN still runs its kernel; no fused conv
     want = {"conv2d_fused": 0,
             "lrn": sum(cs.lrn for cs in cfg.convs) * REPLICAS * steps,
-            "matmul_bias": (3 * len(cfg.convs) - 1) * REPLICAS * steps}
+            "matmul_bias": (3 * len(cfg.convs) - 1) * REPLICAS * steps,
+            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
     if launches != want:
         raise AssertionError(f"im2col launches {launches} != {want}")
     losses = losses_of(res)
-    fused = losses_of(session(fused_cfg, state0, make_stream, steps,
-                              IM2COL_BATCH, staging="queue",
+    fused = losses_of(session(alexnet_loss(fused_cfg), state0, make_stream,
+                              steps, items, staging="queue",
                               metrics_path=os.devnull).run())
     errs = [abs(a - b) for a, b in zip(losses, fused)]
     if not all(math.isfinite(v) for v in losses) or \
@@ -864,6 +941,325 @@ def im2col_phase(model_cfg, seed):
           "losses": losses, "fused_losses": fused, "loss_abs_err": errs,
           "wall_s": wall})
     return launches
+
+
+def visible_pairs(s: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of one head: the work the flash
+    kernels must do, whatever tiles they visit."""
+    rows = np.arange(s)
+    hi = rows if causal else np.full(s, s - 1)
+    lo = np.maximum(0, rows - window + 1) if window else np.zeros(s, int)
+    return int((hi - lo + 1).sum())
+
+
+FLASH_CASES = [  # (case, B, Hq, Hkv, S, hd, causal, window)
+    ("train", LM_BATCH, 16, 16, LM_SEQ, 128, True, None),
+    ("gqa", 1, 32, 8, 1000, 128, True, None),
+    ("window", 1, 16, 16, LM_SEQ, 128, True, 256),
+    ("hd64", 1, 16, 16, LM_SEQ, 64, True, None),
+    ("hd256", 1, 16, 16, LM_SEQ, 256, True, None),
+]
+
+
+def flash_phase(gen):
+    """The three flash kernels against their plain versions at every
+    case of ``FLASH_CASES``, in fp32 and bf16, timed beside the plain
+    versions and the library's fused attention (yardstick only).
+    Returns per kernel the totals of the main path's case (``train``,
+    bf16: one launch at the LM training shape) and the worst error."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+
+    dev = torch.device("cuda")
+    totals = {k: {"max_abs_err": 0.0} for k in ("flash_fwd", "flash_dq",
+                                                 "flash_dkv")}
+    for case, b, hq, hkv, s, hd, causal, window in FLASH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            fwd_tol, grad_tol = FLASH_TOL[dtype]
+            q, k, v, do = (torch.randn((b * h, s, hd), generator=gen,
+                                       device=dev).to(dtype)
+                           for h in (hq, hkv, hkv, hq))
+            kw = dict(n_q_heads=hq, n_kv_heads=hkv, causal=causal,
+                      window=window, scale=hd ** -0.5)
+            what = f"{case} {str(dtype)[6:]}"
+            row = {"phase": "flash_kernel", "case": case,
+                   "shape": [b, hq, hkv, s, hd], "causal": causal,
+                   "window": window, "dtype": str(dtype)[6:]}
+            with torch.inference_mode():
+                o, lse = ops.flash_fwd(q, k, v, **kw)
+                torch.cuda.synchronize()
+                want_o, want_lse = ops.flash_fwd(q, k, v, backend="plain",
+                                                 **kw)
+                fwd_err = check_close(f"flash_fwd {what}", o.float(),
+                                      want_o.float(), fwd_tol)
+                lse_err = check_close(f"flash_fwd lse {what}", lse,
+                                      want_lse, FLASH_TOL[torch.float32][0])
+                delta = (do.float() * want_o.float()).sum(-1)
+                args = (q, k, v, do, want_lse, delta)
+                dq = ops.flash_dq(*args, **kw)
+                dk, dv = ops.flash_dkv(*args, **kw)
+                torch.cuda.synchronize()
+                dq_err = check_close(f"flash_dq {what}", dq.float(),
+                                     ops.flash_dq(*args, backend="plain",
+                                                  **kw).float(), grad_tol)
+                want_dk, want_dv = ops.flash_dkv(*args, backend="plain",
+                                                 **kw)
+                dkv_err = max(check_close(f"flash_dkv dk {what}", dk.float(),
+                                          want_dk.float(), grad_tol),
+                              check_close(f"flash_dkv dv {what}", dv.float(),
+                                          want_dv.float(), grad_tol))
+                timed = {
+                    "flash_fwd": (lambda: ops.flash_fwd(q, k, v, **kw),
+                                  lambda: ops.flash_fwd(
+                                      q, k, v, backend="plain", **kw)),
+                    "flash_dq": (lambda: ops.flash_dq(*args, **kw),
+                                 lambda: ops.flash_dq(
+                                     *args, backend="plain", **kw)),
+                    "flash_dkv": (lambda: ops.flash_dkv(*args, **kw),
+                                  lambda: ops.flash_dkv(
+                                      *args, backend="plain", **kw))}
+                ms = {name: (time_ms(kern, reps=10), time_ms(plain, reps=3))
+                      for name, (kern, plain) in timed.items()}
+            # the library's fused attention on the (B, H, S, hd) views
+            q4, k4, v4, do4 = (x.view(b, -1, s, hd) for x in (q, k, v, do))
+            mask = None
+            if window is not None:
+                r = torch.arange(s, device=dev)
+                mask = (r[None, :] > r[:, None] - window) & (
+                    r[None, :] <= r[:, None])
+
+            def sdpa(q_, k_, v_):
+                return F.scaled_dot_product_attention(
+                    q_, k_, v_, attn_mask=mask,
+                    is_causal=causal and mask is None, scale=hd ** -0.5,
+                    enable_gqa=hq != hkv)
+
+            with torch.inference_mode():
+                sdpa_err = max_err(sdpa(q4, k4, v4).reshape(o.shape), o)
+                sdpa_fwd = time_ms(lambda: sdpa(q4, k4, v4), reps=10)
+            leaves = [x.detach().requires_grad_() for x in (q4, k4, v4)]
+            out = sdpa(*leaves)
+            sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+                out, leaves, do4, retain_graph=True), reps=10)
+            pairs = b * hq * visible_pairs(s, causal, window)
+            elt = q.element_size()
+            qo = b * hq * s * hd * elt          # q, o, do or dq
+            kv = b * hkv * s * hd * elt         # k, v, dk or dv
+            rows = b * hq * s * 4               # lse or delta
+            work = {"flash_fwd": (4 * hd * pairs, 2 * qo + 2 * kv + rows),
+                    "flash_dq": (6 * hd * pairs,
+                                 3 * qo + 2 * kv + 2 * rows),
+                    "flash_dkv": (8 * hd * pairs,
+                                  2 * qo + 4 * kv + 2 * rows)}
+            errs = {"flash_fwd": fwd_err, "flash_dq": dq_err,
+                    "flash_dkv": dkv_err}
+            for name, (flops, nbytes) in work.items():
+                bound, bound_by = _bound(flops, nbytes)
+                k_ms, p_ms = ms[name]
+                row[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                             "bound_by": bound_by, "flops": flops,
+                             "bytes": nbytes,
+                             "tflops": flops / (k_ms * 1e-3) / 1e12,
+                             "max_err": errs[name]}
+                tot = totals[name]
+                tot["max_abs_err"] = max(tot["max_abs_err"], errs[name])
+                if case == "train" and dtype == torch.bfloat16:
+                    tot.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                               bound_by=bound_by,
+                               library_ms=sdpa_fwd if name == "flash_fwd"
+                               else None)
+            row.update(lse_err=lse_err, pairs=pairs, sdpa_fwd_ms=sdpa_fwd,
+                       sdpa_bwd_ms=sdpa_bwd, sdpa_fwd_err=sdpa_err,
+                       assumes="67 TFLOP/s fp32 non-tensor, 3.35 TB/s; "
+                       "FLOPs over the unmasked pairs")
+            emit(row)
+    return totals
+
+
+def lm_pool(cfg, batch: int, n: int, seed: int):
+    """``n`` host batches of ``markov_lm`` (batch x LM_SEQ tokens), drawn
+    once, for the timed windows to cycle."""
+    from repro_torch.data import synthetic
+
+    it = synthetic.markov_lm(cfg.vocab_size, batch, LM_SEQ, seed=seed)
+    return [next(it) for _ in range(n)]
+
+
+def lm_stream(pool):
+    from repro_torch.core.steps import reshape_for_replicas
+    return lambda: (reshape_for_replicas(b, REPLICAS)
+                    for b in itertools.cycle(pool))
+
+
+def lm_state(cfg, seed):
+    from repro_torch.core.steps import init_param_avg_state
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import get_optimizer
+
+    return init_param_avg_state(
+        torch.Generator().manual_seed(seed),
+        lambda gen: transformer.init(cfg, gen, device="cuda"),
+        get_optimizer("sgd_momentum"), REPLICAS)
+
+
+def lm_parity(seed):
+    """The full width at LM_PARITY_LAYERS layers in fp32, 2 x 2 x 2048,
+    3 steps under the kernels and under the plain policy from one
+    state: losses and params within LOSS_TOL."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.tree import tree_leaves
+
+    base = dataclasses.replace(ARCHS[LM_ARCH], n_layers=LM_PARITY_LAYERS,
+                               dtype="float32")
+    cfg = dataclasses.replace(base, kernels=KernelPolicy("auto"))
+    plain_cfg = dataclasses.replace(base, kernels=KernelPolicy("plain"))
+    make_stream = lm_stream(lm_pool(cfg, LM_PARITY_BATCH * REPLICAS, 3,
+                                    seed + 13))
+    state0 = lm_state(cfg, seed)
+    items = LM_PARITY_BATCH * REPLICAS
+    res = session(lm_loss(cfg), state0, make_stream, 3, items,
+                  staging="queue", metrics_path=os.devnull).run()
+    plain = session(lm_loss(plain_cfg), state0, make_stream, 3, items,
+                    staging="queue", metrics_path=os.devnull).run()
+    losses, plain_losses = losses_of(res), losses_of(plain)
+    loss_errs = [abs(a - b) for a, b in zip(losses, plain_losses)]
+    param_err = max(max_err(a, b) for a, b in zip(
+        tree_leaves(res.state.params), tree_leaves(plain.state.params)))
+    if not all(math.isfinite(v) for v in losses) or \
+            max(loss_errs) > LOSS_TOL or param_err > LOSS_TOL:
+        raise AssertionError(f"LM kernel vs plain: losses {losses} / "
+                             f"{plain_losses}, params max |err| {param_err}")
+    emit({"phase": "lm_parity", "config": cfg.name,
+          "layers": LM_PARITY_LAYERS, "dtype": "float32",
+          "replicas": REPLICAS, "per_replica_batch": LM_PARITY_BATCH,
+          "seq_len": LM_SEQ, "steps": 3, "losses": losses,
+          "plain_losses": plain_losses, "loss_abs_err": loss_errs,
+          "params_max_abs_err": param_err})
+
+
+def lm_train_phase(seed):
+    """olmo-1b at full width and depth in its bf16 params: launch counts
+    and spread over 3 steps, then the timed and traced windows and the
+    peak memory.  The fp32 kernel-vs-plain check runs first, at 4
+    layers."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.common import KernelPolicy
+
+    lm_parity(seed)
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(ARCHS[LM_ARCH], kernels=KernelPolicy("auto"))
+    t0 = time.perf_counter()
+    make_stream = lm_stream(lm_pool(cfg, LM_BATCH * REPLICAS, 4, seed + 17))
+    state0 = lm_state(cfg, seed)
+    setup_s = time.perf_counter() - t0
+    steps, items = 3, LM_BATCH * REPLICAS
+    spreads = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = session(lm_loss(cfg), state0, make_stream, steps, items,
+                  metrics_path=os.devnull, spreads=spreads).run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    per_step = REPLICAS * cfg.n_layers
+    want = {"conv2d_fused": 0, "lrn": 0, "matmul_bias": 0,
+            "flash_fwd": per_step * steps, "flash_dq": per_step * steps,
+            "flash_dkv": per_step * steps}
+    if launches != want:
+        raise AssertionError(f"LM training launches {launches} != {want}")
+    losses = losses_of(res)
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"LM training losses {losses}")
+    if len(spreads) != steps or max(spreads) != 0.0:
+        raise AssertionError(f"LM replica spread after each sync {spreads}")
+    peak = torch.cuda.max_memory_allocated()
+    update_ms = lm_update_ms(res.state)
+    emit({"phase": "lm_train", "config": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "params": cfg.n_params(), "dtype": cfg.dtype,
+          "replicas": REPLICAS, "per_replica_batch": LM_BATCH,
+          "seq_len": LM_SEQ, "steps": steps, "launches": launches,
+          "launches_per_step": {k: v // steps for k, v in launches.items()},
+          "losses": losses, "replica_spread": spreads, "wall_s": wall,
+          "setup_s": setup_s, "peak_mem_gb": peak / 1e9,
+          "optimizer_exchange_ms": update_ms})
+    del state0
+    train_timing(lm_loss(cfg), res.state, make_stream, cfg.name,
+                 "markov_lm pool", items, steps=5, family=lm_family,
+                 tokens_per_item=LM_SEQ)
+    return launches
+
+
+def lm_update_ms(state) -> float:
+    """Device time of the step's update alone: SGD momentum (fp32
+    velocity) over both replicas, the fp32 add into the bf16 params, and
+    the all-reduce of params and velocity; bf16 grads of the params'
+    shapes stand in for the real ones."""
+    from repro_torch.core.param_avg import Exchanger
+    from repro_torch.optim.optimizers import apply_updates, get_optimizer
+    from repro_torch.tree import tree_map
+
+    opt, ex = get_optimizer("sgd_momentum"), Exchanger("all_reduce")
+    grads = tree_map(torch.ones_like, state.params)
+
+    def update():
+        with torch.no_grad():
+            upd, opt_state = opt.update(grads, state.opt_state, state.params,
+                                        0.01)
+            return (ex.average(apply_updates(state.params, upd)),
+                    ex.average(opt_state))
+
+    return time_ms(update, reps=5, warmup=1)
+
+
+def lm_cli_phase():
+    """The LM train CLI at full width, 2 layers, 2 x 2 x 256, with
+    checkpoints: 4 steps, resumed to 6, against 6 uninterrupted steps;
+    every step's loss must be equal bit for bit."""
+    from repro_torch.train_loop.metrics import read_jsonl
+
+    base = ["--arch", LM_ARCH, "--layers", "2", "--seq-len", "256",
+            "--batch", "4", "--replicas", "2", "--log-every", "1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, a, c = (os.path.join(tmp, n) for n in ("ck", "a.jsonl",
+                                                   "c.jsonl"))
+        seconds, done = {}, {}
+        for name, extra in (
+                ("first", ["--steps", "4", "--ckpt-dir", ck,
+                           "--ckpt-every", "2", "--metrics-out", a]),
+                ("resumed", ["--steps", "6", "--ckpt-dir", ck, "--resume",
+                             "--metrics-out", a]),
+                ("straight", ["--steps", "6", "--metrics-out", c])):
+            lines, seconds[name] = _run_cli("repro_torch.launch.train",
+                                            base + extra)
+            if not lines or not lines[-1].startswith("done:"):
+                raise AssertionError(f"LM train CLI ({name}) did not end "
+                                     "in 'done:'")
+            done[name] = lines[-1]
+        if not done["resumed"].startswith("done: steps 4 -> 6"):
+            raise AssertionError(f"the resumed LM run: {done['resumed']}")
+        resumed = {r["step"]: r["loss"] for r in read_jsonl(a, "train")}
+        straight = {r["step"]: r["loss"] for r in read_jsonl(c, "train")}
+    if sorted(resumed) != list(range(1, 7)) or sorted(straight) != list(
+            range(1, 7)):
+        raise AssertionError(f"steps {sorted(resumed)} / {sorted(straight)}")
+    if not all(math.isfinite(v) for v in straight.values()):
+        raise AssertionError("non-finite loss in the LM CLI runs")
+    diffs = {st: resumed[st] - straight[st] for st in range(1, 7)}
+    if any(diffs.values()):
+        raise AssertionError(f"resumed vs uninterrupted LM losses differ: "
+                             f"{diffs}")
+    emit({"phase": "lm_cli", "seconds": seconds,
+          "losses": [straight[st] for st in range(1, 7)],
+          "bit_exact_resume": True})
 
 
 def _run_cli(module, args, timeout=900):
@@ -963,10 +1359,16 @@ def main() -> int:
         gen, (ALEXNET_FAITHFUL.name, TRAIN_BATCH),
         [(ALEXNET_FAITHFUL, SERVE_BATCH), (ALEXNET, SERVE_BATCH),
          (ALEXNET_FAITHFUL, TRAIN_BATCH)])
+    totals.update(flash_phase(gen))
     by_path = {"serving": serving_phase(ALEXNET_FAITHFUL, args.seed)}
     by_path["train"] = train_phase(ALEXNET_FAITHFUL, args.seed)
     by_path["train_im2col"] = im2col_phase(ALEXNET_FAITHFUL, args.seed)
+    by_path["lm_train"] = lm_train_phase(args.seed)
+    # the CLIs run in child processes: hand the cached memory back
+    gc.collect()
+    torch.cuda.empty_cache()
     cli_phase()
+    lm_cli_phase()
 
     src = "src/repro_torch/kernels"
     meta = {
@@ -978,10 +1380,17 @@ def main() -> int:
                         "src/repro/kernels/conv2d/conv2d.py:50",
                         "train_im2col"),
     }
+    flash = "src/repro/kernels/flash_attention/flash_attention.py"
+    for name, source, line in (("flash_fwd", "flash_fwd.cu", 78),
+                               ("flash_dq", "flash_bwd.cu", 168),
+                               ("flash_dkv", "flash_bwd.cu", 206)):
+        meta[name] = (f"{src}/flash_attention/csrc/{source}",
+                      f"{flash}:{line}", "lm_train")
     kernels = []
     for name, (source, replaces, path) in meta.items():
         tot = totals[name]
-        _, bound_by = _bound(tot["flops"], tot["bytes"])
+        bound_by = tot.get("bound_by") or _bound(tot["flops"],
+                                                 tot["bytes"])[1]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": by_path[path][name],

@@ -5,19 +5,26 @@ against; the port imports neither it nor ``jax``.  Layouts at the public
 functions are the reference's own (images NHWC, conv weights HWIO, FC
 weights (in, out)), so both packages take the same numpy arrays.
 
-Ported so far — serving and training the paper's AlexNet:
+Ported so far — serving and training the paper's AlexNet, and training
+the dense LMs of the zoo:
 
   configs/         AlexNet configs (``ALEXNET``, ``ALEXNET_FAITHFUL``, ...)
+                   and the LM zoo's published ``ModelConfig``s (``ARCHS``)
   kernels/         hand-written CUDA kernels for sm_90a (grouped
-                   implicit-GEMM conv, cross-channel LRN, blocked GEMM),
-                   each beside its plain PyTorch version, selected by
-                   ``KernelPolicy``, each differentiable
+                   implicit-GEMM conv, cross-channel LRN, blocked GEMM,
+                   flash-attention forward, dq and dk/dv), each beside its
+                   plain PyTorch version, selected by ``KernelPolicy``,
+                   each differentiable
   models/          ``AlexNet`` (``nn.Module``) and its functional forward
-                   and loss, ``init``, the conv-family ``DecodeState``
+                   and loss, the dense transformer (``transformer``,
+                   ``attention``, ``layers``), ``init`` / ``logits_fn`` /
+                   ``loss_fn``, the conv-family ``DecodeState``
+  numerics         the ``NumericsPolicy`` carried on model configs
   weights          the bridge to and from the reference's params and
                    ``TrainState``
-  tree             nested dict / list trees of tensors
-  optim/           SGD with momentum, LR schedules, the plateau controller
+  tree             nested dict / list / tuple trees of tensors
+  optim/           SGD with momentum, AdamW, LR schedules, the plateau
+                   controller
   core/            the replica exchange and the parameter-averaging step
   data/            synthetic streams, preprocessing, the prefetching and
                    pinned-staging loaders

@@ -9,9 +9,12 @@ other.
                                    leaf's bytes as uint8
 
 Keys are ``repro_torch.tree.flatten_with_paths`` paths, which are the
-reference's (``.params/convs/0/w`` for a ``TrainState``).  A Python int
-leaf (the port's ``TrainState.step``) is stored as an int32 scalar, as
-the reference stores its step.  Writes are atomic: into
+reference's (``.params/convs/0/w`` for a ``TrainState``, tuple entries
+by index, an empty ``{}`` contributing no key).  bfloat16 leaves are
+stored as their 16-bit patterns under the dtype name ``bfloat16``, as the
+reference stores them.  A Python int leaf (the port's
+``TrainState.step``) is stored as an int32 scalar, as the reference
+stores its step.  Writes are atomic: into
 ``step_<N>.tmp``, then renamed; ``latest_step`` skips incomplete
 directories.  ``meta`` carries host-side session state (stream position,
 LR-controller state).  ``pack_tree`` waits for the serving tier.
@@ -30,17 +33,30 @@ import torch
 from repro_torch.tree import flatten_with_paths, unflatten_like
 
 
-def _host(leaf) -> np.ndarray:
+_DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.int64)
+
+
+def _host(leaf):
+    """(the leaf's bytes as a numpy array, its dtype name)."""
     if isinstance(leaf, torch.Tensor):
-        # numpy has no bfloat16: reduced-precision leaves wait for the
-        # numerics slice
-        if leaf.dtype not in (torch.float32, torch.int32, torch.int64):
-            raise ValueError(f"cannot checkpoint a {leaf.dtype} leaf yet "
-                             "(fp32 only in this port)")
-        return leaf.detach().cpu().contiguous().numpy()
+        if leaf.dtype not in _DTYPES:
+            raise ValueError(f"cannot checkpoint a {leaf.dtype} leaf")
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:   # numpy has no bfloat16 of its own
+            return t.view(torch.int16).numpy(), "bfloat16"
+        arr = t.numpy()
+        return arr, str(arr.dtype)
     if isinstance(leaf, bool) or not isinstance(leaf, int):
         raise TypeError(f"cannot checkpoint a leaf of type {type(leaf)}")
-    return np.asarray(leaf, np.int32)
+    return np.asarray(leaf, np.int32), "int32"
+
+
+def _tensor(buf: bytes, dtype: str, shape) -> torch.Tensor:
+    if dtype == "bfloat16":
+        return torch.from_numpy(np.frombuffer(buf, np.int16).reshape(
+            shape).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.frombuffer(buf, np.dtype(dtype)).reshape(
+        shape).copy())
 
 
 def step_dir(directory: str, step: int) -> str:
@@ -56,8 +72,8 @@ def save(directory: str, step: int, tree: Any, meta: dict = None) -> str:
     os.makedirs(d)
     manifest, buffers = {}, {}
     for key, leaf in flatten_with_paths(tree).items():
-        arr = _host(leaf)
-        manifest[key] = {"dtype": str(arr.dtype), "shape": list(arr.shape)}
+        arr, dtype = _host(leaf)
+        manifest[key] = {"dtype": dtype, "shape": list(arr.shape)}
         buffers[key] = np.frombuffer(arr.tobytes(), np.uint8)
     with open(os.path.join(d, "manifest.json"), "w") as f:
         json.dump({"step": step, "arrays": manifest, "meta": meta}, f)
@@ -81,13 +97,11 @@ def restore(directory: str, step: int, like: Any, *, device=None) -> Any:
             if key not in manifest:
                 raise KeyError(f"checkpoint {d} has no array {key!r}")
             m = manifest[key]
-            arr = np.frombuffer(data[key].tobytes(),
-                                np.dtype(m["dtype"])).reshape(m["shape"])
+            t = _tensor(data[key].tobytes(), m["dtype"], m["shape"])
             if isinstance(leaf, torch.Tensor):
-                flat[key] = torch.from_numpy(arr.copy()).to(
-                    leaf.device if device is None else device)
+                flat[key] = t.to(leaf.device if device is None else device)
             else:
-                flat[key] = int(arr.item())
+                flat[key] = int(t.item())
     return unflatten_like(like, flat)
 
 

@@ -74,13 +74,15 @@ class Exchanger:
 
     def average(self, tree):
         """Exchange+average every leaf with a replica axis (0-d leaves,
-        replica-identical bookkeeping, stay as they are).  Returns new
-        contiguous tensors."""
+        replica-identical bookkeeping, stay as they are).  Each leaf is
+        averaged in fp32 and cast back to its own dtype, as the
+        reference's ``Exchanger.average`` does, so bf16 params average
+        without bf16 partial sums.  Returns new contiguous tensors."""
         if self.strategy == "none":
             return tree
         fn = _FNS[self.strategy]
         return tree_map(lambda x: x if x.dim() == 0 else
-                        fn(x).contiguous(), tree)
+                        fn(x.float()).to(x.dtype).contiguous(), tree)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -41,9 +41,12 @@ def init_param_avg_state(generator, init_fn: Callable, optimizer: Optimizer,
                          n_replicas: int) -> TrainState:
     """``init_fn(generator)`` -> one replica's params tree; every replica
     starts from the same copy (the paper initializes both GPUs' models
-    identically)."""
-    params_r = replicate(init_fn(generator), n_replicas)
-    return TrainState(params_r, optimizer.init(params_r), 0)
+    identically).  The optimizer state is initialized on one replica and
+    replicated, as the reference's vmapped init, so bookkeeping scalars
+    (AdamW's count) carry the replica axis too."""
+    params = init_fn(generator)
+    opt_state = replicate(optimizer.init(params), n_replicas)
+    return TrainState(replicate(params, n_replicas), opt_state, 0)
 
 
 def _synced(exchanger: Exchanger, params, opt_state, step: int,

@@ -212,9 +212,13 @@ class StagedPinnedLoader(_Worker):
                 continue
         return _CLOSED
 
-    def _buffers(self, s: int, host):
+    def _buffers(self, s: int, host, stream):
         """Slot ``s``'s buffers, (re)allocated when the batch's shapes
-        differ from the last lap's (first lap, a ragged final batch)."""
+        differ from the last lap's (first lap, a ragged final batch).
+        The device buffers are allocated on the side ``stream`` that
+        writes them: the caching allocator then hands out only memory
+        whose last use was on that stream, never a block just freed on
+        the trainer's stream while a kernel queued there still uses it."""
         leaves = tree_leaves(host)
         bufs = self._bufs[s]
         if bufs is None or any(
@@ -222,8 +226,9 @@ class StagedPinnedLoader(_Worker):
                 for p, x in zip(tree_leaves(bufs[0]), leaves)):
             pinned = tree_map(lambda x: torch.from_numpy(
                 np.empty(x.shape, x.dtype)).pin_memory(), host)
-            dev = tree_map(lambda p: torch.empty_like(p, device=self._device),
-                           pinned)
+            with torch.cuda.stream(stream):
+                dev = tree_map(lambda p: torch.empty_like(
+                    p, device=self._device), pinned)
             bufs = self._bufs[s] = (pinned, dev)
         return bufs
 
@@ -239,12 +244,11 @@ class StagedPinnedLoader(_Worker):
                 return
             if ev is not None:
                 ev.synchronize()         # the step that read slot s is done
-            pinned, dev = self._buffers(s, host)
+            pinned, dev = self._buffers(s, host, stream)
             tree_map(lambda p, x: np.copyto(p.numpy(), x), pinned, host)
             with torch.cuda.stream(stream):
                 for d, p in zip(tree_leaves(dev), tree_leaves(pinned)):
                     d.copy_(p, non_blocking=True)
-                    d.record_stream(stream)   # the allocator must wait too
                 ready = torch.cuda.Event()
                 ready.record(stream)
             if not self._put((s, dev, ready)):
@@ -255,7 +259,10 @@ class StagedPinnedLoader(_Worker):
         slot, dev, ready = self._get(
             "StagedPinnedLoader",
             lambda: len(self._handout) >= self._slots)
-        torch.cuda.current_stream(self._device).wait_event(ready)
+        current = torch.cuda.current_stream(self._device)
+        current.wait_event(ready)
+        for d in tree_leaves(dev):
+            d.record_stream(current)   # freed only after the step's use
         self._handout.append(slot)
         return dev
 

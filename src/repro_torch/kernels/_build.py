@@ -4,9 +4,9 @@ Every ``kernels/*/csrc/*.cu`` file is compiled for ``sm_90a`` (one
 ``nvcc -c`` per source, all started together), linked into one shared
 library with a plain C interface, and loaded with ``ctypes``.  The build
 runs on first use, into ``build/repro_torch_kernels/<hash>/`` at the
-root of the checkout (gitignored), keyed by a hash of the sources and
-the flags: a changed source builds anew, an unchanged one loads the
-library already built.  ``build.log`` beside it keeps ``ptxas``'s
+root of the checkout (gitignored), keyed by a hash of the sources, the
+headers beside them (``csrc/*.cuh``) and the flags: a changed source
+builds anew, an unchanged one loads the library already built.  ``build.log`` beside it keeps ``ptxas``'s
 register and shared-memory report.
 """
 from __future__ import annotations
@@ -37,7 +37,7 @@ def sources() -> list:
 
 def _digest(srcs) -> str:
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(_KERNELS.glob("*/csrc/*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]

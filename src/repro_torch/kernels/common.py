@@ -23,6 +23,12 @@ BACKENDS = ("auto", "plain", "cuda")
 # two-stage parity path (``F.unfold`` + the ``matmul_bias`` kernel), the
 # reference's ``conv2d="pallas_im2col_ref"``
 CONV2D = (None, "im2col_ref")
+# ``attention``: None, ``auto`` and ``flash`` are the flash-attention
+# kernels under ``backend`` (the kernels on CUDA tensors, the plain
+# version on CPU tensors); ``xla`` is the plain masked-softmax version on
+# any device.  The reference's ``chunked`` and ``qloop`` are not ported.
+ATTENTION = (None, "auto", "flash", "xla")
+ATTENTION_NOT_PORTED = ("chunked", "qloop")
 
 
 def _check_backend(name: str, value) -> None:
@@ -33,15 +39,30 @@ def _check_backend(name: str, value) -> None:
 @dataclasses.dataclass(frozen=True)
 class KernelPolicy:
     """Per-run kernel selection: ``backend`` applies to every op;
-    ``conv2d`` picks the conv formulation (``CONV2D``)."""
+    ``conv2d`` picks the conv formulation (``CONV2D``), ``attention`` the
+    attention implementation (``ATTENTION``)."""
     backend: str = "auto"
     conv2d: Optional[str] = None
+    attention: Optional[str] = None
 
     def __post_init__(self):
         _check_backend("backend", self.backend)
         if self.conv2d not in CONV2D:
             raise ValueError(f"conv2d must be one of {CONV2D}, "
                              f"got {self.conv2d!r}")
+        if self.attention in ATTENTION_NOT_PORTED:
+            raise NotImplementedError(
+                f"attention impl {self.attention!r} is not ported yet: see "
+                "ROADMAP.md queue A (the reference's chunked / qloop "
+                "attention)")
+        if self.attention not in ATTENTION:
+            raise ValueError(f"attention must be one of {ATTENTION}, got "
+                             f"{self.attention!r}")
+
+    def attention_backend(self) -> str:
+        """The backend the flash-attention ops run under: the global one
+        for the flash kernels, ``plain`` for ``xla``."""
+        return "plain" if self.attention == "xla" else self.backend
 
     def describe(self) -> dict:
         """Stable summary for logging: the fields that are set."""
@@ -80,17 +101,18 @@ def device_of(device=None) -> torch.device:
     return dev
 
 
-def check_operand(name: str, t: torch.Tensor, ndim: int) -> None:
-    """What every CUDA kernel of the port takes: a contiguous fp32 CUDA
-    tensor of rank ``ndim`` that 32-bit offsets can index, on the
-    current device."""
+def check_operand(name: str, t: torch.Tensor, ndim: int,
+                  dtypes=(torch.float32,)) -> None:
+    """What every CUDA kernel of the port takes: a contiguous CUDA tensor
+    of one of ``dtypes`` (fp32 unless the kernel says otherwise) and rank
+    ``ndim`` that 32-bit offsets can index, on the current device."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.device.index != torch.cuda.current_device():
         raise ValueError(f"{name} lies on {t.device}, not on the current "
                          f"device cuda:{torch.cuda.current_device()}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} must be one of {dtypes}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have rank {ndim}, got shape "
                          f"{tuple(t.shape)}")

@@ -1,53 +1,76 @@
 """Training CLI of the port: the paper's parameter-averaging data
-parallelism for AlexNet on one GPU (or, when asked, on the CPU).
+parallelism on one GPU (or, when asked, on the CPU), for the paper's
+AlexNet and for the dense LMs of the zoo (``--arch olmo-1b``, ...).
 
-Builds the model, loss and data streams, the SGD-momentum optimizer, the
-LR controller and the exchange, and hands the loop to
+Builds the model, loss and data streams, the optimizer (SGD momentum or
+AdamW), the LR controller and the exchange, and hands the loop to
 ``repro_torch.train_loop.TrainSession`` (checkpoint/resume, eval +
 plateau LR, Table-1 metrics).  The R replicas live on the one device
 with a leading replica axis and run one after another; after every
-update they exchange and average their weights and momentum.
+update they exchange and average their weights and optimizer state.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch alexnet \\
         --faithful --replicas 2 --batch 256 --steps 20
-    PYTHONPATH=src python -m repro_torch.launch.train --arch alexnet \\
-        --smoke --steps 2 --batch 8 --replicas 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
+        --replicas 2 --batch 8 --seq-len 2048 --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
+        --smoke --steps 2 --batch 4 --seq-len 32 --replicas 2 --device cpu
     # checkpoint every 10 steps, then pick up where a killed run stopped:
     PYTHONPATH=src python -m repro_torch.launch.train --arch alexnet \\
         --smoke --device cpu --steps 100 --ckpt-dir ck --ckpt-every 10 \\
         --resume
 
-It runs on ``cuda`` unless ``--device cpu`` is given, and exits non-zero
-when CUDA is asked for and absent.  On the GPU it trains in fp32 with
-TF32 off and deterministic cuDNN algorithms.  Weights are random from
-``--seed`` through ``torch.Generator``, so they differ from the JAX
+An LM arch trains at its published width in its config's dtype (bf16
+params for the zoo, fp32 optimizer state) on ``markov_lm`` tokens;
+``--smoke`` takes the reference's reduced config (fp32, ``--layers`` /
+``--d-model`` size it), and without ``--smoke`` ``--layers`` cuts the
+depth only.  It runs on ``cuda`` unless ``--device cpu`` is given, and
+exits non-zero when CUDA is asked for and absent.  On the GPU fp32 runs
+with TF32 off and deterministic cuDNN algorithms.  Weights are random
+from ``--seed`` through ``torch.Generator``, so they differ from the JAX
 CLI's for the same seed; the data streams are the same numpy streams.
-The LM archs, the mesh engine, model parallelism, bf16 numerics and the
-overlapped / compressed exchange are not ported yet and raise.
+The other LM families, the mesh engine, model parallelism, bf16 numerics
+and the overlapped / compressed exchange are not ported yet and raise.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+from typing import Callable
 
 import torch
 
+from repro_torch import models
 from repro_torch.configs import (ALEXNET, ALEXNET_FAITHFUL,
-                                 ALEXNET_FAITHFUL_SMOKE, ALEXNET_SMOKE)
+                                 ALEXNET_FAITHFUL_SMOKE, ALEXNET_SMOKE, ARCHS,
+                                 reduced)
 from repro_torch.core.param_avg import ExchangeConfig, replica_spread
 from repro_torch.core.steps import (init_param_avg_state, make_eval_step,
                                     make_param_avg_step, reshape_for_replicas)
 from repro_torch.data import synthetic
 from repro_torch.data.preprocess import make_image_preprocess
 from repro_torch.kernels.common import BACKENDS, KernelPolicy, device_of
-from repro_torch.models import alexnet
+from repro_torch.models import alexnet, transformer
 from repro_torch.optim import schedules
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.train_loop import (EVAL_SEED_OFFSET, TrainSession,
-                                    alexnet_metrics)
+                                    alexnet_metrics, lm_metrics)
 from repro_torch.tree import tree_map
 
 CONV_BACKENDS = {"fused": None, "im2col_ref": "im2col_ref"}
+ATTN_IMPLS = ["auto", "xla", "chunked", "qloop", "flash"]
+
+
+@dataclasses.dataclass
+class Build:
+    """Everything arch-specific the session needs."""
+    cfg: object
+    init: Callable                    # generator -> one replica's params
+    loss: Callable                    # loss(params, batch) -> scalar
+    make_stream: Callable             # () -> fresh host-batch iterator
+    make_eval_batches: Callable       # () -> fresh held-out iterator
+    eval_metric_fn: Callable          # (params, batch) -> {name: scalar}
+    plateau_metric: str               # the metric the LR controller tracks
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -58,9 +81,18 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 def build_parser():
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", default="alexnet",
-                    help="only alexnet is ported so far")
+                    help="alexnet or a dense LM of the zoo ("
+                    + ", ".join(sorted(a for a, c in ARCHS.items()
+                                       if c.family == "dense")) + ")")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-sized)")
+    ap.add_argument("--seq-len", type=int, default=128,
+                    help="LM sequence length")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="LM depth (with --smoke the reduced config's; "
+                    "without, a depth cut of the published width)")
+    ap.add_argument("--d-model", type=int, default=None,
+                    help="LM width of the reduced config (--smoke only)")
     ap.add_argument("--faithful", action="store_true",
                     help="paper-faithful AlexNet: 2-group conv2/4/5 + LRN "
                     "after pool1/pool2; without it the legacy net")
@@ -88,7 +120,7 @@ def build_parser():
                     "preallocated pinned buffers, side-stream copies and "
                     "event-fenced reuse (CUDA only)")
     ap.add_argument("--optimizer", default="sgd_momentum",
-                    choices=["sgd_momentum"])
+                    choices=["sgd_momentum", "adamw"])
     ap.add_argument("--schedule", default="constant",
                     choices=["constant", "wsd", "cosine", "plateau"],
                     help="plateau = the paper's rule: divide the LR by 10 "
@@ -101,6 +133,10 @@ def build_parser():
     ap.add_argument("--kernel-backend", default="auto", choices=BACKENDS,
                     help="KernelPolicy backend: auto runs the CUDA kernels "
                     "on the GPU and their plain versions on the CPU")
+    ap.add_argument("--attn-impl", default=None, choices=ATTN_IMPLS,
+                    help="LM attention: flash/auto = the flash kernels on "
+                    "the GPU and their plain version on the CPU; xla = the "
+                    "plain version (chunked and qloop are not ported)")
     ap.add_argument("--conv-backend", default="fused",
                     choices=sorted(CONV_BACKENDS),
                     help="fused = implicit-GEMM conv kernel; im2col_ref = "
@@ -126,8 +162,13 @@ def build_parser():
 
 def check_ported(args) -> None:
     if args.arch != "alexnet":
-        raise not_ported(f"--arch {args.arch}", "queue A items 7-8 (the "
-                         "LM families come with the LM training slice)")
+        if args.arch not in ARCHS:
+            raise SystemExit(f"unknown --arch {args.arch!r}; known: "
+                             f"alexnet, {', '.join(sorted(ARCHS))}")
+        if ARCHS[args.arch].family != "dense":
+            raise not_ported(f"--arch {args.arch} ({ARCHS[args.arch].family}"
+                             ")", "queue A item 8 (the remaining LM "
+                             "families)")
     if args.model_parallel != 1:
         raise not_ported("--model-parallel", "queue A item 12 (the model "
                          "axis needs two or more GPUs)")
@@ -141,6 +182,8 @@ def check_ported(args) -> None:
 
 
 def build_cfg(args, error):
+    if args.arch != "alexnet":
+        return build_lm_cfg(args, error)
     if args.faithful:
         cfg = ALEXNET_FAITHFUL_SMOKE if args.smoke else ALEXNET_FAITHFUL
     else:
@@ -154,6 +197,49 @@ def build_cfg(args, error):
             error(str(e))
         cfg = dataclasses.replace(cfg, image_size=args.image_size)
     return cfg
+
+
+def build_lm_cfg(args, error):
+    cfg = ARCHS[args.arch]
+    if args.smoke:
+        cfg = reduced(cfg, n_layers=args.layers or 2,
+                      d_model=args.d_model or 256)
+    else:
+        if args.d_model is not None:
+            error("--d-model sizes the reduced config: add --smoke (the "
+                  "published width is kept otherwise)")
+        if args.layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    return dataclasses.replace(cfg, kernels=KernelPolicy(
+        backend=args.kernel_backend, attention=args.attn_impl))
+
+
+def build_lm(args, cfg, dev) -> Build:
+    def stream(sample_seed=None):
+        return synthetic.markov_lm(cfg.vocab_size, args.batch, args.seq_len,
+                                   seed=args.seed, sample_seed=sample_seed)
+
+    return Build(
+        cfg, lambda gen: transformer.init(cfg, gen, device=dev),
+        lambda params, batch: models.loss_fn(params, cfg, batch), stream,
+        # the same Markov chain (its table from --seed), held-out path
+        lambda: stream(args.seed + EVAL_SEED_OFFSET), lm_metrics(cfg),
+        "loss")
+
+
+def build_alexnet(args, cfg, dev) -> Build:
+    make_stream, make_eval_batches = make_streams(cfg, args)
+
+    def init_fn(gen):
+        model = alexnet.init(cfg, gen, device=dev)
+        return tree_map(lambda p: p.detach(), model.params())
+
+    def loss(params, batch):
+        return alexnet.loss_fn(params, cfg, batch["images"],
+                               batch["labels"])
+
+    return Build(cfg, init_fn, loss, make_stream, make_eval_batches,
+                 alexnet_metrics(cfg), "top1_err")
 
 
 def make_streams(cfg, args):
@@ -190,10 +276,14 @@ def make_controller(args):
 
 
 def fp32_numerics(device: torch.device) -> None:
-    """fp32 end to end on the card, and deterministic library
-    algorithms so a resumed run can repeat an uninterrupted one."""
+    """fp32 end to end on the card (no TF32, and bf16 GEMMs reduce in
+    fp32 as the reference's ``preferred_element_type`` does), and
+    deterministic library algorithms so a resumed run can repeat an
+    uninterrupted one."""
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
@@ -218,33 +308,26 @@ def main(argv=None):
     dev = device_of(args.device)
     fp32_numerics(dev)
     cfg = build_cfg(args, ap.error)
-    make_stream, make_eval_batches = make_streams(cfg, args)
+    build = (build_alexnet if args.arch == "alexnet" else build_lm)(
+        args, cfg, dev)
     n_rep = args.replicas
-
-    def init_fn(gen):
-        model = alexnet.init(cfg, gen, device=dev)
-        return tree_map(lambda p: p.detach(), model.params())
-
-    def loss(params, batch):
-        return alexnet.loss_fn(params, cfg, batch["images"],
-                               batch["labels"])
 
     opt = get_optimizer(args.optimizer)
     state = init_param_avg_state(torch.Generator().manual_seed(args.seed),
-                                 init_fn, opt, n_rep)
+                                 build.init, opt, n_rep)
     policy = cfg.kernels.describe()
     session = TrainSession(
         state=state,
-        build_step=lambda sched: make_param_avg_step(loss, opt, sched,
+        build_step=lambda sched: make_param_avg_step(build.loss, opt, sched,
                                                      strategy=exch),
         make_stream=lambda: map(lambda b: reshape_for_replicas(b, n_rep),
-                                make_stream()),
+                                build.make_stream()),
         controller=make_controller(args), steps=args.steps, device=dev,
-        eval_step=make_eval_step(alexnet_metrics(cfg))
+        eval_step=make_eval_step(build.eval_metric_fn)
         if args.eval_every else None,
-        make_eval_batches=make_eval_batches, eval_every=args.eval_every,
-        eval_batches=args.eval_batches,
-        plateau_metric="top1_err", ckpt_dir=args.ckpt_dir,
+        make_eval_batches=build.make_eval_batches,
+        eval_every=args.eval_every, eval_batches=args.eval_batches,
+        plateau_metric=build.plateau_metric, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, resume=args.resume,
         prefetch=args.prefetch, staging=args.staging,
         log_every=args.log_every, images_per_step=args.batch,
@@ -257,6 +340,11 @@ def main(argv=None):
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     print(f"arch={cfg.name} replicas={n_rep} devices={n_dev} "
+          + ("" if args.arch == "alexnet" else
+             f"layers={cfg.n_layers} d_model={cfg.d_model} "
+             f"seq_len={args.seq_len} optimizer={args.optimizer} "
+             f"params={cfg.n_params()} dtype={cfg.dtype} ")
+          + 
           f"model_parallel=1 engine=reference exchange={exch.describe()} "
           f"replica_exec=sequential staging={args.staging} "
           f"kernels={policy} numerics={args.numerics} device={dev.type} "
@@ -265,8 +353,11 @@ def main(argv=None):
     result = session.run()
     spread = replica_spread(result.state.params)
     summ = result.summary
-    through = (f"; images/sec {summ['images_per_sec']} "
-               f"p50 {summ.get('step_ms_p50')}ms "
+    unit = "images" if args.arch == "alexnet" else "sequences"
+    through = (f"; {unit}/sec {summ['images_per_sec']} "
+               + ("" if args.arch == "alexnet" else
+                  f"tokens/sec {summ['images_per_sec'] * args.seq_len:.1f} ")
+               + f"p50 {summ.get('step_ms_p50')}ms "
                f"p99 {summ.get('step_ms_p99')}ms"
                if "images_per_sec" in summ else "")
     print(f"done: steps {result.start_step} -> {result.final_step}; "

@@ -1,0 +1,129 @@
+"""Decoder-only transformer, the ``dense`` family (the counterpart of
+``repro/models/transformer.py`` for ``family == "dense"``).
+
+Params are the reference's tree: ``{"embed": {"tok"[, "lm_head"]},
+"final_norm": {...}, "blocks": (stacked,), "rem_blocks": ()}``, where
+``blocks`` holds one entry per pattern position (one for ``dense``) whose
+leaves carry a leading ``n_layers`` axis, so the weight bridge and
+checkpoints copy them as they are.  The forward unbinds the stacked
+leaves and loops over the layers (the reference scans them); unbind's
+backward stacks the layers' grads in one pass.
+
+A ``dense`` block is pre-norm attention (full or sliding-window per
+``cfg.sliding_window``) and a pre-norm MLP, each added to the residual.
+The other families (moe, ssm, hybrid, vlm) and the decode surface are
+not ported (ROADMAP queue A).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.common import device_of
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (embed_apply, embed_init, mlp_apply,
+                                       mlp_init, norm_apply, norm_init,
+                                       unembed_apply)
+from repro_torch.numerics import param_dtype
+from repro_torch.tree import tree_map
+
+
+def block_kinds(cfg) -> tuple:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: see "
+            "ROADMAP.md queue A item 8")
+    return ("dense",)
+
+
+def block_init(cfg, generator, kind: str, device):
+    dt = param_dtype(cfg)
+    return {"norm1": norm_init(cfg, dt, device),
+            "norm2": norm_init(cfg, dt, device),
+            "attn": attn.attn_init(cfg, generator, dt, device),
+            "ffn": mlp_init(cfg, generator, dt, device)}
+
+
+def _device_generator(generator: torch.Generator, device) -> torch.Generator:
+    """A generator on ``device`` seeded from ``generator`` (a CPU one), so
+    full-width weights are drawn where they live."""
+    seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def init(cfg, generator: torch.Generator, *, device=None) -> dict:
+    """Random params for ``cfg`` on ``device`` (drawn from ``generator``
+    through ``torch.Generator``: they differ from the reference's
+    ``jax.random`` draws; the bridge carries the reference's over)."""
+    dev = device_of(device)
+    (kind,) = block_kinds(cfg)
+    gen = _device_generator(generator, dev)
+    dt = param_dtype(cfg)
+    params = {"embed": embed_init(cfg, gen, dt, dev),
+              "final_norm": norm_init(cfg, dt, dev)}
+    layers = [block_init(cfg, gen, kind, dev) for _ in range(cfg.n_layers)]
+    params["blocks"] = (tree_map(lambda *xs: torch.stack(xs), *layers),) \
+        if layers else ()
+    params["rem_blocks"] = ()
+    return params
+
+
+def block_apply_seq(p, cfg, kind, h):
+    """One full-sequence block (no cache): h (B,S,d) -> h (B,S,d)."""
+    x = norm_apply(p["norm1"], cfg, h)
+    h = h + attn.full_attention(p["attn"], cfg, x, causal=True,
+                                window=cfg.sliding_window)
+    x = norm_apply(p["norm2"], cfg, h)
+    return h + mlp_apply(p["ffn"], cfg, x)
+
+
+def _layers(stacked, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked block tree (``unbind``
+    views: one stack of the layers' grads in the backward)."""
+    parts = tree_map(lambda x: x.unbind(0), stacked)
+
+    def select(t, i):
+        return {k: select(v, i) for k, v in t.items()} \
+            if isinstance(t, dict) else t[i]
+
+    return [select(parts, i) for i in range(n)]
+
+
+def forward(params, cfg, tokens):
+    """tokens (B,S) -> fp32 logits (B,S,V)."""
+    (kind,) = block_kinds(cfg)
+    h = embed_apply(params["embed"], cfg, tokens)
+    for stacked in params["blocks"]:
+        for layer in _layers(stacked, cfg.n_layers):
+            h = block_apply_seq(layer, cfg, kind, h)
+    for layer in params["rem_blocks"]:
+        h = block_apply_seq(layer, cfg, kind, h)
+    h = norm_apply(params["final_norm"], cfg, h)
+    return unembed_apply(params["embed"], cfg, h)
+
+
+def param_shapes(cfg) -> dict:
+    """The params tree's shapes (tuples of ints), without allocating."""
+    (kind,) = block_kinds(cfg)
+    d, L = cfg.d_model, cfg.n_layers
+    v = cfg.padded_vocab
+    norm = {} if cfg.norm == "np_ln" else (
+        {"scale": (d,), "bias": (d,)} if cfg.norm == "layernorm"
+        else {"scale": (d,)})
+    hq, hkv, hd, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    ffn = {"w_in": (d, f), "w_out": (f, d)}
+    if cfg.mlp in ("swiglu", "geglu"):
+        ffn["w_gate"] = (d, f)
+    block = {"norm1": norm, "norm2": norm,
+             "attn": {"wq": (d, hq, hd), "wk": (d, hkv, hd),
+                      "wv": (d, hkv, hd), "wo": (hq, hd, d)},
+             "ffn": ffn}
+    embed = {"tok": (v, d)}
+    if not cfg.tie_embeddings:
+        embed["lm_head"] = (d, v)
+
+    def stack(t):
+        return {k: stack(v) for k, v in t.items()} \
+            if isinstance(t, dict) else (L,) + t
+
+    return {"embed": embed, "final_norm": norm,
+            "blocks": (stack(block),) if L else (), "rem_blocks": ()}

@@ -30,6 +30,18 @@ def alexnet_metrics(cfg) -> Callable:
     return metric_fn
 
 
+def lm_metrics(cfg) -> Callable:
+    """(params, batch{tokens,labels}) -> {loss, perplexity} (0-d
+    tensors) for the LMs, on the kernels ``cfg.kernels`` selects."""
+    from repro_torch import models
+
+    def metric_fn(params, batch):
+        loss = models.loss_fn(params, cfg, batch)
+        return {"loss": loss, "perplexity": torch.exp(loss)}
+
+    return metric_fn
+
+
 def take(stream, n: int) -> list:
     """The first ``n`` host batches of an iterator."""
     it = iter(stream)

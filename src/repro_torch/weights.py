@@ -1,4 +1,6 @@
-"""The weight bridge between the reference's AlexNet params and the port.
+"""The weight bridge between the reference's params and the port's.
+
+AlexNet:
 
 The reference keeps params as a pytree (``repro/models/alexnet.py``
 ``init``): ``{"convs": [{"w": (K,K,Cin/G,Cout), "b": (Cout,)}, ...],
@@ -7,9 +9,16 @@ holds the same arrays in the same layouts, so the bridge copies them
 bit for bit in both directions.  Arrays cross as numpy (convert JAX
 arrays with ``np.asarray``).
 
+The dense LMs: ``lm_from_reference`` / ``lm_to_reference`` copy the
+reference's params tree (``repro.models.init``) as it is, tuples and the
+empty ``{}`` of a non-parametric norm included; leaves keep their dtype
+(bf16 crosses bit for bit as its 16-bit pattern; numpy names the type
+only once ``ml_dtypes`` is imported, as JAX does).
+
 ``state_from_reference`` / ``state_to_reference`` do the same for a
-parameter-averaging ``TrainState``: params and ``{"velocity": ...}``
-with a leading replica axis R, and the step.
+parameter-averaging ``TrainState`` of either: params and the optimizer
+state (``{"velocity"}`` for SGD, ``{"mu", "nu", "count"}`` for AdamW,
+fp32) with a leading replica axis R, and the step.
 """
 from __future__ import annotations
 
@@ -18,8 +27,85 @@ import torch
 
 from repro_torch.core.steps import TrainState
 from repro_torch.kernels.common import device_of
-from repro_torch.models import alexnet
+from repro_torch.models import alexnet, transformer
+from repro_torch.numerics import param_dtype
 from repro_torch.tree import tree_map
+
+
+def to_torch(arr, device=None) -> torch.Tensor:
+    """A numpy (or JAX) array as a tensor on ``device``, bit for bit;
+    bfloat16 arrays cross as their 16-bit patterns."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(device) if device is not None else t
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array, bit for bit (bf16 as numpy's
+    ``bfloat16``, which exists once ``ml_dtypes`` is imported)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype != torch.bfloat16:
+        return t.numpy().copy()
+    try:
+        bf16 = np.dtype("bfloat16")
+    except TypeError:
+        raise RuntimeError("numpy names bfloat16 only once ml_dtypes is "
+                           "imported (JAX imports it)") from None
+    return t.view(torch.int16).numpy().view(bf16).copy()
+
+
+def _is_shape(t) -> bool:
+    """A leaf of a shapes tree: a non-empty tuple of ints (``()`` is an
+    empty subtree, as ``rem_blocks``)."""
+    return bool(t) and all(isinstance(i, int) for i in t)
+
+
+def _convert(src, shapes, dtype, device, path="params"):
+    """``src`` (a tree of arrays) as tensors, checked against ``shapes``
+    (dicts and tuples of subtrees, tuples of ints at the leaves)."""
+    if isinstance(shapes, dict):
+        if not isinstance(src, dict) or set(src) != set(shapes):
+            got = sorted(src) if isinstance(src, dict) else type(src)
+            raise ValueError(f"{path}: keys {got}, expected "
+                             f"{sorted(shapes)}")
+        return {k: _convert(src[k], shapes[k], dtype, device, f"{path}/{k}")
+                for k in shapes}
+    if not _is_shape(shapes):
+        if not isinstance(src, (tuple, list)) or len(src) != len(shapes):
+            raise ValueError(f"{path}: expected a tuple of {len(shapes)}")
+        return tuple(_convert(a, b, dtype, device, f"{path}/{i}")
+                     for i, (a, b) in enumerate(zip(src, shapes)))
+    arr = np.asarray(src)
+    want = str(dtype).replace("torch.", "")
+    if tuple(arr.shape) != tuple(shapes) or arr.dtype.name != want:
+        raise ValueError(f"{path}: got {arr.dtype.name}{arr.shape}, "
+                         f"expected {want}{tuple(shapes)}")
+    return to_torch(arr, device)
+
+
+def _prefixed(shapes, n: int):
+    """``shapes`` with a leading axis of ``n`` on every leaf."""
+    if isinstance(shapes, dict):
+        return {k: _prefixed(v, n) for k, v in shapes.items()}
+    if _is_shape(shapes):
+        return (n,) + tuple(shapes)
+    return tuple(_prefixed(v, n) for v in shapes)
+
+
+@torch.no_grad()
+def lm_from_reference(params, cfg, *, device=None) -> dict:
+    """The reference's dense-LM params tree as the port's, on ``device``
+    (checked against ``cfg``'s shapes and param dtype)."""
+    return _convert(params, transformer.param_shapes(cfg), param_dtype(cfg),
+                    device_of(device))
+
+
+def lm_to_reference(params) -> dict:
+    """The port's params tree as numpy arrays in the reference's tree."""
+    return tree_map(to_numpy, params)
 
 
 @torch.no_grad()
@@ -45,13 +131,10 @@ def from_reference(params, cfg, *, device=None) -> alexnet.AlexNet:
 
 def to_reference(model: alexnet.AlexNet) -> dict:
     """The model's params as the reference's pytree of numpy arrays."""
-    def host(t):
-        return t.detach().cpu().numpy().copy()
-
     return {
-        "convs": [{"w": host(w), "b": host(b)}
+        "convs": [{"w": to_numpy(w), "b": to_numpy(b)}
                   for w, b in zip(model.conv_w, model.conv_b)],
-        "fcs": [{"w": host(w), "b": host(b)}
+        "fcs": [{"w": to_numpy(w), "b": to_numpy(b)}
                 for w, b in zip(model.fc_w, model.fc_b)],
     }
 
@@ -66,8 +149,10 @@ def _stacked_shapes(cfg, n_rep: int) -> dict:
 @torch.no_grad()
 def state_from_reference(state, cfg, *, device=None) -> TrainState:
     """The port's ``TrainState`` on ``device`` for the reference's (any
-    object with ``params``, ``opt_state`` and ``step``): the SGD-momentum
+    object with ``params``, ``opt_state`` and ``step``): the optimizer
     state of R replicas, copied bit for bit."""
+    if cfg.family != "conv":
+        return _lm_state_from_reference(state, cfg, device)
     dev = device_of(device)
     n_rep = np.asarray(state.params["convs"][0]["w"]).shape[0]
     shapes = _stacked_shapes(cfg, n_rep)
@@ -89,12 +174,25 @@ def state_from_reference(state, cfg, *, device=None) -> TrainState:
                       int(np.asarray(state.step)))
 
 
+def _lm_state_from_reference(state, cfg, device) -> TrainState:
+    dev = device_of(device)
+    leaves = []
+    tree_map(leaves.append, state.params["embed"])
+    n_rep = np.asarray(leaves[0]).shape[0]
+    shapes = _prefixed(transformer.param_shapes(cfg), n_rep)
+    params = _convert(state.params, shapes, param_dtype(cfg), dev)
+    opt = {}
+    for key, sub in state.opt_state.items():
+        if key == "count":        # AdamW's step count, one per replica
+            opt[key] = _convert(sub, (n_rep,), torch.int32, dev, key)
+        else:                     # velocity / mu / nu: fp32, like params
+            opt[key] = _convert(sub, shapes, torch.float32, dev, key)
+    return TrainState(params, opt, int(np.asarray(state.step)))
+
+
 def state_to_reference(state: TrainState) -> dict:
     """The state as the reference's ``TrainState`` fields, numpy arrays:
     ``repro.core.TrainState(**state_to_reference(s))`` rebuilds it."""
-    def host(t):
-        return t.detach().cpu().numpy().copy()
-
-    return {"params": tree_map(host, state.params),
-            "opt_state": tree_map(host, state.opt_state),
+    return {"params": tree_map(to_numpy, state.params),
+            "opt_state": tree_map(to_numpy, state.opt_state),
             "step": np.asarray(state.step, np.int32)}

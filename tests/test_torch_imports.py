@@ -1,5 +1,6 @@
 """The port stands alone: it never imports ``jax`` or the reference
-package ``repro``, at import time, while it serves or while it trains."""
+package ``repro``, at import time, while it serves or while it trains
+AlexNet or a dense LM."""
 import os
 import re
 import subprocess
@@ -32,6 +33,9 @@ train.main(["--arch", "alexnet", "--smoke", "--faithful", "--device", "cpu",
             "--steps", "2", "--batch", "4", "--replicas", "2",
             "--image-size", "48", "--staging", "queue", "--eval-every", "1",
             "--eval-batches", "1"])
+train.main(["--arch", "olmo-1b", "--smoke", "--device", "cpu", "--steps",
+            "2", "--batch", "4", "--replicas", "2", "--seq-len", "32",
+            "--eval-every", "1", "--eval-batches", "1"])
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -46,7 +50,8 @@ def test_port_never_imports_jax_or_the_reference():
                           text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "serve OK" in proc.stdout
-    assert "done: steps 0 -> 2" in proc.stdout
+    assert proc.stdout.count("done: steps 0 -> 2") == 2
+    assert "arch=olmo-1b-smoke" in proc.stdout
     n = int(re.search(r"imported (\d+) modules", proc.stdout).group(1))
     assert n == len([f for f in FILES if f.parent != ROOT]) - 1
 

@@ -67,10 +67,31 @@ def test_weight_decay_form():
 
 
 def test_unported_optimizers_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optimizers.get_optimizer("adamw")
+    # adamw is ported now (the LM training slice); an unknown name raises
+    assert optimizers.get_optimizer("adamw").name == "adamw"
+    assert not hasattr(optimizers, "with_master_weights")
     with pytest.raises(ValueError, match="unknown optimizer"):
         optimizers.get_optimizer("lamb")
+
+
+def test_adamw_matches_reference():
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    jo, to = jax_opt.adamw(**kw), optimizers.adamw(**kw)
+    params = _tree(0)
+    jp, tp = jax.tree.map(jnp.asarray, params), _torch(params)
+    js, ts = jo.init(jp), to.init(tp)
+    for step in range(4):
+        grads = _tree(10 + step)
+        ju, js = jo.update(jax.tree.map(jnp.asarray, grads), js, jp, 0.01)
+        tu, ts = to.update(_torch(grads), ts, tp, 0.01)
+        jp = jax_opt.apply_updates(jp, ju)
+        tp = optimizers.apply_updates(tp, tu)
+    assert int(ts["count"]) == int(js["count"]) == 4
+    assert ts["count"].dtype == torch.int32
+    tree_map(lambda got, want: np.testing.assert_allclose(
+        got.numpy(), np.asarray(want), rtol=TOL, atol=TOL),
+        {"p": tp, "mu": ts["mu"], "nu": ts["nu"]},
+        {"p": jp, "mu": js["mu"], "nu": js["nu"]})
 
 
 @pytest.mark.parametrize("name,kw", [
