@@ -26,7 +26,16 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    shapes, in fp32 and bf16, timed beside their plain versions,
    ``F.scaled_dot_product_attention``'s forward and backward (a yardstick
    only) and the bound over the unmasked (q, k) pairs;
-5. serving phase: serves 32 random 227x227x3 images through
+5. decode kernel phase: the flash-decode kernels ``decode_ring`` and
+   ``decode_table`` against their plain version (fp32 2e-4, bf16 outputs
+   2e-2; int8 against the plain int8) at the serving tick's shape (B 8,
+   cap 2048, Hkv 16, G 1, hd 128, rows mid-fill and wrapped, bf16; ring
+   and a block table of bs 16) and at GQA (Hkv 8, G 4), window-256,
+   hd-64, hd-256, fp32-q, fp32 and int8 K/V shapes, timed beside the
+   plain version, ``F.scaled_dot_product_attention`` over the same slots
+   with a mask (a yardstick only) and the bound (the visible K/V bytes
+   over 3.35 TB/s);
+6. serving phase: serves 32 random 227x227x3 images through
    ``ServingEngine`` on ``ALEXNET_FAITHFUL`` at full width (8 slots,
    greedy) with the launch counts set to 0 just before and read just
    after, checks 5 conv and 2 LRN launches per forward, and holds class
@@ -35,7 +44,7 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    requests from 8 closed-loop clients, and one more window under
    ``torch.profiler`` gives the device time by kernel and the device's
    idle share;
-6. training phase: ``TrainSession`` trains ``ALEXNET_FAITHFUL`` at full
+7. training phase: ``TrainSession`` trains ``ALEXNET_FAITHFUL`` at full
    width, 2 replicas x 128 images, SGD momentum, every-step all-reduce of
    weights and momentum, pinned staging, fused conv.  Launch counts are
    set to 0 before 3 steps and read after (5 conv and 2 LRN per replica
@@ -45,11 +54,11 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    step p50/p99, and a traced window the device time by family and the
    idle share: once with the host preprocess (mean, crop, flip) in the
    loader thread for every batch, once over a pool preprocessed ahead;
-7. im2col training phase: 3 steps at 2 x 32 under
+8. im2col training phase: 3 steps at 2 x 32 under
    ``--conv-backend im2col_ref`` count the GEMM kernel's launches (5
    forward, 5 dw and 4 dx per replica and step: conv1's dx is not
    needed) and hold the losses against the fused backend;
-8. LM training phase: ``TrainSession`` trains ``olmo-1b`` at full width
+9. LM training phase: ``TrainSession`` trains ``olmo-1b`` at full width
    (16 layers, d_model 2048, bf16 params, fp32 velocity), 2 replicas x 4
    sequences x 2048 tokens, SGD momentum, every-step all-reduce, on
    ``markov_lm`` tokens.  Launch counts are set to 0 before 3 steps and
@@ -60,12 +69,28 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    update alone, three timed windows of 5 steps (tokens/s, step
    p50/p99, stage wait, idle share) and a traced window (device ms by
    family);
-9. CLI phase: ``repro_torch.launch.serve --arch alexnet --requests 8``,
-   then ``repro_torch.launch.train --faithful --replicas 2 --batch 64``
+10. LM serving phase: ``ServingEngine`` serves ``olmo-1b`` at full width
+   (16 layers, bf16, 8 slots, capacity 2048, greedy, prompts of 256-1024
+   random tokens, 128 new tokens each).  First the same width at 4
+   layers in fp32 serves 8 requests under the kernels and under the
+   plain policy, ring and block pool (bs 16): the greedy streams must be
+   equal.  At full depth the first decode tick's logits are held against
+   the plain policy's from one prefilled state (relative L2 3e-2, and the
+   same greedy token where the margin is clear); one wave of 8
+   requests, ring and then block pool, with the launch counts set to 0
+   just before and read just after, must show 16 ``flash_fwd`` launches
+   per prefill and 16 ``decode_ring`` / ``decode_table`` launches per
+   tick; then three timed windows of 64 requests from 8 closed-loop
+   clients (generated tokens/s, TTFT and per-token latency p50/p99) and
+   one more under ``torch.profiler`` (device ms by family, idle share);
+11. CLI phase: ``repro_torch.launch.serve --arch alexnet --requests 8``
+   and ``--arch olmo-1b --layers 2 --requests 8 --capacity 512`` (ring,
+   and ``--block-size 16``), then ``repro_torch.launch.train --faithful
+   --replicas 2 --batch 64``
    and ``--arch olmo-1b --layers 2 --seq-len 256 --batch 4``, each for 4
    steps with checkpoints, resumed to 6, against an uninterrupted 6-step
    run (the LM's losses equal bit for bit);
-10. prints the card again, the ``{"kernels": [...]}`` line and, last,
+12. prints the card again, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -114,6 +139,20 @@ LM_SEQ = 2048            # OLMo-1B's training context (arXiv:2402.00838)
 LM_BATCH = 4             # sequences per replica
 LM_PARITY_LAYERS = 4     # kernel-vs-plain run: same width, fp32
 LM_PARITY_BATCH = 2
+# flash-decode: fp32 at the registry tolerance
+# (repro/kernels/decode_attention/ops.py:69), bf16 outputs at 2e-2
+DECODE_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+SERVE_SLOTS = 8
+SERVE_CAPACITY = 2048    # OLMo-1B's context
+SERVE_NEW = 128          # new tokens per request
+SERVE_PROMPT = (256, 1024)
+# full depth bf16, first decode tick, kernel vs plain from one state: the
+# relative L2 error of the logits.  Kernel and plain round their fp32
+# attention to bf16 apart in about one output in 4,000, and 16 layers of
+# bf16 math grow that: single logits move by up to ~4e-2 on the H100
+# (PERF.md), so the gate is norm-wise, and every row whose plain top-2
+# margin exceeds twice the largest |error| must pick the same next token.
+SERVE_LOGIT_TOL = 3e-2
 
 
 def emit(obj) -> None:
@@ -185,6 +224,7 @@ def lm_family(name: str) -> str:
     """The family a device kernel of the LM step is booked under."""
     n = name.lower()
     for fam, keys in (("flash_fwd", ("flash_fwd_kernel",)),
+                      ("decode", ("decode_kernel",)),
                       ("flash_dq", ("flash_dq_kernel",)),
                       ("flash_dkv", ("flash_dkv_kernel",)),
                       ("gemm", ("gemm", "nvjet", "xmma", "cutlass",
@@ -738,12 +778,15 @@ def session(loss, state, make_stream, steps, items_per_step, *,
 
 def launch_counts():
     from repro_torch.kernels.conv2d.ops import conv2d_fused, matmul_bias
+    from repro_torch.kernels.decode_attention.ops import (decode_ring,
+                                                          decode_table)
     from repro_torch.kernels.flash_attention.ops import (flash_dkv, flash_dq,
                                                          flash_fwd)
     from repro_torch.kernels.lrn.ops import lrn
     return {"conv2d_fused": conv2d_fused, "lrn": lrn,
             "matmul_bias": matmul_bias, "flash_fwd": flash_fwd,
-            "flash_dq": flash_dq, "flash_dkv": flash_dkv}
+            "flash_dq": flash_dq, "flash_dkv": flash_dkv,
+            "decode_ring": decode_ring, "decode_table": decode_table}
 
 
 def read_counts() -> dict:
@@ -790,7 +833,8 @@ def train_phase(model_cfg, seed):
     n_lrn = sum(cs.lrn for cs in cfg.convs)
     want = {"conv2d_fused": n_conv * REPLICAS * steps,
             "lrn": n_lrn * REPLICAS * steps, "matmul_bias": 0,
-            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+            "decode_ring": 0, "decode_table": 0}
     if launches != want:
         raise AssertionError(f"training launches {launches} != {want}")
     losses = losses_of(res)
@@ -923,7 +967,8 @@ def im2col_phase(model_cfg, seed):
     want = {"conv2d_fused": 0,
             "lrn": sum(cs.lrn for cs in cfg.convs) * REPLICAS * steps,
             "matmul_bias": (3 * len(cfg.convs) - 1) * REPLICAS * steps,
-            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+            "decode_ring": 0, "decode_table": 0}
     if launches != want:
         raise AssertionError(f"im2col launches {launches} != {want}")
     losses = losses_of(res)
@@ -1172,7 +1217,8 @@ def lm_train_phase(seed):
     per_step = REPLICAS * cfg.n_layers
     want = {"conv2d_fused": 0, "lrn": 0, "matmul_bias": 0,
             "flash_fwd": per_step * steps, "flash_dq": per_step * steps,
-            "flash_dkv": per_step * steps}
+            "flash_dkv": per_step * steps, "decode_ring": 0,
+            "decode_table": 0}
     if launches != want:
         raise AssertionError(f"LM training launches {launches} != {want}")
     losses = losses_of(res)
@@ -1218,6 +1264,370 @@ def lm_update_ms(state) -> float:
                     ex.average(opt_state))
 
     return time_ms(update, reps=5, warmup=1)
+
+
+# rows mid-fill and wrapped
+DECODE_POS = [100, 517, 1023, 1500, 2047, 2048, 3000, 5000]
+DECODE_CASES = [  # (case, B, cap, Hkv, G, hd, window, q dtype, kv dtype, bs)
+    ("serve", 8, 2048, 16, 1, 128, None, "bfloat16", "bfloat16", 0),
+    ("serve_table", 8, 2048, 16, 1, 128, None, "bfloat16", "bfloat16", 16),
+    ("fp32_q", 8, 2048, 16, 1, 128, None, "float32", "bfloat16", 0),
+    ("gqa", 8, 2048, 8, 4, 128, None, "bfloat16", "bfloat16", 0),
+    ("window", 8, 2048, 16, 1, 128, 256, "bfloat16", "bfloat16", 0),
+    ("hd64", 8, 2048, 16, 1, 64, None, "bfloat16", "bfloat16", 0),
+    ("hd256", 8, 2048, 16, 1, 256, None, "bfloat16", "bfloat16", 0),
+    ("int8", 8, 2048, 16, 1, 128, None, "float32", "int8", 0),
+    ("int8_bf16_q", 8, 2048, 16, 1, 128, None, "bfloat16", "int8", 0),
+    ("int8_table", 8, 2048, 16, 1, 128, None, "float32", "int8", 16),
+    ("fp32", 8, 2048, 16, 1, 128, None, "float32", "float32", 0),
+]
+
+
+def decode_inputs(gen, b, cap, hkv, g, hd, q_dtype, kv_dtype, bs):
+    """q, k, v, pos, scales and table of one decode case: the ring
+    (B, cap, Hkv, hd), or a pool of B * cap / bs blocks (plus the trash
+    block) that a shuffled table spreads each row over."""
+    dev = torch.device("cuda")
+    q = torch.randn((b, hkv, g, hd), generator=gen, device=dev).to(q_dtype)
+    table = None
+    shape = (b, cap, hkv, hd)
+    if bs:
+        n_k = cap // bs
+        table = (torch.randperm(b * n_k, generator=gen, device=dev)
+                 + 1).reshape(b, n_k).to(torch.int32)
+        shape = (b * n_k + 1, bs, hkv, hd)
+    ks = vs = None
+    if kv_dtype == torch.int8:
+        k, v = (torch.randint(-127, 128, shape, generator=gen, device=dev)
+                .to(torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(shape[:3], generator=gen, device=dev) * 0.02
+                  + 1e-3 for _ in range(2))
+    else:
+        k, v = (torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
+                for _ in range(2))
+    pos = torch.tensor(DECODE_POS[:b], dtype=torch.int32, device=dev)
+    return q, k, v, pos, ks, vs, table
+
+
+def decode_phase(gen):
+    """The two flash-decode kernels against their plain version at every
+    case of ``DECODE_CASES``, timed beside it and beside
+    ``F.scaled_dot_product_attention`` over the same slots with a mask
+    (a yardstick only: on the gathered ring for the table cases, on the
+    dequantized cache for int8).  Returns per kernel the main path's
+    case (``serve`` / ``serve_table``: one launch at the serving tick's
+    shape) and the worst error."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    totals = {k: {"max_abs_err": 0.0} for k in ("decode_ring",
+                                                 "decode_table")}
+    for (case, b, cap, hkv, g, hd, window, qd, kvd,
+         bs) in DECODE_CASES:
+        q_dtype, kv_dtype = getattr(torch, qd), getattr(torch, kvd)
+        q, k, v, pos, ks, vs, table = decode_inputs(
+            gen, b, cap, hkv, g, hd, q_dtype, kv_dtype, bs)
+        kw = dict(window=window, scale=hd ** -0.5, k_scale=ks, v_scale=vs,
+                  table=table)
+        name = "decode_table" if bs else "decode_ring"
+        with torch.inference_mode():
+            got = ops.decode_attention(q, k, v, pos, **kw)
+            torch.cuda.synchronize()
+            want = ops.decode_attention(q, k, v, pos, backend="plain", **kw)
+            err = check_close(f"{name} {case}", got.float(), want.float(),
+                              DECODE_TOL[q_dtype])
+            k_ms = time_ms(lambda: ops.decode_attention(q, k, v, pos, **kw),
+                           reps=50)
+            p_ms = time_ms(lambda: ops.decode_attention(
+                q, k, v, pos, backend="plain", **kw), reps=5)
+            # the library's attention over the same slots: the ring in
+            # (B, Hkv, cap, hd) views, in q's dtype
+            kr, vr = k, v
+            if bs:
+                kr, vr = (ref.gather_pool(x, table) for x in (k, v))
+                if ks is not None:
+                    ks, vs = (ref.gather_pool(x, table) for x in (ks, vs))
+            if ks is not None:
+                kr, vr = kr.float() * ks[..., None], vr.float() * vs[..., None]
+            kr, vr = (x.to(q_dtype).permute(0, 2, 1, 3) for x in (kr, vr))
+            sp = ref.slot_positions(pos, cap)
+            valid = sp >= 0
+            if window is not None:
+                valid &= sp > pos.long()[:, None] - window
+            mask = valid[:, None, None, :]
+            q4 = q.reshape(b, hkv * g, 1, hd)
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q4, kr, vr, attn_mask=mask, scale=hd ** -0.5,
+                    enable_gqa=g > 1)
+
+            lib_err = max_err(library().reshape(got.shape), got)
+            l_ms = time_ms(library, reps=50)
+        n_vis = int(valid.sum())                 # visible (row, slot) pairs
+        elt = k.element_size()
+        nbytes = (2 * n_vis * hkv * hd * elt + 2 * q.numel()
+                  * q.element_size() + (8 * n_vis * hkv if ks is not None
+                                        else 0))
+        flops = 4.0 * n_vis * hkv * g * hd
+        bound, bound_by = _bound(flops, nbytes)
+        row = {"phase": "decode_kernel", "kernel": name, "case": case,
+               "shape": [b, cap, hkv, g, hd], "window": window,
+               "block_size": bs, "q_dtype": qd, "kv_dtype": kvd,
+               "pos": DECODE_POS[:b], "visible_slots": n_vis,
+               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+               "flops": flops, "gbps": nbytes / (k_ms * 1e-3) / 1e9,
+               "bound_share": bound / k_ms, "max_err": err,
+               "library_err": lib_err,
+               "assumes": "3.35 TB/s, 67 TFLOP/s fp32 non-tensor; bytes "
+               "of the visible K/V (+ scales, q, o)"}
+        emit(row)
+        tot = totals[name]
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        if case in ("serve", "serve_table"):
+            tot.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                       bound_by=bound_by, library_ms=l_ms)
+    return totals
+
+
+def serve_prompts(vocab: int, n: int, seed: int):
+    """``n`` random prompts of SERVE_PROMPT tokens, the last a repeat of
+    the first (an exact-prompt admission in block mode)."""
+    rs = np.random.default_rng(seed)
+    out = [rs.integers(0, vocab, int(rs.integers(*SERVE_PROMPT)))
+           for _ in range(n - 1)]
+    return out + [out[0].copy()]
+
+
+def lm_closed_loop(engine, prompts, n_req: int, clients: int):
+    """Serve ``n_req`` requests of SERVE_NEW tokens from ``clients``
+    closed-loop clients, each sending its next prompt (cycled from
+    ``prompts``) when its answer comes back.  Returns (wall seconds,
+    results)."""
+    from repro_torch.serving import Request
+
+    sent, results = 0, []
+
+    def send():
+        nonlocal sent
+        engine.submit(Request(prompt=prompts[sent % len(prompts)],
+                              max_new_tokens=SERVE_NEW))
+        sent += 1
+
+    t0 = time.perf_counter()
+    for _ in range(clients):
+        send()
+    while len(results) < n_req:
+        for res in engine.step():
+            results.append(res)
+            if sent < n_req:
+                send()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, results
+
+
+def serve_metrics(wall, results) -> dict:
+    toks = sum(len(r.tokens) for r in results)
+    ttft = sorted(r.ttft for r in results)
+    per_tok = sorted((r.t_done - r.t_first) / (len(r.tokens) - 1)
+                     for r in results)
+    return {"wall_s": wall, "generated_tokens": toks,
+            "generated_tokens_per_s": toks / wall,
+            "ttft_p50_ms": percentile(ttft, 0.5) * 1e3,
+            "ttft_p99_ms": percentile(ttft, 0.99) * 1e3,
+            "per_token_p50_ms": percentile(per_tok, 0.5) * 1e3,
+            "per_token_p99_ms": percentile(per_tok, 0.99) * 1e3}
+
+
+def lm_serve_parity(seed):
+    """The full width at LM_PARITY_LAYERS layers in fp32: greedy streams
+    under the kernels equal those under the plain policy, ring and block
+    pool alike (and ring equals block)."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.serving import Request, ServingEngine
+
+    base = dataclasses.replace(ARCHS[LM_ARCH], n_layers=LM_PARITY_LAYERS,
+                               dtype="float32")
+    cfg = dataclasses.replace(base, kernels=KernelPolicy("auto"))
+    plain_cfg = dataclasses.replace(base, kernels=KernelPolicy("plain"))
+    params = models.init(cfg, torch.Generator().manual_seed(seed),
+                         device="cuda")
+    prompts = serve_prompts(cfg.vocab_size, SERVE_SLOTS, seed + 19)
+    streams = {}
+    for policy, c in (("kernel", cfg), ("plain", plain_cfg)):
+        for mode, bs in (("ring", 0), ("block", 16)):
+            eng = ServingEngine(params, c, slots=SERVE_SLOTS,
+                                capacity=SERVE_CAPACITY, block_size=bs)
+            res = eng.run([Request(prompt=p, max_new_tokens=32)
+                           for p in prompts])
+            streams[policy, mode] = {r.rid: r.tokens for r in res}
+    for mode in ("ring", "block"):
+        if streams["kernel", mode] != streams["plain", mode]:
+            raise AssertionError(f"LM serving ({mode}): kernel and plain "
+                                 "greedy streams differ")
+    if streams["kernel", "ring"] != streams["kernel", "block"]:
+        raise AssertionError("LM serving: ring and block streams differ")
+    emit({"phase": "lm_serve_parity", "config": cfg.name,
+          "layers": LM_PARITY_LAYERS, "dtype": "float32",
+          "requests": len(prompts), "new_tokens": 32,
+          "streams_equal": True,
+          "tokens_compared": sum(len(t) for t in
+                                 streams["kernel", "ring"].values())})
+    del params
+
+
+def lm_serve_counts(params, cfg, prompts, block_size):
+    """One wave of SERVE_SLOTS requests with the launch counts set to 0
+    just before and read just after: n_layers flash_fwd launches per
+    prefill and n_layers decode launches per tick."""
+    from repro_torch.serving import Request, ServingEngine
+
+    # the pool holds every slot's blocks and its tail snapshot, so the
+    # wave is admitted at once (the default pool, slots x capacity / bs + 1,
+    # defers the last request until the first retires)
+    nb = SERVE_SLOTS * (SERVE_CAPACITY // block_size + 1) + 1 \
+        if block_size else 0
+    eng = ServingEngine(params, cfg, slots=SERVE_SLOTS,
+                        capacity=SERVE_CAPACITY, block_size=block_size,
+                        num_blocks=nb)
+    reqs = [Request(prompt=p, max_new_tokens=SERVE_NEW)
+            for p in prompts[:SERVE_SLOTS]]
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    skipped = eng.block_mgr.prefills_skipped if eng.block_mgr else 0
+    prefills = len(reqs) - skipped
+    decode = "decode_table" if block_size else "decode_ring"
+    want = {k: 0 for k in launches}
+    want.update(flash_fwd=cfg.n_layers * prefills)
+    want[decode] = cfg.n_layers * eng.decode_steps
+    if launches != want:
+        raise AssertionError(f"LM serving launches {launches} != {want}")
+    if any(len(r.tokens) != SERVE_NEW for r in res):
+        raise AssertionError("every request must get its new tokens")
+    return {"block_size": block_size, "launches": launches,
+            "prefills": prefills, "prefills_skipped": skipped,
+            "decode_ticks": eng.decode_steps,
+            "launches_per_tick": launches[decode] // eng.decode_steps,
+            "wall_s": wall, **serve_metrics(wall, res)}
+
+
+def lm_serving_phase(seed, windows=3, n_req=64):
+    """olmo-1b at full width and depth in bf16, 8 slots, capacity 2048:
+    launch counts over one wave (ring, then block pool), the first decode
+    tick's logits against the plain policy from the same state, then
+    ``windows`` timed windows of ``n_req`` requests from 8 closed-loop
+    clients and one more under ``torch.profiler``.  The 4-layer fp32
+    stream parity runs first."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import models
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.serving import ServingEngine
+
+    lm_serve_parity(seed)
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(ARCHS[LM_ARCH], kernels=KernelPolicy("auto"))
+    plain_cfg = dataclasses.replace(cfg, kernels=KernelPolicy("plain"))
+    t0 = time.perf_counter()
+    params = models.init(cfg, torch.Generator().manual_seed(seed),
+                         device="cuda")
+    prompts = serve_prompts(cfg.vocab_size, 4 * SERVE_SLOTS, seed + 23)
+    setup_s = time.perf_counter() - t0
+
+    # first decode tick, kernel vs plain, from one prefilled state
+    with torch.inference_mode():
+        b = SERVE_SLOTS
+        toks = torch.zeros((b, SERVE_PROMPT[1]), dtype=torch.long,
+                           device="cuda")
+        lengths = torch.tensor([len(p) for p in prompts[:b]], device="cuda")
+        for i, p in enumerate(prompts[:b]):
+            toks[i, :len(p)] = torch.as_tensor(p)
+        logits, state = models.prefill(params, cfg, toks, SERVE_CAPACITY,
+                                       length=lengths)
+        nxt = logits[torch.arange(b), lengths - 1].argmax(-1)[:, None]
+        out = {}
+        for name, c in (("kernel", cfg), ("plain", plain_cfg)):
+            out[name], _ = models.decode_step(
+                params, c, models.read_slots(state, range(b)), nxt)
+        del logits, state
+    lk, lp = out["kernel"][:, 0], out["plain"][:, 0]
+    if lk.shape != (b, cfg.vocab_size) or not torch.isfinite(lk).all():
+        raise AssertionError("first-tick logits: bad shape or non-finite")
+    tick_err = max_err(lk, lp)
+    tick_rel = ((lk - lp).norm() / lp.norm()).item()
+    top2 = torch.topk(lp, 2, dim=-1)
+    clear = (top2.values[:, 0] - top2.values[:, 1]) > 2 * tick_err
+    if tick_rel > SERVE_LOGIT_TOL or not torch.equal(
+            lk.argmax(-1)[clear], top2.indices[clear, 0]):
+        raise AssertionError(f"olmo-1b bf16 first decode tick vs plain: "
+                             f"relative L2 {tick_rel:.3e} (bar "
+                             f"{SERVE_LOGIT_TOL}), max |err| {tick_err:.3e}, "
+                             "or a clear greedy token differs")
+    del out
+
+    counts = [lm_serve_counts(params, cfg, prompts, bs) for bs in (0, 16)]
+    emit({"phase": "lm_serving", "config": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "dtype": cfg.dtype, "slots": SERVE_SLOTS,
+          "capacity": SERVE_CAPACITY, "prompt_tokens": list(SERVE_PROMPT),
+          "new_tokens": SERVE_NEW, "first_tick_logit_max_err": tick_err,
+          "first_tick_logit_rel_l2": tick_rel,
+          "first_tick_rows_compared": int(clear.sum()),
+          "waves": counts, "setup_s": setup_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    engine = ServingEngine(params, cfg, slots=SERVE_SLOTS,
+                           capacity=SERVE_CAPACITY)
+    rows = []
+    for i in range(windows):
+        wall, res = lm_closed_loop(engine, prompts, n_req, SERVE_SLOTS)
+        rows.append({"window": i, **serve_metrics(wall, res)})
+    ticks0 = engine.decode_steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prof_wall, _ = lm_closed_loop(engine, prompts, n_req, SERVE_SLOTS)
+    ticks = engine.decode_steps - ticks0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lm_serve_trace.json")
+        prof.export_chrome_trace(path)
+        busy = device_busy(path, lm_family)
+    for row in rows:
+        row["device_idle_share"] = 1.0 - busy["busy_ms"] / 1e3 / row[
+            "wall_s"]
+        emit({"phase": "lm_serving_window", "config": cfg.name,
+              "slots": SERVE_SLOTS, "clients": SERVE_SLOTS,
+              "requests": n_req, **row})
+
+    def spread(key):
+        xs = sorted(r[key] for r in rows)
+        return {"min": xs[0], "median": statistics.median(xs), "max": xs[-1]}
+
+    emit({"phase": "lm_serving_timing", "config": cfg.name,
+          "slots": SERVE_SLOTS, "requests_per_window": n_req,
+          "windows": windows,
+          **{k: spread(k) for k in ("generated_tokens_per_s", "ttft_p50_ms",
+                                    "ttft_p99_ms", "per_token_p50_ms",
+                                    "per_token_p99_ms",
+                                    "device_idle_share")},
+          "profiled_wall_s": prof_wall, "profiled_ticks": ticks,
+          "profiled_idle_share": 1.0 - busy["busy_ms"] / 1e3 / prof_wall,
+          "device_busy_ms": busy["busy_ms"],
+          "device_ms_by_family": busy["ms_by_family"],
+          "top_kernels_ms": busy["top_kernels"]})
+    return {"ring": counts[0]["launches"], "block": counts[1]["launches"]}
 
 
 def lm_cli_phase():
@@ -1286,12 +1696,21 @@ def cli_phase():
                               ["--arch", "alexnet", "--requests", "8"])
     if not lines or lines[-1] != "serve OK":
         raise AssertionError("the serve CLI did not end in 'serve OK'")
+    lm_serve_s = {}
+    for mode, extra in (("ring", []), ("block", ["--block-size", "16"])):
+        lines, lm_serve_s[mode] = _run_cli(
+            "repro_torch.launch.serve", ["--arch", LM_ARCH, "--layers", "2",
+                                         "--requests", "8", "--capacity",
+                                         "512", *extra])
+        if not lines or lines[-1] != "serve OK":
+            raise AssertionError(f"the LM serve CLI ({mode}) did not end "
+                                 "in 'serve OK'")
     base = ["--arch", "alexnet", "--faithful", "--replicas", "2",
             "--batch", "64", "--log-every", "1"]
     with tempfile.TemporaryDirectory() as tmp:
         ck, a, c = (os.path.join(tmp, n) for n in ("ck", "a.jsonl",
                                                    "c.jsonl"))
-        seconds, done = {"serve": serve_s}, {}
+        seconds, done = {"serve": serve_s, "serve_lm": lm_serve_s}, {}
         for name, extra in (
                 ("first", ["--steps", "4", "--ckpt-dir", ck,
                            "--ckpt-every", "2", "--metrics-out", a]),
@@ -1360,10 +1779,16 @@ def main() -> int:
         [(ALEXNET_FAITHFUL, SERVE_BATCH), (ALEXNET, SERVE_BATCH),
          (ALEXNET_FAITHFUL, TRAIN_BATCH)])
     totals.update(flash_phase(gen))
+    totals.update(decode_phase(gen))
     by_path = {"serving": serving_phase(ALEXNET_FAITHFUL, args.seed)}
     by_path["train"] = train_phase(ALEXNET_FAITHFUL, args.seed)
     by_path["train_im2col"] = im2col_phase(ALEXNET_FAITHFUL, args.seed)
     by_path["lm_train"] = lm_train_phase(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_waves = lm_serving_phase(args.seed)
+    by_path["lm_serving"] = serve_waves["ring"]
+    by_path["lm_serving_block"] = serve_waves["block"]
     # the CLIs run in child processes: hand the cached memory back
     gc.collect()
     torch.cuda.empty_cache()
@@ -1386,6 +1811,11 @@ def main() -> int:
                                ("flash_dkv", "flash_bwd.cu", 206)):
         meta[name] = (f"{src}/flash_attention/csrc/{source}",
                       f"{flash}:{line}", "lm_train")
+    decode = "src/repro/kernels/decode_attention/decode_attention.py"
+    for name, line, path in (("decode_ring", 41, "lm_serving"),
+                             ("decode_table", 145, "lm_serving_block")):
+        meta[name] = (f"{src}/decode_attention/csrc/decode_attention.cu",
+                      f"{decode}:{line}", path)
     kernels = []
     for name, (source, replaces, path) in meta.items():
         tot = totals[name]

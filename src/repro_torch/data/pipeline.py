@@ -36,6 +36,7 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.common import device_of
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -138,7 +139,9 @@ class PrefetchLoader(_Worker):
       source: iterator of trees of numpy arrays.
       prefetch: queue depth (2 = double buffer; 0 = synchronous).
       preprocess: host-side transform run in the loader thread.
-      device_put: stages a host tree; defaults to CPU tensors.
+      device_put: stages a host tree; defaults to tensors on the entry
+        point's device (``device_of(None)``: CUDA, which raises where it
+        is absent), as the reference's defaults to ``jax.device_put``.
     """
 
     def __init__(self, source: Iterator, prefetch: int = 2,
@@ -148,7 +151,7 @@ class PrefetchLoader(_Worker):
         self._source = iter(source)
         self._prefetch = prefetch
         self._preprocess = preprocess or (lambda x: x)
-        self._device_put = device_put or to_device("cpu")
+        self._device_put = device_put or to_device(device_of(None))
         if prefetch > 0:
             self._start()
 

@@ -29,6 +29,10 @@ CONV2D = (None, "im2col_ref")
 # any device.  The reference's ``chunked`` and ``qloop`` are not ported.
 ATTENTION = (None, "auto", "flash", "xla")
 ATTENTION_NOT_PORTED = ("chunked", "qloop")
+# ``decode_attention``: None and ``auto`` are the flash-decode kernels under
+# ``backend``; ``xla`` is the plain version on any device (the reference's
+# ``resolve_decode_impl``)
+DECODE_ATTENTION = (None, "auto", "xla")
 
 
 def _check_backend(name: str, value) -> None:
@@ -40,10 +44,12 @@ def _check_backend(name: str, value) -> None:
 class KernelPolicy:
     """Per-run kernel selection: ``backend`` applies to every op;
     ``conv2d`` picks the conv formulation (``CONV2D``), ``attention`` the
-    attention implementation (``ATTENTION``)."""
+    attention implementation (``ATTENTION``), ``decode_attention`` the
+    single-token decode attention (``DECODE_ATTENTION``)."""
     backend: str = "auto"
     conv2d: Optional[str] = None
     attention: Optional[str] = None
+    decode_attention: Optional[str] = None
 
     def __post_init__(self):
         _check_backend("backend", self.backend)
@@ -58,11 +64,20 @@ class KernelPolicy:
         if self.attention not in ATTENTION:
             raise ValueError(f"attention must be one of {ATTENTION}, got "
                              f"{self.attention!r}")
+        if self.decode_attention not in DECODE_ATTENTION:
+            raise ValueError(f"decode_attention must be one of "
+                             f"{DECODE_ATTENTION}, got "
+                             f"{self.decode_attention!r}")
 
     def attention_backend(self) -> str:
         """The backend the flash-attention ops run under: the global one
         for the flash kernels, ``plain`` for ``xla``."""
         return "plain" if self.attention == "xla" else self.backend
+
+    def decode_backend(self) -> str:
+        """The backend the decode-attention op runs under: the global one
+        for the flash-decode kernels, ``plain`` for ``xla``."""
+        return "plain" if self.decode_attention == "xla" else self.backend
 
     def describe(self) -> dict:
         """Stable summary for logging: the fields that are set."""

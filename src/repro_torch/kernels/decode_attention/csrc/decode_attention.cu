@@ -1,0 +1,356 @@
+// Flash-decode attention over the ring KV cache and the block pool, sm_90a.
+//
+// Replaces the TPU kernels of src/repro/kernels/decode_attention/
+// decode_attention.py: _decode_kernel (ring cache, _decode_impl) and
+// _decode_kernel_table (block-table pool, _decode_impl_table), wrapper
+// decode_attention_pallas.  One query token per row: q (B, Hkv, G, hd), the
+// G query heads of a KV head together; K/V either a ring (B, cap, Hkv, hd)
+// or a pool (NB, bs, Hkv, hd) indirected by a (B, cap / bs) block table;
+// per-row pos (B,) int32; an optional window; fp32, bf16 or int8 K/V (int8
+// with fp32 (.., Hkv) scales per slot).  fp32 online softmax, out
+// (B, Hkv, G, hd) in q's type.  Both entry points run one templated body.
+//
+// What bounds it on the H100: bytes.  Each valid slot costs 4 * hd FLOPs
+// per query head against 2 * hd elements of K and V read once, so at G <= 8
+// the least time is the visible K/V (plus scales, q and o) over 3.35 TB/s.
+//
+// What the design does about it:
+//  * One block per (row, KV head) (and per chunk of 8 query heads when
+//    G > 8): q of all G heads sits in registers and every K/V row is read
+//    once for the whole group.
+//  * The cache is read in place with strides, (row * Hkv + h) * hd, in the
+//    model's layout: no fold or transpose of the cache, no padding of cap.
+//  * 16 warps (8 for large G * hd) stride over the slots, a few slots per
+//    warp per step (about 2 KB of K and V) with all their loads issued
+//    before any use, so bytes in flight hide the latency; each lane holds hd / 32 consecutive
+//    elements of a row (one vector load, kept packed until used), q.k is a
+//    warp reduction of xor-shuffles, and each warp keeps its own online
+//    softmax (m, l, acc) in registers.  The warps merge in shared memory
+//    at the end.
+//  * Slots that hold no position yet (c > p before the ring wraps) are not
+//    visited: the reference's tile visibility, (c0 < cap) && (c0 <= p ||
+//    p >= cap), at slot granularity.  A visited slot that fails the
+//    validity test (position < 0, or outside the window) is skipped whole:
+//    it reads no bytes and adds nothing, as the reference's masked entries
+//    add exp(NEG - m) = 0 once a real score is seen.  m starts at the
+//    reference's finite NEG = -1e30, so a warp that saw no valid slot
+//    merges with weight exp(NEG - M) = 0.
+//  * The ring arithmetic is floor mod: slot c holds p - ((p - c) mod cap),
+//    written ((p - c) % cap + cap) % cap, since C++'s % of a negative
+//    number is negative and would make an unwritten slot look valid.
+//  * int8 dequantizes in the score domain: s *= ks[c] and p *= vs[c], as
+//    the reference does; no cache tile is dequantized.
+//  * Table mode: slot c of row b lives at pool[table[b, c / bs], c % bs];
+//    the block stages the row's table in shared memory first, so no load
+//    of K or V waits on a load of the table.  Retired rows point at block
+//    0 (the trash block), which no live row reads.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+#include <type_traits>
+
+namespace {
+
+constexpr float NEG = -1e30f;   // the reference's finite mask sentinel
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// E consecutive elements of T, read as one vector load.
+template <typename T, int E>
+struct alignas(sizeof(T) * E) Pack {
+  T x[E];
+};
+
+template <typename T, int E>
+__device__ __forceinline__ Pack<T, E> load_pack(const T* __restrict__ src) {
+  return *reinterpret_cast<const Pack<T, E>*>(src);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// The block's shape.  warps: 16 hide more load latency; once q and the
+// accumulator take 32 registers each per thread (GT * hd / 32), 8 keep
+// them out of local memory.  unroll: slots per warp per step, about 2 KB of
+// K and V (the step's loads are all issued before any is used), at most 32
+// scores per thread, between 2 and 16.
+template <typename TKV, int HD, int GT>
+struct Shape {
+  static constexpr int warps = GT * HD / 32 >= 32 ? 8 : 16;
+  static constexpr int threads = 32 * warps;
+  static constexpr int by_bytes = 2048 / (2 * HD * (int)sizeof(TKV));
+  static constexpr int u = by_bytes < 32 / GT ? by_bytes : 32 / GT;
+  static constexpr int unroll = u < 2 ? 2 : (u > 16 ? 16 : u);
+};
+
+// The absolute position slot c holds in a ring of capacity cap at row
+// position p (the reference's slot_positions, floor mod).
+__device__ __forceinline__ int slot_pos(int p, int c, int cap) {
+  return p - (((p - c) % cap) + cap) % cap;
+}
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const int* pos;
+  const int* table;
+  void* o;
+  int B, n_kv_heads, G, cap, bs, n_k, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename TQ, typename TKV, int HD, int GT, bool TABLE>
+__global__ void __launch_bounds__(Shape<TKV, HD, GT>::threads)
+decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
+              const TKV* __restrict__ v, const float* __restrict__ ks,
+              const float* __restrict__ vs, const int* __restrict__ pos,
+              const int* __restrict__ table, TQ* __restrict__ o, int G,
+              int n_kv_heads, int cap, int bs, int n_k, int window,
+              float scale) {
+  constexpr int E = HD / 32;
+  constexpr int WARPS = Shape<TKV, HD, GT>::warps;
+  constexpr int THREADS = Shape<TKV, HD, GT>::threads;
+  constexpr int U = Shape<TKV, HD, GT>::unroll;
+  constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
+  extern __shared__ float smem[];
+  float* sm_m = smem;                   // WARPS x GT
+  float* sm_l = sm_m + WARPS * GT;      // WARPS x GT
+  float* sm_acc = sm_l + WARPS * GT;    // WARPS x GT x HD
+  int* sm_tab = reinterpret_cast<int*>(sm_acc + WARPS * GT * HD);  // n_k
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int bh = blockIdx.x;            // b * Hkv + h
+  const int b = bh / n_kv_heads, h = bh % n_kv_heads;
+  const int g0 = blockIdx.y * GT;
+  const int ng = min(GT, G - g0);
+  const int p = pos[b];
+  if constexpr (TABLE) {
+    // the row's block ids, so a slot's address costs no dependent load
+    for (int i = threadIdx.x; i < n_k; i += THREADS)
+      sm_tab[i] = table[(size_t)b * n_k + i];
+    __syncthreads();
+  }
+
+  float qr[GT][E], m[GT], l[GT], acc[GT][E];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    if (g < ng) {
+      const Pack<TQ, E> qp = load_pack<TQ, E>(
+          q + ((size_t)bh * G + g0 + g) * HD + lane * E);
+#pragma unroll
+      for (int e = 0; e < E; ++e) qr[g][e] = to_f(qp.x[e]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) qr[g][e] = 0.f;
+    }
+    m[g] = NEG;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  }
+
+  // only slots c <= p can hold a position until the ring has wrapped
+  const int n_slots = p < cap ? p + 1 : cap;
+  for (int c0 = warp * U; c0 < n_slots; c0 += WARPS * U) {
+    bool ok[U];
+    Pack<TKV, E> kp[U], vp[U];
+    float ksc[U], vsc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = c0 + u;
+      const int sp = slot_pos(p, c, cap);
+      ok[u] = c < n_slots && sp >= 0 && (window <= 0 || sp > p - window);
+      ksc[u] = vsc[u] = 1.f;
+      if (ok[u]) {
+        size_t row;
+        if constexpr (TABLE)
+          row = (size_t)sm_tab[c / bs] * bs + c % bs;
+        else
+          row = (size_t)b * cap + c;
+        const size_t off = (row * n_kv_heads + h) * HD + lane * E;
+        kp[u] = load_pack<TKV, E>(k + off);
+        vp[u] = load_pack<TKV, E>(v + off);
+        if constexpr (QUANT) {
+          ksc[u] = ks[row * n_kv_heads + h];
+          vsc[u] = vs[row * n_kv_heads + h];
+        }
+      }
+    }
+
+    float s[U][GT];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!ok[u]) continue;
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) d = fmaf(qr[g][e], to_f(kp[u].x[e]), d);
+        s[u][g] = warp_sum(d) * scale * ksc[u];
+      }
+    }
+
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      float mx = m[g];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (ok[u]) mx = fmaxf(mx, s[u][g]);
+      const float alpha = expf(m[g] - mx);
+      l[g] *= alpha;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!ok[u]) continue;
+        const float pe = expf(s[u][g] - mx);
+        l[g] += pe;
+        const float pv = pe * vsc[u];
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          acc[g][e] = fmaf(pv, to_f(vp[u].x[e]), acc[g][e]);
+      }
+      m[g] = mx;
+    }
+  }
+
+  // merge the warps' softmax states
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    if (lane == 0) {
+      sm_m[warp * GT + g] = m[g];
+      sm_l[warp * GT + g] = l[g];
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      sm_acc[(warp * GT + g) * HD + lane * E + e] = acc[g][e];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < ng * HD; i += THREADS) {
+    const int g = i / HD, d = i % HD;
+    float mx = NEG;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w * GT + g]);
+    float lsum = 0.f, osum = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float f = expf(sm_m[w * GT + g] - mx);
+      lsum = fmaf(sm_l[w * GT + g], f, lsum);
+      osum = fmaf(sm_acc[(w * GT + g) * HD + d], f, osum);
+    }
+    o[((size_t)bh * G + g0 + g) * HD + d] =
+        from_f<TQ>(osum / fmaxf(lsum, 1e-30f));
+  }
+}
+
+template <typename TQ, typename TKV, int HD, int GT, bool TABLE>
+int run(const Args& a) {
+  using S = Shape<TKV, HD, GT>;
+  const size_t smem = sizeof(float) * S::warps * GT * (HD + 2) +
+                      (TABLE ? sizeof(int) * a.n_k : 0);
+  auto kernel = decode_kernel<TQ, TKV, HD, GT, TABLE>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid(a.B * a.n_kv_heads, (a.G + GT - 1) / GT);
+  kernel<<<grid, S::threads, smem, a.stream>>>(
+      (const TQ*)a.q, (const TKV*)a.k, (const TKV*)a.v, a.ks, a.vs, a.pos,
+      a.table, (TQ*)a.o, a.G, a.n_kv_heads, a.cap, a.bs, a.n_k, a.window,
+      a.scale);
+  return (int)cudaGetLastError();
+}
+
+// GT = the query heads a block holds: the group size rounded up to 1, 2, 4
+// or 8; larger groups take several blocks of 8.
+template <typename TQ, typename TKV, int HD, bool TABLE>
+int by_group(const Args& a) {
+  if (a.G <= 1) return run<TQ, TKV, HD, 1, TABLE>(a);
+  if (a.G <= 2) return run<TQ, TKV, HD, 2, TABLE>(a);
+  if (a.G <= 4) return run<TQ, TKV, HD, 4, TABLE>(a);
+  return run<TQ, TKV, HD, 8, TABLE>(a);
+}
+
+template <typename TQ, typename TKV, bool TABLE>
+int by_head_dim(const Args& a, int hd) {
+  switch (hd) {
+    case 64:
+      return by_group<TQ, TKV, 64, TABLE>(a);
+    case 128:
+      return by_group<TQ, TKV, 128, TABLE>(a);
+    case 256:
+      return by_group<TQ, TKV, 256, TABLE>(a);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// q_type: 0 fp32, 1 bf16; kv_type: 0 fp32, 1 bf16, 2 int8.
+template <bool TABLE>
+int dispatch(const Args& a, int hd, int q_type, int kv_type) {
+  if (q_type == 0) {
+    if (kv_type == 0) return by_head_dim<float, float, TABLE>(a, hd);
+    if (kv_type == 1) return by_head_dim<float, __nv_bfloat16, TABLE>(a, hd);
+    if (kv_type == 2) return by_head_dim<float, int8_t, TABLE>(a, hd);
+  } else if (q_type == 1) {
+    if (kv_type == 0) return by_head_dim<__nv_bfloat16, float, TABLE>(a, hd);
+    if (kv_type == 1)
+      return by_head_dim<__nv_bfloat16, __nv_bfloat16, TABLE>(a, hd);
+    if (kv_type == 2) return by_head_dim<__nv_bfloat16, int8_t, TABLE>(a, hd);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// o (B, Hkv, G, hd) in q's type for q (B, Hkv, G, hd) against the ring
+// k, v (B, cap, Hkv, hd) at positions pos (B,) int32; ks, vs (B, cap, Hkv)
+// fp32 for an int8 cache, else null.  All contiguous; hd is 64, 128 or 256;
+// window <= 0 means none.  Launches on `stream`; returns the launch's
+// cudaError_t (0 on success); no sync.
+extern "C" int decode_ring(const void* q, const void* k, const void* v,
+                           const float* ks, const float* vs, const int* pos,
+                           void* o, int B, int n_kv_heads, int G, int cap,
+                           int hd, int window, float scale, int q_type,
+                           int kv_type, void* stream) {
+  const Args a{q, k, v, ks, vs, pos, nullptr, o, B, n_kv_heads, G, cap, 1,
+               0, window, scale, (cudaStream_t)stream};
+  return dispatch<false>(a, hd, q_type, kv_type);
+}
+
+// The same against the pool k, v (NB, bs, Hkv, hd) (ks, vs (NB, bs, Hkv))
+// through the block table (B, n_k) int32: the ring has cap = n_k * bs slots
+// and row b's slot c lives at pool[table[b, c / bs], c % bs].
+extern "C" int decode_table(const void* q, const void* k, const void* v,
+                            const float* ks, const float* vs, const int* pos,
+                            const int* table, void* o, int B, int n_kv_heads,
+                            int G, int n_k, int bs, int hd, int window,
+                            float scale, int q_type, int kv_type,
+                            void* stream) {
+  const Args a{q, k, v, ks, vs, pos, table, o, B, n_kv_heads, G, n_k * bs,
+               bs, n_k, window, scale, (cudaStream_t)stream};
+  return dispatch<true>(a, hd, q_type, kv_type);
+}

@@ -1,0 +1,163 @@
+"""Decode-attention dispatch: the CUDA kernels (``csrc/decode_attention.cu``)
+or their plain version (``ref``).
+
+``decode_attention(q, k, v, pos, ...)`` takes the model layout, the
+counterpart of the reference's ``ops.decode_attention``: q (B,Hkv,G,hd)
+one token per row; k, v (B,cap,Hkv,hd) ring caches or, with ``table``
+(B, cap/bs) int32, (NB,bs,Hkv,hd) block pools; pos (B,) int32; int8
+caches carry fp32 ``k_scale`` / ``v_scale`` of the cache's leading three
+dims.  Under ``backend="auto"`` a CUDA tensor launches ``decode_ring`` or
+``decode_table``, which read the cache and the pool in place (no fold,
+transpose or padding of the cache); a CPU tensor runs the plain version,
+which gathers the pool through the table.  ``backend="plain"`` asks for
+the plain version on any device.  Inference only: nothing here is
+differentiable.
+
+``decode_ring`` and ``decode_table`` are the kernel wrappers; each counts
+its launches in ``.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, common
+from repro_torch.kernels.decode_attention import ref
+
+HEAD_DIMS = (64, 128, 256)
+MAX_BLOCKS = 8192        # block ids per row the table kernel stages (32 KB)
+Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_RING_ARGTYPES = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+_TABLE_ARGTYPES = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
+
+
+def _check_shapes(q, k, v, pos, k_scale, v_scale, table):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q must be (B,Hkv,G,hd) and k, v 4-D, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, hkv, _, hd = q.shape
+    if k.shape != v.shape or k.shape[2:] != (hkv, hd):
+        raise ValueError(f"k, v must be (.., .., {hkv}, {hd}), got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if table is None and k.shape[0] != b:
+        raise ValueError(f"a ring cache has one row per query row: "
+                         f"k {tuple(k.shape)} for q {tuple(q.shape)}")
+    if table is not None and (table.dim() != 2 or table.shape[0] != b):
+        raise ValueError(f"table must be (B, cap/bs) = ({b}, ..), got "
+                         f"{tuple(table.shape)}")
+    if tuple(pos.shape) != (b,):
+        raise ValueError(f"pos must be ({b},), got {tuple(pos.shape)}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("an int8 cache needs both k_scale and v_scale")
+    if k_scale is not None and (k_scale.shape != k.shape[:3]
+                                or v_scale.shape != k.shape[:3]):
+        raise ValueError(f"scales must be {tuple(k.shape[:3])}, got "
+                         f"{tuple(k_scale.shape)}, {tuple(v_scale.shape)}")
+
+
+def _check_cuda(q, k, v, pos, k_scale, v_scale, table):
+    """What the kernels take: contiguous CUDA tensors, q fp32 or bf16, k
+    and v of one type (fp32, bf16, or int8 with fp32 scales), int32 pos
+    and table, hd 64, 128 or 256, and 32-byte aligned rows."""
+    hd = q.shape[-1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the decode kernels take head_dim in {HEAD_DIMS}, "
+                         f"got {hd}")
+    common.check_operand("q", q, 4, tuple(Q_TYPES))
+    common.check_operand("k", k, 4, tuple(KV_TYPES))
+    common.check_operand("v", v, 4, (k.dtype,))
+    common.check_operand("pos", pos, 1, (torch.int32,))
+    if table is not None:
+        common.check_operand("table", table, 2, (torch.int32,))
+        if table.shape[1] > MAX_BLOCKS:
+            raise ValueError(f"the table kernel stages at most {MAX_BLOCKS} "
+                             f"block ids per row, got {table.shape[1]}")
+    quant = k.dtype == torch.int8
+    if quant != (k_scale is not None):
+        raise ValueError("k_scale / v_scale go with an int8 cache, and only "
+                         f"with one (k is {k.dtype})")
+    if quant:
+        common.check_operand("k_scale", k_scale, 3)
+        common.check_operand("v_scale", v_scale, 3)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 32:
+            raise ValueError(f"{name} must start on a 32-byte boundary")
+    return Q_TYPES[q.dtype], KV_TYPES[k.dtype]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _call(name, argtypes, *args):
+    err = _build.function(name, argtypes)(
+        *args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise _build.launch_error(name, err)
+
+
+def _window(window):
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    return -1 if window is None else int(window)
+
+
+def decode_ring(q, k, v, pos, *, window=None, scale=1.0, k_scale=None,
+                v_scale=None, backend: str = "auto"):
+    """o (B,Hkv,G,hd) in q's dtype against the ring k, v (B,cap,Hkv,hd):
+    the ring kernel, or its plain version."""
+    _check_shapes(q, k, v, pos, k_scale, v_scale, None)
+    if common.route(backend, q) == "plain":
+        return ref.decode_attention_ref(q, k, v, pos, window=window,
+                                        scale=scale, k_scale=k_scale,
+                                        v_scale=v_scale)
+    qt, kvt = _check_cuda(q, k, v, pos, k_scale, v_scale, None)
+    b, hkv, g, hd = q.shape
+    o = torch.empty_like(q)
+    _call("decode_ring", _RING_ARGTYPES, q.data_ptr(), k.data_ptr(),
+          v.data_ptr(), _ptr(k_scale), _ptr(v_scale), pos.data_ptr(),
+          o.data_ptr(), b, hkv, g, k.shape[1], hd, _window(window),
+          float(scale), qt, kvt)
+    decode_ring.launches += 1
+    return o
+
+
+def decode_table(q, k, v, pos, table, *, window=None, scale=1.0,
+                 k_scale=None, v_scale=None, backend: str = "auto"):
+    """o (B,Hkv,G,hd) in q's dtype against the pools k, v (NB,bs,Hkv,hd)
+    read through ``table`` (B, cap/bs): the table kernel, or its plain
+    version."""
+    _check_shapes(q, k, v, pos, k_scale, v_scale, table)
+    if common.route(backend, q) == "plain":
+        return ref.decode_attention_table_ref(
+            q, k, v, pos, table, window=window, scale=scale,
+            k_scale=k_scale, v_scale=v_scale)
+    qt, kvt = _check_cuda(q, k, v, pos, k_scale, v_scale, table)
+    b, hkv, g, hd = q.shape
+    o = torch.empty_like(q)
+    _call("decode_table", _TABLE_ARGTYPES, q.data_ptr(), k.data_ptr(),
+          v.data_ptr(), _ptr(k_scale), _ptr(v_scale), pos.data_ptr(),
+          table.data_ptr(), o.data_ptr(), b, hkv, g, table.shape[1],
+          k.shape[1], hd, _window(window), float(scale), qt, kvt)
+    decode_table.launches += 1
+    return o
+
+
+decode_ring.launches = 0
+decode_table.launches = 0
+
+
+def decode_attention(q, k, v, pos, *, window=None, scale=1.0, k_scale=None,
+                     v_scale=None, table=None, backend: str = "auto"):
+    """q (B,Hkv,G,hd); k, v (B,cap,Hkv,hd) ring caches, or with ``table``
+    (NB,bs,Hkv,hd) pools; pos (B,) int32 -> (B,Hkv,G,hd) in q's dtype."""
+    kw = dict(window=window, scale=scale, k_scale=k_scale, v_scale=v_scale,
+              backend=backend)
+    if table is None:
+        return decode_ring(q, k, v, pos, **kw)
+    return decode_table(q, k, v, pos, table, **kw)

@@ -1,21 +1,35 @@
-"""Serving CLI of the port: image classification with AlexNet on one
-GPU (or, when asked, on the CPU).
+"""Serving CLI of the port: image classification with AlexNet, or token
+generation with a dense LM of the zoo, on one GPU (or, when asked, on
+the CPU).
 
-Builds AlexNet with random weights from ``--seed``, starts
+Builds the model with random weights from ``--seed``, starts
 ``repro_torch.serving.ServingEngine`` with ``--slots`` slots, feeds it
-``--requests`` random raw-pixel images and reports images/s and
-per-request p50/p99 latency, ending in ``serve OK``:
+``--requests`` random requests and reports throughput and latency,
+ending in ``serve OK``:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch alexnet
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch alexnet \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
+        --capacity 2048 --prompt-len 512 --max-new 128 --slots 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
+        --smoke --device cpu --block-size 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch alexnet \\
         --smoke --device cpu
 
 ``--arch alexnet`` is the reference CLI's legacy net (``ALEXNET``:
 ungrouped, LRN before the pool) at full width, 227x227x3 images and 1000
-classes; ``--smoke`` serves the reduced ``ALEXNET_SMOKE``.  It runs on
-``cuda`` unless ``--device cpu`` is given, and exits non-zero when CUDA
-is asked for and absent.  The LM archs, the replica mesh, the tier, spec
-decode, the block pool and numerics presets are not ported yet.
+classes; ``--smoke`` serves the reduced ``ALEXNET_SMOKE``.  A dense LM
+(``olmo-1b``, ``gemma-7b``, ...) serves at its published width in its
+config's dtype (bf16); ``--layers`` cuts its depth, and ``--smoke``
+takes the reference's reduced fp32 config (``--layers`` / ``--d-model``
+size it).  Prompts are random tokens, their lengths drawn around
+``--prompt-len``; the run reports generated tokens/s, TTFT p50/p99 and
+the per-token latency of each request's decode (p50/p99).
+``--block-size`` serves from the shared-prefix block pool,
+``--ticks-per-dispatch`` runs K decode ticks per host read, and
+``--kv-cache-dtype`` stores the KV cache in another type (int8 with
+fp32 scales).  It runs on ``cuda`` unless ``--device cpu`` is given, and
+exits non-zero when CUDA is asked for and absent.  The other LM
+families, the replica mesh, the tier, speculative decoding and numerics
+presets are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,22 +41,50 @@ import numpy as np
 import torch
 
 from repro_torch import models
-from repro_torch.configs import ALEXNET, ALEXNET_SMOKE
+from repro_torch.configs import ALEXNET, ALEXNET_SMOKE, ARCHS, reduced
 from repro_torch.kernels.common import BACKENDS, KernelPolicy, device_of
+from repro_torch.numerics import KV_CACHE_DTYPES
 from repro_torch.serving import Request, ServingEngine
+
+LM_ARCHS = sorted(a for a, c in ARCHS.items() if c.family == "dense")
 
 
 def build_parser():
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="alexnet", choices=["alexnet"],
-                    help="only the conv family is ported so far")
+    ap.add_argument("--arch", default="olmo-1b",
+                    choices=["alexnet"] + LM_ARCHS,
+                    help="alexnet or a dense LM of the zoo")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-sized)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="LM depth (with --smoke the reduced config's; "
+                    "without, a depth cut of the published width)")
+    ap.add_argument("--d-model", type=int, default=None,
+                    help="LM width of the reduced config (--smoke only)")
     ap.add_argument("--slots", type=int, default=4,
-                    help="fixed slots (images classified per forward)")
+                    help="fixed slots: the continuous batch (images "
+                    "classified per forward for alexnet)")
+    ap.add_argument("--capacity", type=int, default=128,
+                    help="per-request position budget (the ring's "
+                    "capacity; a sliding window keeps less)")
     ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16,
+                    help="mean prompt length (lengths vary around it)")
+    ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--ticks-per-dispatch", type=int, default=1,
+                    help="decode ticks per host read of the sampled tokens")
+    ap.add_argument("--block-size", type=int, default=0,
+                    help="> 0: shared-prefix block-pool KV cache with this "
+                    "many ring positions per block (full-attention archs)")
+    ap.add_argument("--num-blocks", type=int, default=0,
+                    help="pool size for --block-size (default: full "
+                    "private provisioning, slots*capacity/bs + trash)")
+    ap.add_argument("--kv-cache-dtype", default="auto",
+                    choices=KV_CACHE_DTYPES,
+                    help="KV-cache storage: auto follows the model dtype; "
+                    "int8 quantizes per head and slot with fp32 scales")
     ap.add_argument("--kernel-backend", default="auto", choices=BACKENDS,
                     help="KernelPolicy backend: auto runs the CUDA kernels "
                     "on the GPU and their plain versions on the CPU")
@@ -51,47 +93,116 @@ def build_parser():
     return ap
 
 
-def build_cfg(args):
-    cfg = ALEXNET_SMOKE if args.smoke else ALEXNET
+def build_cfg(args, error):
+    pol = KernelPolicy(backend=args.kernel_backend)
+    if args.arch == "alexnet":
+        cfg = ALEXNET_SMOKE if args.smoke else ALEXNET
+        return dataclasses.replace(cfg, kernels=pol)
+    cfg = ARCHS[args.arch]
+    if args.smoke:
+        cfg = reduced(cfg, n_layers=args.layers or 2,
+                      d_model=args.d_model or 256)
+    else:
+        if args.d_model is not None:
+            error("--d-model sizes the reduced config: add --smoke (the "
+                  "published width is kept otherwise)")
+        if args.layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=args.layers)
     return dataclasses.replace(
-        cfg, kernels=KernelPolicy(backend=args.kernel_backend))
+        cfg, kernels=pol, numerics=dataclasses.replace(
+            cfg.numerics, kv_cache_dtype=args.kv_cache_dtype))
 
 
 def make_requests(args, cfg):
     rs = np.random.default_rng(args.seed)
-    return [Request(image=rs.standard_normal(
-        (cfg.image_size, cfg.image_size, cfg.in_channels)))
-        for _ in range(args.requests)]
+    if cfg.family == "conv":
+        return [Request(image=rs.standard_normal(
+            (cfg.image_size, cfg.image_size, cfg.in_channels)))
+            for _ in range(args.requests)]
+    hi = max(args.capacity - args.max_new, 2)
+    reqs = []
+    for _ in range(args.requests):
+        ln = int(np.clip(rs.integers(max(args.prompt_len // 2, 1),
+                                     args.prompt_len * 2), 1, hi))
+        reqs.append(Request(prompt=rs.integers(0, cfg.vocab_size, size=ln),
+                            max_new_tokens=args.max_new))
+    return reqs
+
+
+def percentile(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(int(q * len(xs)), len(xs) - 1)]
+
+
+def report(engine, results, wall: float, family: str) -> None:
+    toks = sum(len(r.tokens) for r in results)
+    ttft = [r.ttft for r in results]
+    if family == "conv":
+        print(f"served {len(results)} requests / {toks} tokens in "
+              f"{wall:.2f}s ({toks / wall:.1f} images/s, "
+              f"{engine.decode_steps} decode ticks, "
+              f"{len(engine._buckets_used)} image buckets)")
+        lats = [r.latency for r in results]
+        print(f"latency p50 {percentile(lats, 0.5) * 1e3:.0f}ms p99 "
+              f"{percentile(lats, 0.99) * 1e3:.0f}ms ttft p50 "
+              f"{percentile(ttft, 0.5) * 1e3:.0f}ms")
+        return
+    # per-token latency: each request's decode time over its decoded tokens
+    per_tok = [(r.t_done - r.t_first) / (len(r.tokens) - 1)
+               for r in results if len(r.tokens) > 1]
+    print(f"served {len(results)} requests / {toks} tokens in {wall:.2f}s "
+          f"({toks / wall:.1f} generated tok/s, {engine.decode_steps} "
+          f"decode ticks / {engine.dispatches} dispatches, "
+          f"{engine.prefill_compiles} prefill buckets)")
+    if engine.block_mgr is not None:
+        print(f"blocks: peak {engine.block_mgr.peak}/{engine.block_mgr.nb} "
+              f"in use, {engine.block_mgr.prefills_skipped} prefills "
+              f"skipped")
+    line = (f"ttft p50 {percentile(ttft, 0.5) * 1e3:.1f}ms p99 "
+            f"{percentile(ttft, 0.99) * 1e3:.1f}ms")
+    if per_tok:
+        line += (f"; per-token p50 {percentile(per_tok, 0.5) * 1e3:.2f}ms "
+                 f"p99 {percentile(per_tok, 0.99) * 1e3:.2f}ms")
+    print(line)
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     try:
         device = device_of(args.device)
     except RuntimeError as e:
         raise SystemExit(str(e)) from None
-    cfg = build_cfg(args)
+    cfg = build_cfg(args, ap.error)
+    if cfg.family != "conv" and args.max_new >= args.capacity:
+        ap.error(f"--max-new {args.max_new} must be < --capacity "
+                 f"{args.capacity}: the ring holds capacity positions, "
+                 "prompt included")
     gen = torch.Generator().manual_seed(args.seed)
-    model = models.init(cfg, gen, device=device)
-    engine = ServingEngine(model, cfg, slots=args.slots,
+    params = models.init(cfg, gen, device=device)
+    engine = ServingEngine(params, cfg, slots=args.slots,
+                           capacity=args.capacity,
                            temperature=args.temperature, top_k=args.top_k,
-                           seed=args.seed)
+                           seed=args.seed,
+                           ticks_per_dispatch=args.ticks_per_dispatch,
+                           block_size=args.block_size,
+                           num_blocks=args.num_blocks)
     reqs = make_requests(args, cfg)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"arch={cfg.name} family={cfg.family} device={device} ({name}) "
-          f"slots={args.slots} kernels={cfg.kernels.describe()}")
+          f"slots={args.slots} "
+          + ("" if cfg.family == "conv" else
+             f"capacity={args.capacity} layers={cfg.n_layers} "
+             f"d_model={cfg.d_model} dtype={cfg.dtype} "
+             f"kv={args.kv_cache_dtype} block_size={args.block_size} "
+             f"ticks_per_dispatch={args.ticks_per_dispatch} ")
+          + f"kernels={cfg.kernels.describe()}", flush=True)
     t0 = time.perf_counter()
     results = engine.run(reqs)
-    wall = time.perf_counter() - t0
-    toks = sum(len(r.tokens) for r in results)
-    lats = sorted(r.latency for r in results)
-    p = lambda q: lats[min(int(q * len(lats)), len(lats) - 1)]  # noqa: E731
-    print(f"served {len(results)} requests / {toks} tokens in {wall:.2f}s "
-          f"({toks / wall:.1f} images/s, {engine.decode_steps} decode "
-          f"ticks, {len(engine._buckets_used)} image buckets)")
-    print(f"latency p50 {p(0.5) * 1e3:.0f}ms p99 {p(0.99) * 1e3:.0f}ms "
-          f"ttft p50 {sorted(r.ttft for r in results)[len(results) // 2] * 1e3:.0f}ms")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    report(engine, results, time.perf_counter() - t0, cfg.family)
     print("serve OK")
 
 

@@ -7,15 +7,27 @@ params tree in the reference's structure for dense; ``logits_fn`` /
 ``loss_fn`` take a params tree and a batch dict for both.  The LM loss is
 next-token cross-entropy: ``logits[:, :-1]`` against ``labels[:, 1:]``.
 
-Image classification is one forward pass, so its ``DecodeState`` carries
-an empty cache and ``pos``.  The other LM families (moe, ssm, hybrid,
-vlm, encdec) and the LM DecodeState contract (``prefill`` /
-``decode_step``) come with later slices (ROADMAP queue A); asking for
-them raises.
+The **DecodeState contract** (the reference's docs/serving.md):
+
+  ``init_decode_state(cfg, batch, capacity)``      -> DecodeState
+  ``prefill(params, cfg, tokens, capacity, ...)``  -> (logits, DecodeState)
+  ``decode_step(params, cfg, state, tokens)``      -> (logits, DecodeState)
+
+plus the slot surgery of the serving engine (``read_slots`` /
+``write_slots``).  Image classification is one forward pass, so its
+``DecodeState`` carries an empty cache and ``pos``; the dense family's
+cache is the stacked ring KV cache of ``transformer.init_decode_cache``.
+``DecodeState.pos`` is per row.  Unlike the reference, the cache is
+written in place: ``decode_step`` and ``write_slots`` return a state
+that shares (and has updated) the cache of the state passed in.  The
+other LM families (moe, ssm, hybrid, vlm, encdec) and speculative
+decoding (``decode_seq_pending`` / ``commit_pending``) come with later
+slices (ROADMAP queue A); asking for them raises.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any
 
 import torch
@@ -27,7 +39,6 @@ from repro_torch.models.layers import softmax_xent
 _NOT_PORTED = ("family {family!r} ({name}) is not ported to PyTorch yet: "
                "see ROADMAP.md queue A ({what})")
 FAMILIES = ("conv", "dense")
-_DECODE = "items 9-11, the LM decode surface"
 
 
 def _check_family(cfg, families=FAMILIES, what="item 8, the remaining "
@@ -65,30 +76,124 @@ def loss_fn(params, cfg, batch):
     return softmax_xent(logits[:, :-1], labels[:, 1:])
 
 
-
 @dataclasses.dataclass
 class DecodeState:
     """``cache`` is the family's state (empty for conv); ``pos`` (B,)
-    int32 counts the tokens each row has consumed."""
+    int32 counts the tokens each row has consumed, i.e. the absolute
+    position the next ``decode_step`` token takes."""
     cache: Any
     pos: torch.Tensor
 
 
+def init_decode_cache(cfg, batch: int, seq_len: int, *, device=None):
+    """The DecodeState's ``cache`` tree (``{}`` for conv)."""
+    _check_family(cfg)
+    if cfg.family == "conv":
+        # classification is one forward: there is no state to carry
+        return {}
+    return transformer.init_decode_cache(cfg, batch, seq_len, device=device)
+
+
 def init_decode_state(cfg, batch: int, capacity: int, *,
                       device=None) -> DecodeState:
-    _check_family(cfg, ("conv",), _DECODE)
-    # classification is one forward: there is no state to carry
-    return DecodeState(cache={}, pos=torch.zeros(
-        (batch,), dtype=torch.int32, device=device_of(device)))
+    dev = device_of(device)
+    return DecodeState(
+        cache=init_decode_cache(cfg, batch, capacity, device=dev),
+        pos=torch.zeros((batch,), dtype=torch.int32, device=dev))
+
+
+def _check_lm(cfg):
+    if cfg.family != "dense":
+        _check_family(cfg)
+        raise ValueError(f"{cfg.name} ({cfg.family}) has no token decode "
+                         "path: the conv family classifies in one forward")
+
+
+@torch.no_grad()
+def prefill(params, cfg, tokens, capacity: int, *, length=None):
+    """Prompt (B,S) -> (logits (B,S,V) fp32, ready-to-decode DecodeState).
+
+    ``length`` (an int, or (B,) ints) marks per-row true lengths of
+    right-padded prompts: the state comes out as if each row had been
+    prefilled unpadded (ring writes and ``pos`` both respect it)."""
+    _check_lm(cfg)
+    b, s = tokens.shape
+    logits, cache = transformer.prefill(params, cfg, tokens, capacity,
+                                        length=length)
+    pos = torch.as_tensor(s if length is None else length, dtype=torch.int32,
+                          device=tokens.device).expand(b).clone()
+    return logits, DecodeState(cache=cache, pos=pos)
+
+
+@torch.no_grad()
+def decode_step(params, cfg, state: DecodeState, tokens, table=None):
+    """One decode step for every row: tokens (B,1) ints at positions
+    ``state.pos``.  Returns (logits (B,1,V) fp32, DecodeState with each
+    row's position advanced); the cache is written in place and shared.
+    ``table`` (B, cap/bs) int32 switches the cache leaves to the block
+    pool (``serving/blocks.py``): logical ring slot ``s`` of row b lives
+    at ``pool[table[b, s // bs], s % bs]``."""
+    _check_lm(cfg)
+    logits = transformer.decode_step(params, cfg, state.cache, tokens,
+                                     state.pos, table)
+    return logits, DecodeState(cache=state.cache, pos=state.pos + 1)
+
+
+# slot surgery: the continuous-batching engine swaps one request's state in
+# and out of a fixed-slot DecodeState.  Stacked cache leaves carry their
+# layer axis BEFORE batch.
+_STACKED_RE = re.compile(r"(^|/)(blocks|self|cross)/")
+
+
+def stacked_cache_path(path_str: str) -> bool:
+    """Whether a decode-cache leaf at this '/'-joined path carries a
+    leading stacked layer axis (batch is then axis 1, not 0)."""
+    return bool(_STACKED_RE.search(path_str)) and \
+        "rem_blocks" not in path_str
+
+
+def map_cache(fn, cache, *rest, path: str = ""):
+    """``fn(leaf, *rest_leaves, batch_axis)`` over a cache tree (dicts
+    and tuples), keeping its structure; ``batch_axis`` is 1 for stacked
+    leaves (``stacked_cache_path``), else 0."""
+    if isinstance(cache, dict):
+        return {k: map_cache(fn, cache[k], *(r[k] for r in rest),
+                             path=f"{path}/{k}" if path else str(k))
+                for k in cache}
+    if isinstance(cache, (tuple, list)):
+        return type(cache)(
+            map_cache(fn, c, *(r[i] for r in rest),
+                      path=f"{path}/{i}" if path else str(i))
+            for i, c in enumerate(cache))
+    return fn(cache, *rest, 1 if stacked_cache_path(path) else 0)
+
+
+def _index(slots, device):
+    return torch.as_tensor(list(slots), dtype=torch.long, device=device)
 
 
 def write_slots(state: DecodeState, sub: DecodeState, slots) -> DecodeState:
-    """Scatter ``sub`` (batch = len(slots)) into ``state`` at ``slots``."""
-    if state.cache or sub.cache:
-        raise NotImplementedError("write_slots of a non-empty cache comes "
-                                  "with the LM slices (ROADMAP queue A)")
-    idx = torch.as_tensor(list(slots), dtype=torch.long,
-                          device=state.pos.device)
+    """Scatter ``sub`` (batch = len(slots)) into ``state`` at ``slots``:
+    the cache in place, ``pos`` into a new tensor (the input state's
+    ``pos`` is untouched)."""
+    idx = _index(slots, state.pos.device)
+
+    def one(leaf, new, axis):
+        if axis:
+            leaf[:, idx] = new.to(leaf.dtype)
+        else:
+            leaf[idx] = new.to(leaf.dtype)
+
+    map_cache(one, state.cache, sub.cache)
     pos = state.pos.clone()
     pos[idx] = sub.pos.to(device=pos.device, dtype=pos.dtype)
-    return DecodeState(cache={}, pos=pos)
+    return DecodeState(cache=state.cache, pos=pos)
+
+
+def read_slots(state: DecodeState, slots) -> DecodeState:
+    """Gather rows ``slots`` of ``state`` into a new sub-state (batch =
+    len(slots)): the inverse of ``write_slots``, bit for bit."""
+    idx = _index(slots, state.pos.device)
+    cache = map_cache(lambda leaf, axis: leaf[:, idx] if axis else leaf[idx],
+                      state.cache)
+    return DecodeState(cache=cache, pos=state.pos[idx])

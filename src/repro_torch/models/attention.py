@@ -1,5 +1,5 @@
-"""Full-sequence attention: GQA/MQA, causal and sliding-window masks (the
-counterpart of ``repro/models/attention.py``'s training path).
+"""Attention: GQA/MQA, causal and sliding-window masks, and the decode
+surface (the counterpart of ``repro/models/attention.py``).
 
 ``full_attention`` projects q, k and v, applies RoPE to q and k, groups
 the query heads onto their KV heads, runs the attention the config's
@@ -11,17 +11,33 @@ the query heads onto their KV heads, runs the attention the config's
   ``xla``    the plain masked-softmax version on any device
 
 Cross-attention memory and a query offset raise, as the reference's
-flash path does; the reference's ``chunked`` / ``qloop`` and the decode
-surface (KV cache, ring buffer) are not ported (ROADMAP queue A).
+flash path does; the reference's ``chunked`` / ``qloop`` are not ported
+(ROADMAP queue A).
+
+The decode surface: ``init_cache`` builds a ring KV cache of
+``cache_capacity`` slots per row (bf16/fp32, or int8 with fp32 scales,
+per ``numerics.kv_cache_spec``); ``fill_cache`` writes a prompt's K/V
+into it (per-row ``length`` for right-padded prompts), and
+``full_attention(..., cache=)`` does so from the K/V it computed anyway;
+``decode_attention`` writes one token's K/V at slot ``pos % cap`` and
+attends over the valid slots through the flash-decode kernels
+(``kernels.decode_attention``), on a ring or, with ``table``, on the
+block pool.  Unlike the reference's functional ``.at[].set`` (whose
+state is donated), every cache write here lands IN PLACE in the tensors
+passed in: a copy of the cache per token would swamp the step.  The
+speculative-decoding chunk (``decode_attention_seq``) and cross-attention
+decode are not ported (ROADMAP queue A items 9-10).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.common import policy_of
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import apply_rope, dense_init, matmul, \
     rope_freqs
+from repro_torch.numerics import kv_cache_spec
 
 IMPLS = ("xla", "flash")
 
@@ -82,8 +98,10 @@ def _group(q, n_kv):
 
 
 def full_attention(params, cfg, x, *, xc=None, causal=True, rope=True,
-                   window=None, impl=None, q_offset=0):
-    """x (B,S,d) -> (B,S,d): self-attention over the whole sequence."""
+                   window=None, impl=None, q_offset=0, cache=None,
+                   length=None):
+    """x (B,S,d) -> (B,S,d): self-attention over the whole sequence.
+    With ``cache`` its K/V also fill that ring in place (``fill_cache``)."""
     b, s, _ = x.shape
     impl = resolve_impl(cfg, cross=xc is not None, q_offset=q_offset,
                         impl=impl)
@@ -93,9 +111,141 @@ def full_attention(params, cfg, x, *, xc=None, causal=True, rope=True,
         pos = torch.arange(s, device=x.device)
         q = apply_rope(q, pos, inv)
         k = apply_rope(k, pos, inv)
+    if cache is not None:
+        _fill(cache, k, v, length)
     qg = _group(q, cfg.n_kv_heads)
     pol = policy_of(cfg)
     o = flash_ops.flash_attention(
         qg, k, v, causal=causal, window=window, scale=cfg.head_dim ** -0.5,
         backend="plain" if impl == "xla" else pol.attention_backend())
     return _out(params, cfg, o.reshape(b, s, cfg.n_heads, cfg.head_dim))
+
+
+# ------------------------------------------------------------- KV cache ----
+
+def cache_capacity(cfg, seq_len: int, window=None) -> int:
+    w = window if window is not None else cfg.sliding_window
+    return min(seq_len, w) if w is not None else seq_len
+
+
+def init_cache(cfg, batch: int, capacity: int, dtype, device,
+               lead: tuple = ()) -> dict:
+    """A zeroed ring KV cache {k, v: (*lead, batch, capacity, Hkv, hd)}
+    in the storage dtype of ``numerics.kv_cache_spec``; an int8 cache
+    also has fp32 ``k_scale`` / ``v_scale`` (*lead, batch, capacity,
+    Hkv).  ``lead`` is the stacked-layer axis of the transformer's
+    cache."""
+    store, quant = kv_cache_spec(cfg, dtype)
+    shape = tuple(lead) + (batch, capacity, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=store, device=device),
+             "v": torch.zeros(shape, dtype=store, device=device)}
+    if quant:
+        cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)
+        cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)
+    return cache
+
+
+def _kv_quant(x):
+    """Symmetric int8 quantization over the hd axis: x (..., hd) ->
+    (int8 values, fp32 scale (...)).  amax is clamped so all-zero rows get
+    scale eps, not 0."""
+    xf = x.float()
+    scale = xf.abs().amax(-1).clamp_min(1e-8) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def _kv_dequant(q, scale):
+    return q.float() * scale[..., None].float()
+
+
+def _fill(cache, k, v, length=None):
+    """Write the last ``cap`` positions of k, v (B,S,Hkv,hd) into the
+    ring at slot ``position % cap``, in place.  ``length`` (int, or (B,)
+    ints) is each row's true prefix length in a right-padded batch: row
+    b keeps only positions ``< length[b]``, so a bucketed prefill fills
+    the ring exactly as an unpadded one would."""
+    b, s = k.shape[:2]
+    cap = cache["k"].shape[1]
+    take = min(cap, s)
+    ln = torch.as_tensor(s if length is None else length, dtype=torch.long,
+                         device=k.device).expand(b)
+    # the last `take` positions relative to each row's length; `take`
+    # consecutive ints stay distinct mod cap, so no row writes a slot twice
+    positions = ln[:, None] - take + torch.arange(take, device=k.device)
+    valid = positions >= 0
+    rows = torch.arange(b, device=k.device)[:, None].expand(b, take)
+    pclip = positions.clamp(0, s - 1)
+    kw, vw = k[rows, pclip], v[rows, pclip]
+    if "k_scale" in cache:
+        kw, ks = _kv_quant(kw)
+        vw, vs = _kv_quant(vw)
+    rows, slots = rows[valid], torch.remainder(positions, cap)[valid]
+    cache["k"][rows, slots] = kw[valid].to(cache["k"].dtype)
+    cache["v"][rows, slots] = vw[valid].to(cache["v"].dtype)
+    if "k_scale" in cache:
+        cache["k_scale"][rows, slots] = ks[valid]
+        cache["v_scale"][rows, slots] = vs[valid]
+
+
+def fill_cache(params, cfg, x, cache, *, rope=True, length=None):
+    """Fill a ring cache in place from a full prefix x (B,S,d): the K/V
+    the last ``cap`` positions would have written in S decode steps
+    (``length``: per-row true lengths, see ``_fill``).  Returns the
+    cache."""
+    _, k, v = _qkv(params, cfg, x)
+    if rope:
+        k = apply_rope(k, torch.arange(x.shape[1], device=x.device),
+                       rope_freqs(cfg, x.device))
+    _fill(cache, k, v, length)
+    return cache
+
+
+def decode_attention(params, cfg, x, cache, pos, *, window=None, rope=True,
+                     table=None):
+    """One-token decode.  x (B,1,d); cache {k, v} (B,cap,Hkv,hd) rings
+    (with ``table`` (B, cap/bs) int32: (NB,bs,Hkv,hd) block pools); pos
+    (B,) int: the absolute position of each row's token.
+
+    Writes each row's K/V at slot ``pos % cap`` in place (on the pool,
+    at ``table[b, slot // bs]``, offset ``slot % bs``), then attends over
+    the valid slots through the policy's ``decode_backend``: the kernels
+    on CUDA tensors, the plain version on CPU tensors or under
+    ``decode_attention="xla"``.  Returns out (B,1,d)."""
+    b = x.shape[0]
+    q, k_new, v_new = _qkv(params, cfg, x)
+    bs = cache["k"].shape[1]
+    cap = bs if table is None else table.shape[1] * bs
+    pv = torch.as_tensor(pos, device=x.device).expand(b)
+    if rope:
+        inv = rope_freqs(cfg, x.device)
+        q = apply_rope(q, pv[:, None], inv)
+        k_new = apply_rope(k_new, pv[:, None], inv)
+    slot = torch.remainder(pv.long(), cap)
+    kw, vw = k_new[:, 0], v_new[:, 0]
+    quant = "k_scale" in cache
+    if quant:
+        kw, ks = _kv_quant(kw)                      # scale (B, Hkv)
+        vw, vs = _kv_quant(vw)
+    if table is None:
+        wr, ws = torch.arange(b, device=x.device), slot
+    else:
+        # rows never share a writable block; retired rows all point at the
+        # trash block, where their colliding writes are harmless
+        wr = table.gather(1, (slot // bs)[:, None])[:, 0].long()
+        ws = slot % bs
+    cache["k"][wr, ws] = kw.to(cache["k"].dtype)
+    cache["v"][wr, ws] = vw.to(cache["v"].dtype)
+    if quant:
+        cache["k_scale"][wr, ws] = ks
+        cache["v_scale"][wr, ws] = vs
+    qg = q.reshape(b, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                   cfg.head_dim)
+    o = decode_ops.decode_attention(
+        qg, cache["k"], cache["v"], pv.to(torch.int32), window=window,
+        scale=cfg.head_dim ** -0.5, k_scale=cache.get("k_scale"),
+        v_scale=cache.get("v_scale"), table=table,
+        backend=policy_of(cfg).decode_backend())
+    return _out(params, cfg, o.reshape(b, 1, cfg.n_heads, cfg.head_dim))

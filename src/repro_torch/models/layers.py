@@ -141,8 +141,9 @@ def rope_freqs(cfg, device, head_dim=None):
     hd = head_dim or cfg.head_dim
     exponent = torch.arange(0, hd, 2, dtype=torch.float32,
                             device=device) / hd
-    return 1.0 / (torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                               device=device) ** exponent)     # (hd/2,)
+    # a Python-float base rides into the kernel as an fp32 scalar: no
+    # host-to-device copy, which would wait for the card on every call
+    return 1.0 / (float(cfg.rope_theta) ** exponent)           # (hd/2,)
 
 
 def apply_rope(x, positions, inv_freq):

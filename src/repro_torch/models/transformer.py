@@ -11,8 +11,14 @@ backward stacks the layers' grads in one pass.
 
 A ``dense`` block is pre-norm attention (full or sliding-window per
 ``cfg.sliding_window``) and a pre-norm MLP, each added to the residual.
-The other families (moe, ssm, hybrid, vlm) and the decode surface are
-not ported (ROADMAP queue A).
+
+Decode: ``init_decode_cache`` stacks one ring KV cache per layer under
+``blocks`` with a leading ``n_layers`` axis, as the reference's scan
+does; ``prefill`` / ``forward(..., cache=)`` fill it and ``decode_step``
+advances it one token.  Each layer writes its view (``unbind``) of the
+stacked leaves, so every write lands in place in the stacked tensors.
+The other families (moe, ssm, hybrid, vlm) are not ported (ROADMAP
+queue A item 8).
 """
 from __future__ import annotations
 
@@ -67,11 +73,25 @@ def init(cfg, generator: torch.Generator, *, device=None) -> dict:
     return params
 
 
-def block_apply_seq(p, cfg, kind, h):
-    """One full-sequence block (no cache): h (B,S,d) -> h (B,S,d)."""
+def block_apply_seq(p, cfg, kind, h, *, cache=None, length=None):
+    """One full-sequence block: h (B,S,d) -> h (B,S,d).  ``cache`` (this
+    layer's ring) is filled in place with the prefix's K/V, per row up
+    to ``length`` when given."""
     x = norm_apply(p["norm1"], cfg, h)
     h = h + attn.full_attention(p["attn"], cfg, x, causal=True,
-                                window=cfg.sliding_window)
+                                window=cfg.sliding_window, cache=cache,
+                                length=length)
+    x = norm_apply(p["norm2"], cfg, h)
+    return h + mlp_apply(p["ffn"], cfg, x)
+
+
+def block_apply_decode(p, cfg, kind, h, cache, pos, table=None):
+    """One single-token block: h (B,1,d) -> h (B,1,d); writes this
+    layer's cache in place.  ``table`` switches the cache to the block
+    pool (``attention.decode_attention``)."""
+    x = norm_apply(p["norm1"], cfg, h)
+    h = h + attn.decode_attention(p["attn"], cfg, x, cache, pos,
+                                  window=cfg.sliding_window, table=table)
     x = norm_apply(p["norm2"], cfg, h)
     return h + mlp_apply(p["ffn"], cfg, x)
 
@@ -88,15 +108,65 @@ def _layers(stacked, n: int) -> list:
     return [select(parts, i) for i in range(n)]
 
 
-def forward(params, cfg, tokens):
-    """tokens (B,S) -> fp32 logits (B,S,V)."""
+def _all_layers(tree, cfg) -> list:
+    """One subtree per layer of a params or decode-cache tree: views of
+    the stacked leaves (writes to a cache's land in the stacked tensors),
+    then the remainder layers'."""
+    out = []
+    for stacked in tree["blocks"]:
+        out += _layers(stacked, cfg.n_layers)
+    return out + list(tree["rem_blocks"])
+
+
+def forward(params, cfg, tokens, *, cache=None, length=None):
+    """tokens (B,S) -> fp32 logits (B,S,V).  With ``cache`` (an
+    ``init_decode_cache`` tree) the prefix's K/V fill it in place (per
+    row up to ``length``) and the result is (logits, cache)."""
     (kind,) = block_kinds(cfg)
     h = embed_apply(params["embed"], cfg, tokens)
-    for stacked in params["blocks"]:
-        for layer in _layers(stacked, cfg.n_layers):
-            h = block_apply_seq(layer, cfg, kind, h)
-    for layer in params["rem_blocks"]:
-        h = block_apply_seq(layer, cfg, kind, h)
+    layers = _all_layers(params, cfg)
+    caches = [None] * len(layers) if cache is None \
+        else _all_layers(cache, cfg)
+    for layer, c in zip(layers, caches, strict=True):
+        h = block_apply_seq(layer, cfg, kind, h, cache=c, length=length)
+    h = norm_apply(params["final_norm"], cfg, h)
+    logits = unembed_apply(params["embed"], cfg, h)
+    return logits if cache is None else (logits, cache)
+
+
+def prefill(params, cfg, tokens, capacity: int, *, length=None):
+    """Prompt (B,S) -> (logits (B,S,V), a decode cache of ``capacity``
+    filled with it).  ``length`` marks per-row true lengths of
+    right-padded prompts: the cache comes out as if each row had been
+    prefilled unpadded at its own length."""
+    cache = init_decode_cache(cfg, tokens.shape[0], capacity,
+                              device=tokens.device)
+    return forward(params, cfg, tokens, cache=cache, length=length)
+
+
+def init_decode_cache(cfg, batch: int, seq_len: int, *, device=None):
+    """The stacked per-layer ring caches: ``{"blocks": ({k, v[, k_scale,
+    v_scale]: (n_layers, batch, cap, ...)},), "rem_blocks": ()}`` with
+    ``cap = cache_capacity(cfg, seq_len)``, in the params' dtype (or the
+    numerics policy's ``kv_cache_dtype``)."""
+    block_kinds(cfg)
+    dev = device_of(device)
+    cap = attn.cache_capacity(cfg, seq_len)
+    blocks = (attn.init_cache(cfg, batch, cap, param_dtype(cfg), dev,
+                              lead=(cfg.n_layers,)),) if cfg.n_layers else ()
+    return {"blocks": blocks, "rem_blocks": ()}
+
+
+def decode_step(params, cfg, cache, tokens, pos, table=None):
+    """One decode step.  tokens (B,1) ints; pos (B,) ints, each row's
+    absolute position.  Writes ``cache`` in place and returns fp32
+    logits (B,1,V).  ``table`` (B, cap/bs) int32: the block-pool layout
+    (``attention.decode_attention``)."""
+    (kind,) = block_kinds(cfg)
+    h = embed_apply(params["embed"], cfg, tokens)
+    for layer, c in zip(_all_layers(params, cfg), _all_layers(cache, cfg),
+                        strict=True):
+        h = block_apply_decode(layer, cfg, kind, h, c, pos, table)
     h = norm_apply(params["final_norm"], cfg, h)
     return unembed_apply(params["embed"], cfg, h)
 

@@ -6,6 +6,8 @@ dtype (``param_dtype`` None inherits ``cfg.dtype``, bf16 for the LM zoo's
 published configs), compute in the params' dtype, fp32 optimizer state
 and fp32 accumulation.  bf16 compute over fp32 master weights and loss
 scaling raise where a trainer would use them (ROADMAP queue A item 6).
+``kv_cache_dtype`` picks the serving KV cache's storage
+(``kv_cache_spec``).
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import torch
 
 LOSS_SCALES = ("none", "static", "dynamic")
 KV_CACHE_DTYPES = ("auto", "fp32", "bf16", "int8")
+_KV_TORCH = {"fp32": torch.float32, "bf16": torch.bfloat16,
+             "int8": torch.int8}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
@@ -97,3 +101,12 @@ def param_dtype(cfg) -> torch.dtype:
             "queue A item 6 (bf16 compute over fp32 master weights, loss "
             "scaling)")
     return torch_dtype(pol.param_dtype or getattr(cfg, "dtype", "float32"))
+
+
+def kv_cache_spec(cfg, model_dtype) -> tuple:
+    """(storage dtype, quantized?) of the ring KV cache: ``auto`` stores
+    the model dtype, ``int8`` quantizes with fp32 scales beside it."""
+    sel = numerics_of(cfg).kv_cache_dtype
+    if sel == "auto":
+        return torch_dtype(model_dtype), False
+    return _KV_TORCH[sel], sel == "int8"

@@ -1,21 +1,36 @@
-"""Slot-based serving engine for image classification (the conv family).
+"""Slot-based continuous-batching serving engine (the counterpart of
+``repro/serving/engine.py``), for image classification (the conv family)
+and for the dense LMs.
 
-The counterpart of ``repro/serving/engine.py`` for ``family == "conv"``:
-each request is one raw (image_size, image_size, in_channels) image and
-its result is one class id.  The engine keeps ``slots`` rows and runs
-the reference's admission fixpoint:
+The engine keeps ``slots`` rows and runs the reference's admission
+fixpoint on every ``step``:
 
-  retire   rows whose token budget is met (every conv row, one token)
-           free their slot and hand back their ``Result``;
-  admit    queued requests fill the free slots, and the freshly admitted
-           images are classified by ONE batched forward, zero-padded up to
-           a power-of-two bucket;
+  retire   rows whose token budget is met (or whose ring is full) free
+           their slot and hand back their ``Result``;
+  admit    queued requests fill the free slots.  A conv request is one
+           raw image: the freshly admitted images are classified by ONE
+           batched forward, zero-padded up to a power-of-two bucket, and
+           retire at the next pass.  An LM prompt is right-padded to a
+           length BUCKET and prefilled (per-row ``length`` keeps the
+           padded prefill equal to an unpadded one); its fresh state is
+           scattered into the slot with ``models.write_slots``;
+  decode   (LM) one dispatch of ``ticks_per_dispatch`` decode ticks for
+           every slot at once: each consumes its last token at its own
+           position (``DecodeState.pos`` is per row) and samples the
+           next.  The sampled tokens stay on the device between ticks;
+           the host reads them once per dispatch (``_to_host``).
+           Inactive slots decode garbage into their own rows.
 
-repeated until nothing more is admitted, so a wave's slots are refilled
-within the same ``step``.  Classification never decodes:
-``decode_steps`` stays 0.  The LM families, multi-tick decode, spec
-decode, the block pool and the replica mesh are not ported yet (ROADMAP
-queue A); other families raise.
+With ``block_size > 0`` the KV cache is a shared, ref-counted pool of
+blocks read through per-slot block tables (``serving/blocks.py``):
+requests with a common prompt prefix share its blocks, and an exact
+repeat of a prompt (greedy engines) admits with no forward at all.
+
+Everything runs under ``torch.inference_mode()``, and the decode state
+is written in place.  Speculative decoding (``draft_*``), the replica
+mesh, and the tier's ``export_slot`` / ``import_snapshot`` / ``drain``
+are not ported yet (ROADMAP queue A items 10-11) and raise; so do the LM
+families other than dense (item 8).
 """
 from __future__ import annotations
 
@@ -27,14 +42,32 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import models
+from repro_torch.serving import blocks as blk
 from repro_torch.serving import sampling
+
+DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512)
+
+
+def _to_host(x):
+    """THE device-to-host read of the decode loop: ``step()`` calls it
+    exactly once per dispatch, on one packed (2, slots, K) tensor, the
+    token block and the retire flags together (the tests count calls to
+    this hook)."""
+    return x.cpu().numpy()
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md "
+                               f"queue A {item}")
 
 
 @dataclasses.dataclass
 class Request:
     """One request.  For the conv family ``image`` IS the request (an
-    (image_size, image_size, in_channels) array); the prompt is ignored
-    and the result is one class id."""
+    (image_size, image_size, in_channels) array; the prompt is ignored
+    and the result is one class id); for an LM ``prompt`` is an int
+    sequence and ``max_new_tokens`` the budget."""
     prompt: Any = ()
     max_new_tokens: int = 32
     image: Any = None
@@ -45,7 +78,7 @@ class Request:
 class Result:
     rid: int
     prompt_len: int
-    tokens: List[int]                  # generated ids (the class id)
+    tokens: List[int]                  # generated ids (first from prefill)
     t_submit: float
     t_first: float                     # first token emitted
     t_done: float
@@ -60,50 +93,195 @@ class Result:
 
 
 class ServingEngine:
-    """Serves ``model`` (an ``nn.Module`` taking NHWC images) for ``cfg``
-    on the model's device."""
+    """Serves ``params`` for ``cfg`` on their device: an ``AlexNet``
+    module (NHWC images) for the conv family, a params tree for a dense
+    LM."""
 
-    def __init__(self, model, cfg, *, slots: int = 4,
-                 temperature: float = 0.0, top_k: int = 0, seed: int = 0):
-        if cfg.family != "conv":
-            raise NotImplementedError(
-                f"the port's ServingEngine serves the conv family only; "
-                f"{cfg.name} is {cfg.family!r} (the LM families come with "
-                "the LM serving slice, ROADMAP queue A)")
+    def __init__(self, params, cfg, *, slots: int = 4, capacity: int = 256,
+                 temperature: float = 0.0, top_k: int = 0,
+                 eos_id: Optional[int] = None, seed: int = 0,
+                 ticks_per_dispatch: int = 1, block_size: int = 0,
+                 num_blocks: int = 0, draft_params=None, draft_cfg=None,
+                 mesh=None):
+        if cfg.family not in ("conv", "dense"):
+            raise _not_ported(f"serving the {cfg.family!r} family "
+                              f"({cfg.name})", "item 8")
+        if draft_params is not None or draft_cfg is not None:
+            raise _not_ported("speculative decoding (draft_params / "
+                              "draft_cfg)", "item 10")
+        if mesh is not None:
+            raise _not_ported("the replica mesh", "item 11")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
-        self.model, self.cfg, self.slots = model, cfg, slots
-        self.temperature, self.top_k = temperature, top_k
-        self.device = next(model.parameters()).device
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        if ticks_per_dispatch < 1:
+            raise ValueError(f"ticks_per_dispatch must be >= 1, "
+                             f"got {ticks_per_dispatch}")
+        self.params, self.cfg, self.slots = params, cfg, slots
+        self.capacity, self.ticks = capacity, ticks_per_dispatch
+        self.temperature, self.top_k, self.eos_id = temperature, top_k, eos_id
+        self.seed = seed
+        # any prompt that fits the ring is admissible
+        self.buckets = tuple(b for b in DEFAULT_BUCKETS if b < capacity) \
+            + (capacity,)
         self._active: List[Optional[Request]] = [None] * slots
         self._results: Dict[int, Result] = {}
         self._queue: collections.deque = collections.deque()
         self._next_rid = 0
-        self._buckets_used: set = set()    # ("img", bucket) batch shapes
-        self.decode_steps = 0          # model ticks run (never, for conv)
+        self._buckets_used: set = set()
+        self.decode_steps = 0          # model ticks run (K per dispatch)
+        self.dispatches = 0            # decode dispatches
+        self.block_size = int(block_size)
+        self.block_mgr = None
+        self.table = None
+        if cfg.family == "conv":
+            self.device = next(params.parameters()).device
+            self.generator = torch.Generator(device=self.device)
+            self.generator.manual_seed(seed)
+            return
+        self.device = params["embed"]["tok"].device
+        with torch.inference_mode():
+            self._init_lm_state(num_blocks)
+
+    def _init_lm_state(self, num_blocks: int) -> None:
+        cfg, slots, dev = self.cfg, self.slots, self.device
+        if self.block_size > 0:
+            if cfg.sliding_window is not None:
+                raise NotImplementedError(
+                    "block-table caches need full attention: a windowed "
+                    "ring (cap < seq) wraps and would overwrite shared "
+                    "blocks")
+            if self.ticks != 1:
+                raise ValueError("block-table serving does not compose "
+                                 "with multi-tick dispatch (rows must "
+                                 "retire before the ring wraps)")
+            if self.capacity % self.block_size:
+                raise ValueError(f"capacity {self.capacity} not a multiple "
+                                 f"of block_size {self.block_size}")
+            self.n_k = self.capacity // self.block_size
+            # default pool: fully private provisioning + the trash block
+            nb = int(num_blocks) or slots * self.n_k + 1
+            self.block_mgr = blk.BlockManager(
+                nb, self.block_size, prefill_once=self.temperature == 0.0)
+            self.table = torch.zeros((slots, self.n_k), dtype=torch.int32,
+                                     device=dev)
+            self._slot_adm: List[Optional[blk.Admission]] = [None] * slots
+            self.state = blk.init_blocked_state(cfg, nb, self.block_size,
+                                                slots, device=dev)
+        else:
+            self.state = models.init_decode_state(cfg, slots, self.capacity,
+                                                  device=dev)
+        self.last_tok = torch.zeros((slots, 1), dtype=torch.long, device=dev)
+        self.slot_rids = torch.zeros((slots,), dtype=torch.long, device=dev)
+
+    # ----------------------------------------------------------- buckets ----
+
+    def _bucket(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"prompt length {n} exceeds the largest bucket "
+                         f"{self.buckets[-1]} (capacity {self.capacity})")
+
+    @property
+    def prefill_compiles(self) -> int:
+        """Distinct prefill shapes run: the reference's compile count."""
+        return len(self._buckets_used)
 
     # ------------------------------------------------------------- queue ----
 
     def submit(self, request: Request) -> int:
-        expect = (self.cfg.image_size, self.cfg.image_size,
-                  self.cfg.in_channels)
-        img = None if request.image is None \
-            else np.asarray(request.image, np.float32)
-        if img is None or img.shape != expect:
-            raise ValueError(
-                f"conv-family request needs image of shape {expect}, "
-                f"got {None if img is None else img.shape}")
-        request.image = img
-        request.max_new_tokens = 1     # one class id per image
+        if self.cfg.family == "conv":
+            expect = (self.cfg.image_size, self.cfg.image_size,
+                      self.cfg.in_channels)
+            img = None if request.image is None \
+                else np.asarray(request.image, np.float32)
+            if img is None or img.shape != expect:
+                raise ValueError(
+                    f"conv-family request needs image of shape {expect}, "
+                    f"got {None if img is None else img.shape}")
+            request.image = img
+            request.max_new_tokens = 1     # one class id per image
+            prompt_len = 0
+        else:
+            if len(request.prompt) < 1:
+                raise ValueError("empty prompt: there is no position to "
+                                 "sample the first token from")
+            self._bucket(len(request.prompt))  # reject overlong now
+            prompt_len = len(request.prompt)
         request.rid = self._next_rid
         self._next_rid += 1
         self._results[request.rid] = Result(
-            rid=request.rid, prompt_len=0, tokens=[],
+            rid=request.rid, prompt_len=prompt_len, tokens=[],
             t_submit=time.perf_counter(), t_first=0.0, t_done=0.0)
         self._queue.append(request)
         return request.rid
+
+    # --------------------------------------------------------- admission ----
+
+    def _prefill(self, prompt, rid: int):
+        """The prompt right-padded to its bucket through ``models.prefill``
+        (batch 1): (first token, a device (1,) tensor sampled at position
+        ``len(prompt)``; the prefilled sub-state)."""
+        bucket = self._bucket(len(prompt))
+        self._buckets_used.add(bucket)
+        toks = torch.zeros((1, bucket), dtype=torch.long)
+        toks[0, :len(prompt)] = torch.as_tensor(prompt, dtype=torch.long)
+        toks = toks.to(self.device)
+        length = torch.full((1,), len(prompt), dtype=torch.int32,
+                            device=self.device)
+        logits, sub = models.prefill(self.params, self.cfg, toks,
+                                     self.capacity, length=length)
+        first = sampling.sample_slots(
+            self.seed, torch.full((1,), rid, device=self.device), length,
+            logits[:, len(prompt) - 1], self.temperature, self.top_k)
+        return first, sub
+
+    def _admit(self, req: Request, slot: int) -> bool:
+        """Prefill ``req`` into ``slot``.  Returns False (the request is
+        NOT consumed) only in block mode, when the pool cannot host the
+        row yet: the caller defers it."""
+        prompt = np.asarray(req.prompt, np.int64)
+        if self.block_mgr is not None:
+            tok = self._admit_blocked(prompt, req.rid, slot)
+            if tok is None:
+                return False
+        else:
+            first, sub = self._prefill(prompt, req.rid)
+            self.state = models.write_slots(self.state, sub, [slot])
+            tok = int(first[0])
+        self.last_tok[slot, 0] = tok
+        self.slot_rids[slot] = req.rid
+        self._active[slot] = req
+        res = self._results[req.rid]
+        res.tokens.append(tok)
+        res.t_first = time.perf_counter()
+        return True
+
+    def _admit_blocked(self, prompt, rid: int, slot: int) -> Optional[int]:
+        """Block-pool admission: place the row's table, then either skip
+        the forward (exact-prompt hit: shared blocks + COW tail clone +
+        the cached first token) or prefill and scatter into the row's
+        blocks.  Returns the first token, or None to defer."""
+        adm = self.block_mgr.admit(prompt, self.n_k)
+        if adm is None:
+            return None                   # pool exhausted: defer
+        self.table[slot] = torch.as_tensor(adm.table, dtype=torch.int32)
+        self._slot_adm[slot] = adm
+        if adm.first_token is not None:
+            for dst, src in adm.cow:      # tail clone: the row WILL write
+                blk.copy_block(self.state, dst, src)
+            self.state.pos[slot] = len(prompt)
+            return adm.first_token
+        first, sub = self._prefill(prompt, rid)
+        blk.write_prefill(self.state, sub, adm.table, slot, self.block_size)
+        if adm.snapshot is not None:
+            # snapshot the tail block NOW, before any decode write dirties
+            # it: later exact-prompt admissions clone from this copy
+            blk.copy_block(self.state, adm.snapshot,
+                           adm.table[len(prompt) // self.block_size])
+        tok = int(first[0])
+        self.block_mgr.finish(adm, tok)
+        return tok
 
     def _admit_images(self, reqs: List[Request], slots: List[int]) -> None:
         """ONE forward classifies every freshly admitted image (rows
@@ -118,10 +296,9 @@ class ServingEngine:
                          cfg.in_channels), np.float32)
         for i, req in enumerate(reqs):
             imgs[i] = req.image
-        with torch.inference_mode():
-            logits = self.model(torch.from_numpy(imgs).to(self.device))
-            toks = sampling.sample(logits, self.temperature, self.top_k,
-                                   self.generator)
+        logits = self.params(torch.from_numpy(imgs).to(self.device))
+        toks = sampling.sample(logits, self.temperature, self.top_k,
+                               self.generator)
         host = toks.cpu().numpy()      # the device sync point of the wave
         now = time.perf_counter()
         for i, (slot, req) in enumerate(zip(slots, reqs)):
@@ -133,13 +310,24 @@ class ServingEngine:
     def _retire(self, slot: int, now: float) -> Result:
         req = self._active[slot]
         self._active[slot] = None
+        if self.block_mgr is not None:
+            self.block_mgr.release(self._slot_adm[slot])
+            self._slot_adm[slot] = None
+            # point the dead row at the trash block: its garbage decode
+            # writes land where no live table looks
+            self.table[slot] = 0
         # hand the Result to the caller and forget it
         res = self._results.pop(req.rid)
         res.t_done = now
         return res
 
     def _hit_limits(self, req: Request) -> bool:
-        return len(self._results[req.rid].tokens) >= req.max_new_tokens
+        """True if the row must not consume another decode tick: its
+        budget is met, or its ring is full (position prompt_len +
+        len(tokens) - 1 == capacity - 1 is the last the cache holds)."""
+        res = self._results[req.rid]
+        return (len(res.tokens) >= req.max_new_tokens or
+                res.prompt_len + len(res.tokens) - 1 >= self.capacity)
 
     # -------------------------------------------------------------- load ----
 
@@ -156,24 +344,92 @@ class ServingEngine:
         return {"free_slots": self.free_slots, "queue_len": self.queue_len,
                 "active": self.slots - self.free_slots}
 
+    def export_slot(self, slot: int):
+        raise _not_ported("export_slot (the tier's handoff)", "item 11")
+
+    def import_snapshot(self, snap):
+        raise _not_ported("import_snapshot (the tier's handoff)", "item 11")
+
+    def drain(self):
+        raise _not_ported("drain (the tier's handoff)", "item 11")
+
     # -------------------------------------------------------------- step ----
 
+    def _decode(self):
+        """One dispatch: ``ticks`` decode ticks with the sampled tokens
+        kept on the device.  Returns the packed (2, slots, K) block of
+        tokens and eos flags, still on the device."""
+        toks, seq = self.last_tok, []
+        for _ in range(self.ticks):
+            logits, self.state = models.decode_step(
+                self.params, self.cfg, self.state, toks, table=self.table)
+            tok = sampling.sample_slots(self.seed, self.slot_rids,
+                                        self.state.pos, logits[:, 0],
+                                        self.temperature, self.top_k)
+            seq.append(tok)
+            toks = tok[:, None]
+        self.last_tok = toks
+        block = torch.stack(seq, dim=1)                 # (slots, K)
+        flags = (torch.zeros_like(block) if self.eos_id is None
+                 else (block == self.eos_id).long())
+        return torch.stack([block, flags])
+
     def step(self) -> List[Result]:
-        """Retire finished rows and admit what fits, repeating until the
-        admission fixpoint.  Returns the requests finished on this step."""
+        """Retire finished rows and admit what fits (repeating until the
+        admission fixpoint), then (LM) run ONE decode dispatch.  Returns
+        the requests finished on this step."""
+        with torch.inference_mode():
+            return self._step()
+
+    def _step(self) -> List[Result]:
         finished = []
         while True:
             now = time.perf_counter()
             for slot, req in enumerate(self._active):
                 if req is not None and self._hit_limits(req):
                     finished.append(self._retire(slot, now))
-            batch = []
+            admitted = False
+            batch = []                 # the conv family admits as ONE batch
             for slot in range(self.slots):
                 if self._active[slot] is None and self._queue:
-                    batch.append((slot, self._queue.popleft()))
-            if not batch:
-                return finished
-            self._admit_images([r for _, r in batch], [s for s, _ in batch])
+                    req = self._queue.popleft()
+                    if self.cfg.family == "conv":
+                        batch.append((slot, req))
+                        admitted = True
+                    elif self._admit(req, slot):
+                        admitted = True
+                    else:
+                        # block pool exhausted: requeue at the FRONT and
+                        # stop admitting; retirements free blocks later
+                        self._queue.appendleft(req)
+                        break
+            if batch:
+                self._admit_images([r for _, r in batch],
+                                   [s for s, _ in batch])
+            if not admitted:
+                break
+        if not any(self._active) and not self._queue:
+            return finished
+        if not any(self._active):
+            # block mode deferred the queue head with an otherwise idle
+            # engine: the pool is as free as it gets, so waiting cannot help
+            raise RuntimeError(
+                f"block pool ({self.block_mgr.nb} x {self.block_size}) "
+                f"cannot host one request of {self.n_k} blocks")
+        host = _to_host(self._decode())    # the one read per dispatch
+        self.decode_steps += self.ticks
+        self.dispatches += 1
+        block, flags = host[0], host[1]
+        now = time.perf_counter()
+        for j in range(self.ticks):
+            for slot, req in enumerate(self._active):
+                if req is None:
+                    continue               # retired at an earlier tick
+                res = self._results[req.rid]
+                res.tokens.append(int(block[slot, j]))
+                if self._hit_limits(req) or flags[slot, j]:
+                    finished.append(self._retire(slot, now))
+        return finished
 
     def run(self, requests=None) -> List[Result]:
         """Submit ``requests`` (if given) and step until everything is

@@ -19,17 +19,23 @@ only once ``ml_dtypes`` is imported, as JAX does).
 parameter-averaging ``TrainState`` of either: params and the optimizer
 state (``{"velocity"}`` for SGD, ``{"mu", "nu", "count"}`` for AdamW,
 fp32) with a leading replica axis R, and the step.
+
+``decode_state_from_reference`` / ``decode_state_to_reference`` carry a
+serving ``DecodeState`` (the stacked ring KV cache, or the block pool,
+and ``pos``) across, checked against ``init_decode_cache``'s shapes and
+dtypes, so both packages can decode from the same cache.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import models
 from repro_torch.core.steps import TrainState
 from repro_torch.kernels.common import device_of
 from repro_torch.models import alexnet, transformer
 from repro_torch.numerics import param_dtype
-from repro_torch.tree import tree_map
+from repro_torch.tree import flatten_with_paths, tree_map
 
 
 def to_torch(arr, device=None) -> torch.Tensor:
@@ -196,3 +202,43 @@ def state_to_reference(state: TrainState) -> dict:
     return {"params": tree_map(to_numpy, state.params),
             "opt_state": tree_map(to_numpy, state.opt_state),
             "step": np.asarray(state.step, np.int32)}
+
+
+@torch.no_grad()
+def decode_state_from_reference(state, cfg, *, device=None):
+    """The port's ``DecodeState`` on ``device`` for the reference's (any
+    object with ``cache`` and ``pos``): each leaf checked against
+    ``init_decode_cache`` at the reference's batch and capacity (a block
+    pool is a cache whose batch is the block count) and copied bit for
+    bit; ``pos`` int32."""
+    dev = device_of(device)
+    cache = state.cache
+    k = np.asarray(cache["blocks"][0]["k"])
+    like = models.init_decode_cache(cfg, k.shape[1], k.shape[2],
+                                    device="meta")
+    got, want = (sorted(flatten_with_paths(t)) for t in (cache, like))
+    if got != want:
+        raise ValueError(f"decode cache leaves {got}, expected {want}")
+
+    def one(src, want, axis):
+        arr = np.asarray(src)
+        dt = str(want.dtype).replace("torch.", "")
+        if tuple(arr.shape) != tuple(want.shape) or arr.dtype.name != dt:
+            raise ValueError(f"decode cache leaf: got {arr.dtype.name}"
+                             f"{arr.shape}, expected {dt}"
+                             f"{tuple(want.shape)}")
+        return to_torch(arr, dev)
+
+    pos = np.asarray(state.pos)
+    if pos.ndim != 1 or pos.dtype != np.int32:
+        raise ValueError(f"pos: got {pos.dtype}{pos.shape}, expected "
+                         "int32 (B,)")
+    return models.DecodeState(cache=models.map_cache(one, cache, like),
+                              pos=to_torch(pos, dev))
+
+
+def decode_state_to_reference(state) -> dict:
+    """The state as the reference's ``DecodeState`` fields, numpy arrays:
+    ``repro.models.DecodeState(**decode_state_to_reference(s))``."""
+    return {"cache": tree_map(to_numpy, state.cache),
+            "pos": to_numpy(state.pos)}

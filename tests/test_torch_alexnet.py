@@ -123,14 +123,13 @@ def test_policy_backends_on_cpu():
 
 
 def test_other_families_are_not_ported():
-    # conv and dense are ported; the other LM families raise, and so does
-    # the LM decode surface
+    # conv and dense are ported, their decode states too; the other LM
+    # families raise, at init and at the decode state
     cfg = types.SimpleNamespace(family="moe", name="mixtral-8x7b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         models.init(cfg, torch.Generator(), device="cpu")
-    dense = types.SimpleNamespace(family="dense", name="olmo-1b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.init_decode_state(dense, 2, 16, device="cpu")
+        models.init_decode_state(cfg, 2, 16, device="cpu")
 
 
 def test_conv_decode_state_only_moves_pos():

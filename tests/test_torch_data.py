@@ -73,7 +73,8 @@ def _numbers(n):
 def test_prefetch_loader_keeps_order_and_ends(prefetch):
     loader = pipeline.PrefetchLoader(
         _numbers(5), prefetch=prefetch,
-        preprocess=lambda b: {"x": b["x"] * 2})
+        preprocess=lambda b: {"x": b["x"] * 2},
+        device_put=pipeline.to_device("cpu"))
     got = [float(b["x"][0]) for b in loader]
     assert got == [0.0, 2.0, 4.0, 6.0, 8.0]
     with pytest.raises(StopIteration):
@@ -98,7 +99,8 @@ def test_prefetch_loader_closes_its_thread():
             i += 1
 
     before = threading.active_count()
-    loader = pipeline.PrefetchLoader(forever(), prefetch=2)
+    loader = pipeline.PrefetchLoader(forever(), prefetch=2,
+                                     device_put=pipeline.to_device("cpu"))
     next(loader)
     loader.close()
     assert threading.active_count() == before
@@ -111,13 +113,27 @@ def test_prefetch_loader_reraises_the_source_error():
         yield {"x": np.zeros(1, np.float32)}
         raise KeyError("broken source")
 
-    loader = pipeline.PrefetchLoader(bad(), prefetch=2)
+    loader = pipeline.PrefetchLoader(bad(), prefetch=2,
+                                     device_put=pipeline.to_device("cpu"))
     next(loader)
     with pytest.raises(KeyError, match="broken source"):
         next(loader)
     with pytest.raises(RuntimeError, match="worker exited"):
         next(loader)
     loader.close()
+
+
+def test_prefetch_loader_defaults_to_the_entry_points_device():
+    """Without ``device_put`` batches stage on ``device_of(None)``, the
+    card (the reference's ``jax.device_put``); where CUDA is absent that
+    raises instead of staging on the CPU."""
+    if torch.cuda.is_available():
+        loader = pipeline.PrefetchLoader(_numbers(1), prefetch=0)
+        assert next(loader)["x"].device.type == "cuda"
+        loader.close()
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            pipeline.PrefetchLoader(_numbers(1), prefetch=0)
 
 
 def test_pinned_staging_refuses_a_cpu_device():

@@ -1,0 +1,550 @@
+"""The port's decode attention and LM decode surface against the
+reference's, and the flash-decode CUDA kernels against their plain
+version.
+
+On the CPU the port runs the plain version (``kernels.decode_attention
+.ref``); the reference runs its Pallas kernels in interpret mode
+(``decode_attention_pallas(..., interpret=True)``) and its
+``decode_attention_ref``.  The model tests run the reference's
+``models.prefill`` / ``decode_step`` (XLA attention) and the port's on
+the same weights (``weights.lm_from_reference``) and tokens, fp32,
+reduced configs.  Tests marked ``cuda`` hold each kernel against its
+plain version on the card.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import models, weights
+from repro_torch.configs import ARCHS, reduced
+from repro_torch.kernels import common
+from repro_torch.kernels.decode_attention import ops, ref
+from repro_torch.models import attention
+from repro_torch.numerics import NumericsPolicy, kv_cache_spec
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from repro import models as jax_models
+    from repro.configs import ARCHS as JAX_ARCHS
+    from repro.configs import reduced as jax_reduced
+    from repro.kernels.common import KernelPolicy as JaxPolicy
+    from repro.kernels.decode_attention import ref as jax_ref
+    from repro.kernels.decode_attention.decode_attention import (
+        decode_attention_pallas)
+    from repro.models import attention as jax_attention
+    from repro.numerics import NumericsPolicy as JaxNumerics
+except ImportError:      # a GPU host without JAX runs only the cuda tests
+    jax = None
+
+TOL = 2e-4               # the registry tolerance (decode_attention/ops.py:69)
+MODEL_TOL = 1e-4
+# A bf16 or int8 cache rounds each side's fp32 K/V, which differ by ~1e-6
+# across the packages, onto the storage grid: the few values within 1e-6 of
+# a rounding midpoint land one storage step apart (one bf16 ulp, rtol 2^-7
+# beside MODEL_TOL; one int8 step) and move the logits by that step's
+# weight in the softmax (up to ~2e-3 after 6 int8 steps on these inputs).
+# Everything else is held at MODEL_TOL.
+BF16_ULP = 2.0 ** -7
+QUANT_LOGIT_TOL = 5e-3
+QUANT_FLIP_SHARE = 2e-3  # of a leaf's entries at most this share may differ
+
+
+def _qkv(b, cap, hkv, g, hd, seed=0, int8=False):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, hkv, g, hd)).astype(np.float32)
+    if int8:
+        k, v = (rng.integers(-127, 128, size=(b, cap, hkv, hd)).astype(
+            np.int8) for _ in range(2))
+        ks, vs = ((rng.random(size=(b, cap, hkv)) * 0.05 + 1e-3).astype(
+            np.float32) for _ in range(2))
+        return q, k, v, ks, vs
+    k, v = (rng.normal(size=(b, cap, hkv, hd)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v, None, None
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(np.asarray(x))
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+# --------------------------------------------------------------- kernels --
+
+REF_CASES = [  # (b, cap, hkv, g, hd, window, pos): the reference's cases
+    (2, 64, 2, 2, 32, None, [0, 63]),       # first token + exactly full
+    (2, 64, 1, 4, 32, None, [5, 200]),      # mid-fill + wrapped (GQA 4)
+    (1, 40, 2, 1, 32, None, [39]),          # odd capacity
+    (2, 16, 2, 2, 64, 16, [7, 100]),        # SWA ring at window capacity
+    (1, 48, 4, 2, 32, 32, [45]),            # window < capacity
+]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("case", REF_CASES, ids=str)
+def test_plain_matches_reference(case, int8):
+    """The port's plain version against the reference's Pallas kernel
+    (interpret mode) and its ``decode_attention_ref``."""
+    b, cap, hkv, g, hd, window, pos = case
+    q, k, v, ks, vs = _qkv(b, cap, hkv, g, hd, seed=cap + hd, int8=int8)
+    pos = np.asarray(pos, np.int32)
+    kw = dict(window=window, scale=hd ** -0.5)
+    got = ops.decode_attention(*map(_t, (q, k, v, pos)), k_scale=_t(ks),
+                               v_scale=_t(vs), **kw).numpy()
+    want = decode_attention_pallas(*map(_j, (q, k, v, pos)), k_scale=_j(ks),
+                                   v_scale=_j(vs), interpret=True, **kw)
+    want_ref = jax_ref.decode_attention_ref(*map(_j, (q, k, v, pos)),
+                                            k_scale=_j(ks), v_scale=_j(vs),
+                                            **kw)
+    for w in (want, want_ref):
+        np.testing.assert_allclose(got, np.asarray(w), rtol=TOL, atol=TOL)
+
+
+# rows 0 and 1 share their first two blocks, row 2 is retired (all trash)
+TABLE = np.asarray([[1, 2, 3, 4], [1, 2, 5, 6], [0, 0, 0, 0]], np.int32)
+
+
+@pytest.mark.parametrize("window", [None, 12])
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+def test_table_plain_matches_reference(int8, window):
+    """The block-pool form: a (B, cap/bs) table over a (NB, bs, ...) pool
+    with shared blocks and the trash block."""
+    bs, hkv, g, hd = 8, 2, 2, 32
+    q, k, v, ks, vs = _qkv(7, bs, hkv, g, hd, seed=5, int8=int8)
+    q = q[:3]
+    pos = np.asarray([20, 31, 5], np.int32)
+    kw = dict(window=window, scale=hd ** -0.5)
+    got = ops.decode_attention(*map(_t, (q, k, v, pos)), table=_t(TABLE),
+                               k_scale=_t(ks), v_scale=_t(vs), **kw).numpy()
+    want = decode_attention_pallas(*map(_j, (q, k, v, pos)),
+                                   table=_j(TABLE), k_scale=_j(ks),
+                                   v_scale=_j(vs), interpret=True, **kw)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=TOL, atol=TOL)
+    # the gather the plain version does is the pool read through the table
+    ring = ref.gather_pool(_t(k), _t(TABLE))
+    assert torch.equal(ring[1, 8:16], _t(k)[2])
+    assert torch.equal(ring[2, 24:32], _t(k)[0])
+
+
+def test_slot_positions_use_floor_mod():
+    """Ring slot i holds pos - ((pos - i) mod W): an unwritten slot
+    (i > pos before the ring wraps) holds a negative position."""
+    sp = ref.slot_positions(torch.tensor([2, 7]), 4)
+    assert sp.tolist() == [[0, 1, 2, -1], [4, 5, 6, 7]]
+    want = jax_ref.slot_positions(jnp.asarray([2, 7, 0, 130]), 48)
+    got = ref.slot_positions(torch.tensor([2, 7, 0, 130]), 48)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_rows_at_different_depths_see_different_slots():
+    q, k, v, _, _ = _qkv(2, 32, 2, 2, 32)
+    q, k, v = map(_t, (q, k, v))
+    o = ref.decode_attention_ref(q, k, v, torch.tensor([3, 30]), scale=0.2)
+    lock = ref.decode_attention_ref(q, k, v, torch.tensor([3, 3]), scale=0.2)
+    torch.testing.assert_close(o[0], lock[0], rtol=1e-6, atol=1e-6)
+    assert (o[1] - lock[1]).abs().max() > 1e-3
+
+
+def test_wrappers_check_their_inputs():
+    q, k, v = torch.zeros(2, 2, 2, 64), torch.zeros(2, 8, 2, 64), \
+        torch.zeros(2, 8, 2, 64)
+    pos = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.decode_ring(q, k, v, pos, backend="cuda")
+    with pytest.raises(ValueError, match="pos must be"):
+        ops.decode_ring(q, k, v, pos[:1])
+    with pytest.raises(ValueError, match="k, v must be"):
+        ops.decode_ring(q, k[..., :32], v[..., :32], pos)
+    with pytest.raises(ValueError, match="table must be"):
+        ops.decode_table(q, k, v, pos, torch.zeros(3, 2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        ops.decode_ring(q, k, v, pos, k_scale=torch.ones(2, 8, 2))
+    # on CPU tensors the wrappers run the plain version and launch nothing
+    before = (ops.decode_ring.launches, ops.decode_table.launches)
+    ops.decode_ring(q, k, v, pos)
+    ops.decode_table(q, k, v, pos, torch.zeros(2, 1, dtype=torch.int32))
+    assert (ops.decode_ring.launches, ops.decode_table.launches) == before
+
+
+def test_policy_selects_the_decode_attention():
+    assert common.KernelPolicy().decode_backend() == "auto"
+    assert common.KernelPolicy(backend="cuda").decode_backend() == "cuda"
+    assert common.KernelPolicy(decode_attention="xla",
+                               backend="cuda").decode_backend() == "plain"
+    assert common.KernelPolicy(decode_attention="auto").decode_backend() \
+        == "auto"
+    with pytest.raises(ValueError, match="decode_attention must be"):
+        common.KernelPolicy(decode_attention="pallas")
+
+
+def test_kv_cache_spec_follows_the_policy():
+    cfg = reduced(ARCHS["olmo-1b"])
+    assert kv_cache_spec(cfg, torch.float32) == (torch.float32, False)
+    for sel, want in (("fp32", (torch.float32, False)),
+                      ("bf16", (torch.bfloat16, False)),
+                      ("int8", (torch.int8, True))):
+        c = dataclasses.replace(cfg, numerics=NumericsPolicy(
+            kv_cache_dtype=sel))
+        assert kv_cache_spec(c, torch.bfloat16) == want
+
+
+def test_kv_quant_matches_reference():
+    x = (np.random.default_rng(3).normal(size=(4, 5, 2, 32)) * 3).astype(
+        np.float32)
+    x[0, 0, 0] = 0.0                                   # an all-zero row
+    q, s = attention._kv_quant(torch.from_numpy(x))
+    jq, js = jax_attention._kv_quant(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    np.testing.assert_allclose(attention._kv_dequant(q, s).numpy(), x,
+                               atol=float(s.max()) / 2 + 1e-7)
+
+
+# ----------------------------------------------------------------- model --
+
+CAPACITY = 48
+# reduced configs: olmo np_ln + gelu + tied embeddings; minitron GQA 2;
+# gemma-swa a window of 16, so the ring of 16 slots wraps while decoding
+MODELS = {"olmo-1b": {}, "minitron-8b": {"n_kv_heads": 2},
+          "gemma-7b-swa": {"sliding_window": 16}}
+
+
+def _pair(name, kv="auto"):
+    extra = MODELS[name]
+    jcfg = dataclasses.replace(jax_reduced(JAX_ARCHS[name]),
+                               kernels=JaxPolicy(backend="xla"),
+                               numerics=JaxNumerics(kv_cache_dtype=kv),
+                               **extra)
+    cfg = dataclasses.replace(reduced(ARCHS[name]),
+                              numerics=NumericsPolicy(kv_cache_dtype=kv),
+                              **extra)
+    params = jax_models.init(jax.random.PRNGKey(0), jcfg)
+    port = weights.lm_from_reference(jax.tree.map(np.asarray, params), cfg,
+                                     device="cpu")
+    return jcfg, params, cfg, port
+
+
+def _leaves(cache):
+    return {k: v for k, v in cache["blocks"][0].items()}
+
+
+def _compare_caches(jstate, state, quant=False):
+    want = {k: np.asarray(v, np.float32)
+            for k, v in jstate.cache["blocks"][0].items()}
+    got = {k: v.float().numpy() for k, v in _leaves(state.cache).items()}
+    assert sorted(got) == sorted(want)
+    np.testing.assert_array_equal(state.pos.numpy(), np.asarray(jstate.pos))
+    for name in got:
+        _close_leaf(name, got[name], want[name],
+                    state.cache["blocks"][0][name].dtype, quant)
+
+
+def _close_leaf(name, g, w, dtype, quant):
+    if not quant or name.endswith("scale"):
+        np.testing.assert_allclose(g, w, rtol=MODEL_TOL, atol=MODEL_TOL,
+                                   err_msg=name)
+        return
+    # one storage step: an int8 step, or one bf16 ulp on top of MODEL_TOL
+    # (the fp32 noise is absolute: it can move a tiny value by more than
+    # its ulp)
+    step = 1.0 if dtype == torch.int8 else BF16_ULP * np.abs(w) + MODEL_TOL
+    assert np.all(np.abs(g - w) <= step), name
+    assert np.mean(g != w) <= QUANT_FLIP_SHARE, name
+
+
+def _run_both(name, kv="auto", steps=6):
+    """Prefill at a bucket of 32 with per-row lengths, then ``steps``
+    decode steps with rows at different depths, in both packages.
+    Yields (what, reference logits, reference state, port logits, port
+    state) after the prefill and after each step."""
+    jcfg, params, cfg, port = _pair(name, kv)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab_size, (3, 32)).astype(np.int32)
+    length = np.asarray([32, 20, 7], np.int32)
+    jl, js = jax_models.prefill(params, jcfg, jnp.asarray(toks), CAPACITY,
+                                length=jnp.asarray(length))
+    pl, ps = models.prefill(port, cfg, torch.from_numpy(toks), CAPACITY,
+                            length=torch.from_numpy(length))
+    yield "prefill", jl, js, pl, ps
+    for i in range(steps):
+        t = rng.integers(0, cfg.vocab_size, (3, 1)).astype(np.int32)
+        jl, js = jax_models.decode_step(params, jcfg, js, jnp.asarray(t))
+        pl, ps = models.decode_step(port, cfg, ps, torch.from_numpy(t))
+        yield f"step {i}", jl, js, pl, ps
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_prefill_and_decode_match_reference(name):
+    """Logits and every cache leaf at 1e-4 after the bucketed prefill and
+    after each of 6 decode steps (gemma-swa's 16-slot ring wraps)."""
+    for what, jl, js, pl, ps in _run_both(name):
+        np.testing.assert_allclose(pl.numpy(), np.asarray(jl),
+                                   rtol=MODEL_TOL, atol=MODEL_TOL,
+                                   err_msg=what)
+        _compare_caches(js, ps)
+    assert ps.pos.tolist() == [38, 26, 13]
+
+
+@pytest.mark.parametrize("name,kv", [("olmo-1b", "bf16"),
+                                     ("minitron-8b", "int8")])
+def test_quantized_cache_matches_reference(name, kv):
+    """A bf16 / int8 cache: stored dtypes, scales at 1e-4, stored values
+    within one storage step (see QUANT_LOGIT_TOL), logits within
+    QUANT_LOGIT_TOL."""
+    for what, jl, js, pl, ps in _run_both(name, kv):
+        np.testing.assert_allclose(pl.numpy(), np.asarray(jl),
+                                   rtol=QUANT_LOGIT_TOL,
+                                   atol=QUANT_LOGIT_TOL, err_msg=what)
+        _compare_caches(js, ps, quant=True)
+    leaves = _leaves(ps.cache)
+    assert leaves["k"].dtype == {"bf16": torch.bfloat16,
+                                 "int8": torch.int8}[kv]
+    assert ("k_scale" in leaves) == (kv == "int8")
+
+
+def test_fill_cache_matches_reference():
+    """A 24-token prefix into a 16-slot ring (it wraps), rows cut to
+    their own lengths, fp32 and int8."""
+    jcfg, params, cfg, port = _pair("olmo-1b")
+    attn = {k: v[0] for k, v in port["blocks"][0]["attn"].items()}
+    jattn = jax.tree.map(lambda a: a[0], params["blocks"][0]["attn"])
+    x = np.random.default_rng(4).normal(size=(3, 24, cfg.d_model)).astype(
+        np.float32)
+    length = np.asarray([24, 10, 3], np.int32)
+    for kv in ("auto", "int8"):
+        c = dataclasses.replace(cfg, numerics=NumericsPolicy(
+            kv_cache_dtype=kv))
+        jc = dataclasses.replace(jcfg, numerics=JaxNumerics(
+            kv_cache_dtype=kv))
+        cache = attention.init_cache(c, 3, 16, torch.float32, "cpu")
+        got = attention.fill_cache(attn, c, torch.from_numpy(x), cache,
+                                   length=torch.from_numpy(length))
+        want = jax_attention.fill_cache(
+            jattn, jc, jnp.asarray(x),
+            jax_attention.init_cache(jc, 3, 16, jnp.float32),
+            length=jnp.asarray(length))
+        assert got is cache and sorted(got) == sorted(want)
+        for name in got:
+            _close_leaf(f"{kv} {name}", got[name].float().numpy(),
+                        np.asarray(want[name], np.float32), got[name].dtype,
+                        kv == "int8")
+
+
+def test_decode_from_the_reference_state():
+    """The bridge carries a reference DecodeState across bit for bit:
+    one decode step from it matches the reference's at 1e-4, and the port's
+    state goes back unchanged."""
+    *_, (_, jl, js, pl, ps) = _run_both("olmo-1b", steps=1)
+    jcfg, params, cfg, port = _pair("olmo-1b")
+    state = weights.decode_state_from_reference(js, cfg, device="cpu")
+    back = weights.decode_state_to_reference(state)
+    for k, v in js.cache["blocks"][0].items():
+        np.testing.assert_array_equal(back["cache"]["blocks"][0][k],
+                                      np.asarray(v))
+    np.testing.assert_array_equal(back["pos"], np.asarray(js.pos))
+    t = np.asarray([[3], [4], [5]], np.int32)
+    jl2, js2 = jax_models.decode_step(params, jcfg,
+                                      jax_models.DecodeState(**back),
+                                      jnp.asarray(t))
+    pl2, ps2 = models.decode_step(port, cfg, state, torch.from_numpy(t))
+    np.testing.assert_allclose(pl2.numpy(), np.asarray(jl2), rtol=MODEL_TOL,
+                               atol=MODEL_TOL)
+    _compare_caches(js2, ps2)
+
+
+def test_bridge_checks_the_cache():
+    cfg = reduced(ARCHS["olmo-1b"])
+    state = models.init_decode_state(cfg, 2, 16, device="cpu")
+    ref_state = weights.decode_state_to_reference(state)
+    bad = dict(ref_state)
+    bad["cache"] = {"blocks": ({"k": ref_state["cache"]["blocks"][0]["k"]},),
+                    "rem_blocks": ()}
+    with pytest.raises(ValueError, match="decode cache leaves"):
+        weights.decode_state_from_reference(
+            dataclasses.make_dataclass("S", ["cache", "pos"])(**bad), cfg,
+            device="cpu")
+    wrong = {"blocks": ({k: v.astype(np.float64) for k, v in
+                         ref_state["cache"]["blocks"][0].items()},),
+             "rem_blocks": ()}
+    with pytest.raises(ValueError, match="expected float32"):
+        weights.decode_state_from_reference(
+            dataclasses.make_dataclass("S", ["cache", "pos"])(
+                wrong, ref_state["pos"]), cfg, device="cpu")
+
+
+def test_table_decode_matches_reference():
+    """decode_step on the block pool (table layout, shared blocks and a
+    row on the trash block) against the reference's."""
+    jcfg, params, cfg, port = _pair("olmo-1b")
+    rng = np.random.default_rng(2)
+    pool = jax_models.init_decode_cache(jcfg, 7, 8)
+    pool = jax.tree.map(lambda x: jnp.asarray(
+        rng.normal(size=x.shape).astype(np.float32)), pool)
+    jstate = jax_models.DecodeState(cache=pool, pos=jnp.asarray(
+        [20, 31, 5], jnp.int32))
+    state = weights.decode_state_from_reference(jstate, cfg, device="cpu")
+    t = np.asarray([[7], [8], [9]], np.int32)
+    for _ in range(3):
+        jl, jstate = jax_models.decode_step(params, jcfg, jstate,
+                                            jnp.asarray(t),
+                                            table=jnp.asarray(TABLE))
+        pl, state = models.decode_step(port, cfg, state, torch.from_numpy(t),
+                                       table=torch.from_numpy(TABLE))
+        np.testing.assert_allclose(pl.numpy(), np.asarray(jl),
+                                   rtol=MODEL_TOL, atol=MODEL_TOL)
+        _compare_caches(jstate, state)
+
+
+@pytest.mark.parametrize("kv", ["auto", "int8"])
+def test_slots_round_trip_bit_for_bit(kv):
+    """read_slots then write_slots is the identity; write_slots writes the
+    cache in place and leaves the input's pos alone."""
+    cfg = dataclasses.replace(reduced(ARCHS["minitron-8b"]),
+                              numerics=NumericsPolicy(kv_cache_dtype=kv))
+    state = models.init_decode_state(cfg, 4, 16, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    for leaf in _leaves(state.cache).values():
+        leaf.copy_((torch.randn(leaf.shape, generator=gen) * 50).to(
+            leaf.dtype))
+    state.pos.copy_(torch.tensor([3, 9, 0, 15]))
+    before = {k: v.clone() for k, v in _leaves(state.cache).items()}
+    sub = models.read_slots(state, [2, 0])
+    assert sub.pos.tolist() == [0, 3]
+    assert _leaves(sub.cache)["k"].shape[:2] == (cfg.n_layers, 2)
+    other = models.init_decode_state(cfg, 4, 16, device="cpu")
+    out = models.write_slots(other, sub, [1, 3])
+    assert out.cache is other.cache and other.pos.tolist() == [0, 0, 0, 0]
+    assert out.pos.tolist() == [0, 0, 0, 3]
+    back = models.read_slots(out, [1, 3])
+    for k, v in _leaves(back.cache).items():
+        assert torch.equal(v, _leaves(sub.cache)[k])
+    for k, v in _leaves(models.write_slots(state, back, [2, 0]).cache).items():
+        assert torch.equal(v, before[k])
+
+
+def test_decode_step_writes_the_cache_in_place():
+    cfg = reduced(ARCHS["olmo-1b"])
+    params = models.init(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    _, state = models.prefill(params, cfg, torch.ones((2, 8),
+                                                      dtype=torch.long), 16)
+    k = _leaves(state.cache)["k"]
+    ptr = k.data_ptr()
+    _, new = models.decode_step(params, cfg, state,
+                                torch.ones((2, 1), dtype=torch.long))
+    assert new.cache is state.cache and k.data_ptr() == ptr
+    assert new.pos.tolist() == [9, 9] and state.pos.tolist() == [8, 8]
+    assert k[:, :, 8].abs().sum() > 0 and k[:, :, 9:].abs().sum() == 0
+
+
+def test_xla_policy_runs_the_plain_version():
+    cfg = reduced(ARCHS["olmo-1b"])
+    params = models.init(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    toks = torch.arange(8).reshape(1, 8)
+    plain = dataclasses.replace(cfg, kernels=common.KernelPolicy(
+        decode_attention="xla"))
+    outs = []
+    for c in (cfg, plain):
+        _, st = models.prefill(params, c, toks, 16)
+        outs.append(models.decode_step(params, c, st, toks[:, :1])[0])
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+
+
+def test_other_families_have_no_decode_yet():
+    cfg = reduced(ARCHS["rwkv6-7b"])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        models.init_decode_state(cfg, 2, 16, device="cpu")
+
+
+# ------------------------------------------------------------ on the card --
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+CARD_CASES = [  # (b, cap, hkv, g, hd, window, pos, bs): bs 0 = ring
+    (3, 200, 2, 1, 128, None, [0, 150, 1000], 0),
+    (2, 512, 2, 4, 64, None, [511, 2000], 0),
+    (2, 300, 1, 8, 256, 100, [299, 777], 0),
+    (2, 64, 2, 12, 128, None, [5, 64], 0),          # G > 8: two chunks
+    (3, 256, 2, 2, 128, None, [100, 255, 17], 16),
+    (2, 256, 4, 4, 128, 64, [200, 255], 16),
+]
+
+
+def _card(case, q_dtype, kv_dtype, seed=0):
+    b, cap, hkv, g, hd, window, pos, bs = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, hkv, g, hd), generator=gen, device="cuda").to(
+        q_dtype)
+    table = None
+    if bs:
+        n_k = cap // bs
+        ids = torch.randperm(b * n_k, generator=gen, device="cuda") + 1
+        table = ids.reshape(b, n_k).to(torch.int32)
+        shape = (b * n_k + 1, bs, hkv, hd)
+    else:
+        shape = (b, cap, hkv, hd)
+    ks = vs = None
+    if kv_dtype == torch.int8:
+        k, v = (torch.randint(-127, 128, shape, generator=gen,
+                              device="cuda").to(torch.int8)
+                for _ in range(2))
+        ks, vs = (torch.rand(shape[:3], generator=gen, device="cuda") * 0.05
+                  for _ in range(2))
+    else:
+        k, v = (torch.randn(shape, generator=gen, device="cuda").to(kv_dtype)
+                for _ in range(2))
+    return (q, k, v, torch.tensor(pos, dtype=torch.int32, device="cuda"),
+            dict(window=window, scale=hd ** -0.5, k_scale=ks, v_scale=vs,
+                 table=table))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.int8),
+    (torch.bfloat16, torch.int8)], ids=str)
+@pytest.mark.parametrize("case", CARD_CASES, ids=str)
+def test_kernels_match_plain_version(cuda, case, dtypes):
+    q, k, v, pos, kw = _card(case, *dtypes)
+    which = ops.decode_table if kw["table"] is not None else ops.decode_ring
+    before = which.launches
+    got = ops.decode_attention(q, k, v, pos, **kw)
+    assert which.launches == before + 1 and got.dtype == q.dtype
+    want = ops.decode_attention(q, k, v, pos, backend="plain", **kw)
+    tol = TOL if q.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_model_decode_on_the_card_matches_plain(cuda):
+    """Prefill and 4 decode steps of the reduced olmo at hd 128 under the
+    kernels and under the plain policy, from the same weights."""
+    cfg = dataclasses.replace(reduced(ARCHS["olmo-1b"]), head_dim=128)
+    plain = dataclasses.replace(cfg, kernels=common.KernelPolicy("plain"))
+    params = models.init(cfg, torch.Generator().manual_seed(0),
+                         device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (3, 32), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(1))
+    length = torch.tensor([32, 20, 7], device="cuda")
+    outs = []
+    for c in (cfg, plain):
+        logits, st = models.prefill(params, c, toks, 64, length=length)
+        seq = [logits]
+        for i in range(4):
+            logits, st = models.decode_step(params, c, st, toks[:, i:i + 1])
+            seq.append(logits)
+        outs.append(seq)
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)

@@ -1,6 +1,6 @@
 """The port stands alone: it never imports ``jax`` or the reference
-package ``repro``, at import time, while it serves or while it trains
-AlexNet or a dense LM."""
+package ``repro``, at import time, while it serves AlexNet or a dense LM
+or while it trains either."""
 import os
 import re
 import subprocess
@@ -29,6 +29,9 @@ for name in names:
 from repro_torch.launch import serve, train
 serve.main(["--arch", "alexnet", "--smoke", "--device", "cpu",
             "--requests", "3", "--slots", "2"])
+serve.main(["--arch", "olmo-1b", "--smoke", "--device", "cpu",
+            "--requests", "3", "--slots", "2", "--capacity", "64",
+            "--max-new", "4", "--block-size", "16"])
 train.main(["--arch", "alexnet", "--smoke", "--faithful", "--device", "cpu",
             "--steps", "2", "--batch", "4", "--replicas", "2",
             "--image-size", "48", "--staging", "queue", "--eval-every", "1",
@@ -49,7 +52,8 @@ def test_port_never_imports_jax_or_the_reference():
     proc = subprocess.run([sys.executable, "-c", CHILD], capture_output=True,
                           text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "serve OK" in proc.stdout
+    assert proc.stdout.count("serve OK") == 2
+    assert "arch=olmo-1b-smoke family=dense" in proc.stdout
     assert proc.stdout.count("done: steps 0 -> 2") == 2
     assert "arch=olmo-1b-smoke" in proc.stdout
     n = int(re.search(r"imported (\d+) modules", proc.stdout).group(1))
