@@ -23,7 +23,8 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    against their plain versions (fp32: 2e-4 forward, 2e-3 grads; bf16:
    3e-2) at the LM training shape (B=4, H=16, S=2048, hd=128, causal) and
    at GQA (32 / 8 heads, ragged S=1000), window-256, hd-64 and hd-256
-   shapes, in fp32 and bf16, timed beside their plain versions,
+   shapes and the ``recurrentgemma-9b`` attn layers' (B 2, 16 query
+   heads on 1 KV head, hd 256, window 2048), in fp32 and bf16, timed beside their plain versions,
    ``F.scaled_dot_product_attention``'s forward and backward (a yardstick
    only) and the bound over the unmasked (q, k) pairs;
 5. decode kernel phase: the flash-decode kernels ``decode_ring`` and
@@ -35,7 +36,20 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    plain version, ``F.scaled_dot_product_attention`` over the same slots
    with a mask (a yardstick only) and the bound (the visible K/V bytes
    over 3.35 TB/s);
-6. serving phase: serves 32 random 227x227x3 images through
+6. recurrence kernel phase: the WKV kernel ``wkv_fwd`` against the
+   plain chunked form (bf16 y 1e-2, fp32 2e-4; the final state 2e-4) at
+   the ``rwkv6-7b`` training shape (B 4, T 2048, H 64, K 64, bf16), B 1
+   with ragged T 1000, fp32 inputs, and, against the plain sequential
+   form, one input with a w = 0 entry; the RG-LRU kernel ``rglru_fwd``,
+   forward and reversed, against the plain loops (2e-4) at the
+   ``recurrentgemma-9b`` training shape (B 2, T 2048, D 4096), ragged
+   T and D, and strong decay; timed beside the plain versions and the
+   bound (no PyTorch call computes either, so no library yardstick).
+   Then the WKV Function's grads against autograd through the plain
+   chunked form, its plain chunk-recompute backward timed at the
+   training shape, and the RG-LRU Function's grads (the reversed launch)
+   against its plain route;
+7. serving phase: serves 32 random 227x227x3 images through
    ``ServingEngine`` on ``ALEXNET_FAITHFUL`` at full width (8 slots,
    greedy) with the launch counts set to 0 just before and read just
    after, checks 5 conv and 2 LRN launches per forward, and holds class
@@ -44,7 +58,7 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    requests from 8 closed-loop clients, and one more window under
    ``torch.profiler`` gives the device time by kernel and the device's
    idle share;
-7. training phase: ``TrainSession`` trains ``ALEXNET_FAITHFUL`` at full
+8. training phase: ``TrainSession`` trains ``ALEXNET_FAITHFUL`` at full
    width, 2 replicas x 128 images, SGD momentum, every-step all-reduce of
    weights and momentum, pinned staging, fused conv.  Launch counts are
    set to 0 before 3 steps and read after (5 conv and 2 LRN per replica
@@ -54,11 +68,11 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    step p50/p99, and a traced window the device time by family and the
    idle share: once with the host preprocess (mean, crop, flip) in the
    loader thread for every batch, once over a pool preprocessed ahead;
-8. im2col training phase: 3 steps at 2 x 32 under
+9. im2col training phase: 3 steps at 2 x 32 under
    ``--conv-backend im2col_ref`` count the GEMM kernel's launches (5
    forward, 5 dw and 4 dx per replica and step: conv1's dx is not
    needed) and hold the losses against the fused backend;
-9. LM training phase: ``TrainSession`` trains ``olmo-1b`` at full width
+10. LM training phase: ``TrainSession`` trains ``olmo-1b`` at full width
    (16 layers, d_model 2048, bf16 params, fp32 velocity), 2 replicas x 4
    sequences x 2048 tokens, SGD momentum, every-step all-reduce, on
    ``markov_lm`` tokens.  Launch counts are set to 0 before 3 steps and
@@ -69,7 +83,7 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    update alone, three timed windows of 5 steps (tokens/s, step
    p50/p99, stage wait, idle share) and a traced window (device ms by
    family);
-10. LM serving phase: ``ServingEngine`` serves ``olmo-1b`` at full width
+11. LM serving phase: ``ServingEngine`` serves ``olmo-1b`` at full width
    (16 layers, bf16, 8 slots, capacity 2048, greedy, prompts of 256-1024
    random tokens, 128 new tokens each).  First the same width at 4
    layers in fp32 serves 8 requests under the kernels and under the
@@ -80,17 +94,34 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    requests, ring and then block pool, with the launch counts set to 0
    just before and read just after, must show 16 ``flash_fwd`` launches
    per prefill and 16 ``decode_ring`` / ``decode_table`` launches per
-   tick; then three timed windows of 64 requests from 8 closed-loop
+   tick; then three timed windows of 32 requests from 8 closed-loop
    clients (generated tokens/s, TTFT and per-token latency p50/p99) and
    one more under ``torch.profiler`` (device ms by family, idle share);
-11. CLI phase: ``repro_torch.launch.serve --arch alexnet --requests 8``
+12. recurrent LM training phases: ``rwkv6-7b`` (8 layers) and
+   ``recurrentgemma-9b`` (5 layers: one ``rec, rec, attn`` superblock
+   and two remainder ``rec`` layers) at the published width in bf16,
+   2 replicas x 4 (x 2) sequences x 2048 tokens of ``markov_lm``, SGD
+   momentum, every-step all-reduce, the state updated in place as in
+   every training phase.  Kernel against plain first, fp32 at the same
+   width: 3 steps of R=2 at 2 layers for ``rwkv6-7b`` (losses and params
+   within 1e-3), one replica's loss and grads at 3 layers for
+   ``recurrentgemma-9b`` (two fp32 replicas of its 2.1 B-param embedding
+   and head do not fit).
+   Then launch counts over 3 steps (per replica and step one
+   ``wkv_fwd`` per rwkv layer, two ``rglru_fwd`` per rec layer, one of
+   each flash kernel per attn layer), spread 0 after every step, the
+   peak memory, three timed windows of 3 steps and a traced one (device
+   ms by family, the WKV backward's plain recompute booked apart);
+13. CLI phase: ``repro_torch.launch.serve --arch alexnet --requests 8``
    and ``--arch olmo-1b --layers 2 --requests 8 --capacity 512`` (ring,
    and ``--block-size 16``), then ``repro_torch.launch.train --faithful
    --replicas 2 --batch 64``
    and ``--arch olmo-1b --layers 2 --seq-len 256 --batch 4``, each for 4
    steps with checkpoints, resumed to 6, against an uninterrupted 6-step
-   run (the LM's losses equal bit for bit);
-12. prints the card again, the ``{"kernels": [...]}`` line and, last,
+   run (the LM's losses equal bit for bit); ``--arch rwkv6-7b --layers
+   2`` the same (one checkpoint at step 4), and ``--arch
+   recurrentgemma-9b --layers 3`` for 3 steps;
+14. prints the card again, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -153,6 +184,28 @@ SERVE_PROMPT = (256, 1024)
 # (PERF.md), so the gate is norm-wise, and every row whose plain top-2
 # margin exceeds twice the largest |error| must pick the same next token.
 SERVE_LOGIT_TOL = 3e-2
+
+
+# the recurrent LMs: (depth, sequences per replica, parity depth, parity
+# mode) at the published width; the depth is the cut that fits two
+# replicas' bf16 params and grads and fp32 velocity on one 80 GB card
+RECURRENT = {"rwkv6-7b": (8, 4, 2, "trace"),
+             "recurrentgemma-9b": (5, 2, 3, "grads")}
+WKV_TOL = {torch.float32: 2e-4,   # the registry's (rwkv6/ops.py:60)
+           torch.bfloat16: 1e-2}  # y rounded to bf16 on both sides
+RGLRU_TOL = 2e-4                  # the registry's (rglru/ops.py:50)
+GRAD_REL_TOL = 1e-3  # kernel vs plain fp32 grads, relative to the leaf's max
+WKV_CASES = [  # (case, B, T, H, K, r/k/v dtype, one w = 0 entry)
+    ("train", 4, LM_SEQ, 64, 64, torch.bfloat16, False),
+    ("ragged", 1, 1000, 64, 64, torch.bfloat16, False),
+    ("fp32", 4, LM_SEQ, 64, 64, torch.float32, False),
+    ("w_zero", 1, 256, 64, 64, torch.float32, True),
+]
+RGLRU_CASES = [  # (case, B, T, D, strong decay)
+    ("train", 2, LM_SEQ, 4096, False),
+    ("ragged", 1, 1000, 4000, False),
+    ("strong_decay", 2, LM_SEQ, 4096, True),
+]
 
 
 def emit(obj) -> None:
@@ -224,6 +277,8 @@ def lm_family(name: str) -> str:
     """The family a device kernel of the LM step is booked under."""
     n = name.lower()
     for fam, keys in (("flash_fwd", ("flash_fwd_kernel",)),
+                      ("wkv", ("wkv_kernel",)),
+                      ("rglru", ("rglru_kernel",)),
                       ("decode", ("decode_kernel",)),
                       ("flash_dq", ("flash_dq_kernel",)),
                       ("flash_dkv", ("flash_dkv_kernel",)),
@@ -240,18 +295,34 @@ def lm_family(name: str) -> str:
     return "other"
 
 
-def device_busy(trace_path: str, family=kernel_family) -> dict:
+def device_busy(trace_path: str, family=kernel_family,
+                scopes=()) -> dict:
     """Device time by kernel family and the ten longest kernels from a
     ``torch.profiler`` chrome trace, and the union of the spans in which
-    a kernel or a copy ran."""
+    a kernel or a copy ran.  A kernel launched inside a
+    ``record_function`` range named in ``scopes`` (a CPU-side range,
+    matched to the launch through its correlation id) is booked under
+    that name instead of its family."""
     with open(trace_path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        trace = json.load(f)["traceEvents"]
+    events = [e for e in trace
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not any(e["cat"] == "kernel" for e in events):
         raise AssertionError("the profiler traced no kernel on the device")
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in trace
+                    if e.get("cat") == "user_annotation"
+                    and e.get("name") in scopes)
+    scoped = {}
+    for e in trace:
+        if ranges and e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            for a, b, name in ranges:
+                if a <= e["ts"] <= b:
+                    scoped[e.get("args", {}).get("correlation")] = name
+                    break
     by, names = {}, {}
     for e in events:
-        fam = "copy" if e["cat"] != "kernel" else family(e["name"])
+        fam = "copy" if e["cat"] != "kernel" else scoped.get(
+            e.get("args", {}).get("correlation")) or family(e["name"])
         by[fam] = by.get(fam, 0.0) + e["dur"] / 1e3
         if e["cat"] == "kernel":
             key = e["name"][:100]
@@ -747,8 +818,9 @@ def session(loss, state, make_stream, steps, items_per_step, *,
             staging="pinned", metrics_path=None, spreads=None):
     """The trainer's session on the loss ``loss(params, batch)``: SGD
     momentum (m 0.9, wd 5e-4), LR 0.01, every-step all-reduce of weights
-    and momentum.  With ``spreads`` each step appends the replicas'
-    spread after it."""
+    and momentum.  The step updates ``state`` in place (it is consumed),
+    so a second run from the same start takes a fresh state.  With
+    ``spreads`` each step appends the replicas' spread after it."""
     from repro_torch.core.param_avg import replica_spread
     from repro_torch.core.steps import make_param_avg_step
     from repro_torch.optim import schedules
@@ -764,8 +836,7 @@ def session(loss, state, make_stream, steps, items_per_step, *,
 
         def checked(st, batch):
             st, out = step(st, batch)
-            spreads.append(max(replica_spread(st.params),
-                               replica_spread(st.opt_state)))
+            spreads.append(replica_spread((st.params, st.opt_state)))
             return st, out
         return checked
 
@@ -783,10 +854,13 @@ def launch_counts():
     from repro_torch.kernels.flash_attention.ops import (flash_dkv, flash_dq,
                                                          flash_fwd)
     from repro_torch.kernels.lrn.ops import lrn
+    from repro_torch.kernels.rglru.ops import rglru_fwd
+    from repro_torch.kernels.rwkv6.ops import wkv_fwd
     return {"conv2d_fused": conv2d_fused, "lrn": lrn,
             "matmul_bias": matmul_bias, "flash_fwd": flash_fwd,
             "flash_dq": flash_dq, "flash_dkv": flash_dkv,
-            "decode_ring": decode_ring, "decode_table": decode_table}
+            "decode_ring": decode_ring, "decode_table": decode_table,
+            "wkv_fwd": wkv_fwd, "rglru_fwd": rglru_fwd}
 
 
 def read_counts() -> dict:
@@ -834,7 +908,8 @@ def train_phase(model_cfg, seed):
     want = {"conv2d_fused": n_conv * REPLICAS * steps,
             "lrn": n_lrn * REPLICAS * steps, "matmul_bias": 0,
             "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-            "decode_ring": 0, "decode_table": 0}
+            "decode_ring": 0, "decode_table": 0, "wkv_fwd": 0,
+            "rglru_fwd": 0}
     if launches != want:
         raise AssertionError(f"training launches {launches} != {want}")
     losses = losses_of(res)
@@ -842,8 +917,9 @@ def train_phase(model_cfg, seed):
         raise AssertionError(f"training losses {losses}")
     if len(spreads) != steps or max(spreads) != 0.0:
         raise AssertionError(f"replica spread after each sync {spreads}")
-    plain = session(alexnet_loss(plain_cfg), state0, make_stream, steps,
-                    items, metrics_path=os.devnull).run()
+    plain = session(alexnet_loss(plain_cfg), init_state(plain_cfg, seed),
+                    make_stream, steps, items,
+                    metrics_path=os.devnull).run()
     plain_losses = losses_of(plain)
     loss_errs = [abs(a - b) for a, b in zip(losses, plain_losses)]
     if max(loss_errs) > LOSS_TOL:
@@ -873,7 +949,7 @@ def train_phase(model_cfg, seed):
 
 def train_timing(loss, state, make_stream, config, stream, items, *,
                  windows=3, steps=10, family=kernel_family,
-                 tokens_per_item=None):
+                 tokens_per_item=None, scopes=()):
     """``windows`` sessions of 1 warm-up + ``steps`` timed steps: items
     (images or sequences; ``items`` per step) per second and step
     p50/p99 from the session's Table-1 summary, and tokens/s when
@@ -904,14 +980,16 @@ def train_timing(loss, state, make_stream, config, stream, items, *,
                                             * tokens_per_item)
         sess = session(loss, state, make_stream, steps, items,
                        metrics_path=os.path.join(tmp, "traced.jsonl"))
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if scopes
+                                          else [])
+        with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             state = sess.run().state
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
         trace = os.path.join(tmp, "train_trace.json")
         prof.export_chrome_trace(trace)
-        busy = device_busy(trace, family)
+        busy = device_busy(trace, family, scopes)
     busy_step = busy["busy_ms"] / steps
     for row in rows:
         row["device_idle_share"] = 1.0 - busy_step / row["step_ms_mean"]
@@ -968,11 +1046,13 @@ def im2col_phase(model_cfg, seed):
             "lrn": sum(cs.lrn for cs in cfg.convs) * REPLICAS * steps,
             "matmul_bias": (3 * len(cfg.convs) - 1) * REPLICAS * steps,
             "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-            "decode_ring": 0, "decode_table": 0}
+            "decode_ring": 0, "decode_table": 0, "wkv_fwd": 0,
+            "rglru_fwd": 0}
     if launches != want:
         raise AssertionError(f"im2col launches {launches} != {want}")
     losses = losses_of(res)
-    fused = losses_of(session(alexnet_loss(fused_cfg), state0, make_stream,
+    fused = losses_of(session(alexnet_loss(fused_cfg),
+                              init_state(fused_cfg, seed), make_stream,
                               steps, items, staging="queue",
                               metrics_path=os.devnull).run())
     errs = [abs(a - b) for a, b in zip(losses, fused)]
@@ -1003,6 +1083,8 @@ FLASH_CASES = [  # (case, B, Hq, Hkv, S, hd, causal, window)
     ("window", 1, 16, 16, LM_SEQ, 128, True, 256),
     ("hd64", 1, 16, 16, LM_SEQ, 64, True, None),
     ("hd256", 1, 16, 16, LM_SEQ, 256, True, None),
+    # the recurrentgemma-9b training phase's attn layers: MQA, window 2048
+    ("hybrid", 2, 16, 1, LM_SEQ, 256, True, 2048),
 ]
 
 
@@ -1164,12 +1246,12 @@ def lm_parity(seed):
     plain_cfg = dataclasses.replace(base, kernels=KernelPolicy("plain"))
     make_stream = lm_stream(lm_pool(cfg, LM_PARITY_BATCH * REPLICAS, 3,
                                     seed + 13))
-    state0 = lm_state(cfg, seed)
     items = LM_PARITY_BATCH * REPLICAS
-    res = session(lm_loss(cfg), state0, make_stream, 3, items,
-                  staging="queue", metrics_path=os.devnull).run()
-    plain = session(lm_loss(plain_cfg), state0, make_stream, 3, items,
-                    staging="queue", metrics_path=os.devnull).run()
+    res = session(lm_loss(cfg), lm_state(cfg, seed), make_stream, 3,
+                  items, staging="queue", metrics_path=os.devnull).run()
+    plain = session(lm_loss(plain_cfg), lm_state(plain_cfg, seed),
+                    make_stream, 3, items, staging="queue",
+                    metrics_path=os.devnull).run()
     losses, plain_losses = losses_of(res), losses_of(plain)
     loss_errs = [abs(a - b) for a, b in zip(losses, plain_losses)]
     param_err = max(max_err(a, b) for a, b in zip(
@@ -1218,7 +1300,7 @@ def lm_train_phase(seed):
     want = {"conv2d_fused": 0, "lrn": 0, "matmul_bias": 0,
             "flash_fwd": per_step * steps, "flash_dq": per_step * steps,
             "flash_dkv": per_step * steps, "decode_ring": 0,
-            "decode_table": 0}
+            "decode_table": 0, "wkv_fwd": 0, "rglru_fwd": 0}
     if launches != want:
         raise AssertionError(f"LM training launches {launches} != {want}")
     losses = losses_of(res)
@@ -1227,7 +1309,12 @@ def lm_train_phase(seed):
     if len(spreads) != steps or max(spreads) != 0.0:
         raise AssertionError(f"LM replica spread after each sync {spreads}")
     peak = torch.cuda.max_memory_allocated()
-    update_ms = lm_update_ms(res.state)
+    del state0
+    # the update is timed on the state the windows leave: it writes into
+    # it (stand-in grads), which the windows must not train on
+    state = train_timing(lm_loss(cfg), res.state, make_stream, cfg.name,
+                         "markov_lm pool", items, steps=5, family=lm_family,
+                         tokens_per_item=LM_SEQ)
     emit({"phase": "lm_train", "config": cfg.name,
           "layers": cfg.n_layers, "d_model": cfg.d_model,
           "params": cfg.n_params(), "dtype": cfg.dtype,
@@ -1236,34 +1323,405 @@ def lm_train_phase(seed):
           "launches_per_step": {k: v // steps for k, v in launches.items()},
           "losses": losses, "replica_spread": spreads, "wall_s": wall,
           "setup_s": setup_s, "peak_mem_gb": peak / 1e9,
-          "optimizer_exchange_ms": update_ms})
-    del state0
-    train_timing(lm_loss(cfg), res.state, make_stream, cfg.name,
-                 "markov_lm pool", items, steps=5, family=lm_family,
-                 tokens_per_item=LM_SEQ)
+          "optimizer_exchange_ms": lm_update_ms(state)})
     return launches
 
 
 def lm_update_ms(state) -> float:
-    """Device time of the step's update alone: SGD momentum (fp32
-    velocity) over both replicas, the fp32 add into the bf16 params, and
-    the all-reduce of params and velocity; bf16 grads of the params'
-    shapes stand in for the real ones."""
+    """Device time of the step's update alone, as the step runs it in
+    place: SGD momentum (fp32 velocity) on each replica's slices, the
+    fp32 add into the bf16 params, and the all-reduce of params and
+    velocity; bf16 grads of one replica's shapes stand in for the real
+    ones, so ``state`` is spoiled for training."""
     from repro_torch.core.param_avg import Exchanger
-    from repro_torch.optim.optimizers import apply_updates, get_optimizer
-    from repro_torch.tree import tree_map
+    from repro_torch.core.steps import update_replica_
+    from repro_torch.optim.optimizers import get_optimizer
+    from repro_torch.tree import tree_leaves
 
     opt, ex = get_optimizer("sgd_momentum"), Exchanger("all_reduce")
-    grads = tree_map(torch.ones_like, state.params)
+    ones = [torch.ones_like(x[0]) for x in tree_leaves(state.params)]
 
     def update():
         with torch.no_grad():
-            upd, opt_state = opt.update(grads, state.opt_state, state.params,
-                                        0.01)
-            return (ex.average(apply_updates(state.params, upd)),
-                    ex.average(opt_state))
+            for r in range(REPLICAS):
+                update_replica_(opt, list(ones), state.params,
+                                state.opt_state, r, 0.01)
+            ex.average_((state.params, state.opt_state))
 
     return time_ms(update, reps=5, warmup=1)
+
+
+def wkv_inputs(gen, b, t, h, k, dtype, w_zero):
+    """r, k, v (dtype), w and u (fp32) in the model's range: w =
+    exp(-exp(z)) with z around the init's decay base of -4; with
+    ``w_zero`` one w entry underflowed to 0."""
+    dev = torch.device("cuda")
+    r, kk, v = (torch.randn((b, t, h, k), generator=gen, device=dev).to(
+        dtype) for _ in range(3))
+    z = -4.0 + torch.randn((b, t, h, k), generator=gen, device=dev)
+    w = torch.exp(-torch.exp(z))
+    if w_zero:
+        w[0, t // 2, h // 2, k // 3] = 0.0
+    u = torch.randn((h, k), generator=gen, device=dev) * 0.5
+    return r, kk, v, w, u
+
+
+def recurrence_phase(gen):
+    """The WKV kernel against the plain chunked form (the plain
+    sequential form where one w underflowed to 0) at every case of
+    ``WKV_CASES``, and the RG-LRU kernel, forward and reversed, against
+    the plain loops at every case of ``RGLRU_CASES``, timed beside the
+    plain versions and the bound (no PyTorch call computes either
+    recurrence, so there is no library yardstick).  Then the backward:
+    the WKV Function's grads (kernel forward, chunk-recompute backward)
+    against autograd through the plain chunked form, its backward timed
+    at the training shape, and the RG-LRU Function's grads (the reversed
+    launch) against its plain route.  Returns per kernel the totals of
+    the main path's case (``train``) and the worst error."""
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.rglru import ref as rg_ref
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+
+    dev = torch.device("cuda")
+    totals = {"wkv_fwd": {"max_abs_err": 0.0},
+              "rglru_fwd": {"max_abs_err": 0.0}}
+    assumes = "67 TFLOP/s fp32 non-tensor, 3.35 TB/s"
+    for case, b, t, h, k, dtype, w_zero in WKV_CASES:
+        xs = wkv_inputs(gen, b, t, h, k, dtype, w_zero)
+
+        def plain():
+            if w_zero:
+                return wkv_ref.wkv_sequential(*xs)
+            return wkv_ref.wkv_chunked(*xs, chunk=min(64, t))
+
+        with torch.inference_mode():
+            y, s = wkv_ops.wkv_fwd(*xs, backend="cuda")
+            torch.cuda.synchronize()
+            want_y, want_s = plain()
+            what = f"wkv_fwd {case}"
+            err = max(check_close(what, y.float(),
+                                  want_y.to(dtype).float(), WKV_TOL[dtype]),
+                      check_close(f"{what} state", s, want_s,
+                                  WKV_TOL[torch.float32]))
+            k_ms = time_ms(lambda: wkv_ops.wkv_fwd(*xs, backend="cuda"),
+                           reps=10)
+            p_ms = time_ms(plain, reps=3, warmup=1)
+        n = b * t * h * k
+        flops = 4.0 * n * k
+        nbytes = float(n * (4 * xs[0].element_size() + 4) + 4 * h * k
+                       + 4 * b * h * k * k)
+        bound, bound_by = _bound(flops, nbytes)
+        row = {"phase": "recurrence_kernel", "kernel": "wkv_fwd",
+               "case": case, "shape": [b, t, h, k],
+               "dtype": str(dtype)[6:], "plain": "sequential" if w_zero
+               else "chunked", "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": bound, "bound_by": bound_by, "flops": flops,
+               "bytes": nbytes, "gbps": nbytes / (k_ms * 1e-3) / 1e9,
+               "max_err": err, "assumes": assumes,
+               "finite": bool(torch.isfinite(y).all())}
+        emit(row)
+        tot = totals["wkv_fwd"]
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        if case == "train":
+            tot.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                       bound_by=bound_by, library_ms=None)
+
+    for case, b, t, d, strong in RGLRU_CASES:
+        z = torch.randn((b, t, d), generator=gen, device=dev)
+        if strong:
+            a = torch.exp(-10.0 + 0.1 * z)
+        else:   # the model's a = exp(-8 softplus(Lambda) sigmoid(.))
+            lam = torch.rand((d,), generator=gen, device=dev) * 0.6 + 0.3
+            a = torch.exp(-8.0 * torch.nn.functional.softplus(lam)
+                          * torch.sigmoid(z))
+        x = torch.randn((b, t, d), generator=gen, device=dev)
+        with torch.inference_mode():
+            h = rg_ops.rglru_fwd(a, x, backend="cuda")
+            g = rg_ops.rglru_fwd(a, x, reverse=True, backend="cuda")
+            torch.cuda.synchronize()
+            err = max(check_close(f"rglru_fwd {case}", h,
+                                  rg_ref.rglru_sequential(a, x)[0],
+                                  RGLRU_TOL),
+                      check_close(f"rglru_fwd reverse {case}", g,
+                                  rg_ref.rglru_transpose(a, x), RGLRU_TOL))
+            k_ms = time_ms(lambda: rg_ops.rglru_fwd(a, x, backend="cuda"),
+                           reps=10)
+            rev_ms = time_ms(lambda: rg_ops.rglru_fwd(
+                a, x, reverse=True, backend="cuda"), reps=10)
+            p_ms = time_ms(lambda: rg_ref.rglru_sequential(a, x), reps=3,
+                           warmup=1)
+        n = b * t * d
+        bound, bound_by = _bound(2.0 * n, 12.0 * n)
+        row = {"phase": "recurrence_kernel", "kernel": "rglru_fwd",
+               "case": case, "shape": [b, t, d], "ms": k_ms,
+               "reverse_ms": rev_ms, "plain_ms": p_ms, "bound_ms": bound,
+               "bound_by": bound_by, "flops": 2.0 * n, "bytes": 12.0 * n,
+               "gbps": 12.0 * n / (k_ms * 1e-3) / 1e9, "max_err": err,
+               "assumes": assumes}
+        emit(row)
+        tot = totals["rglru_fwd"]
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        if case == "train":
+            tot.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                       bound_by=bound_by, library_ms=None,
+                       reverse_ms=rev_ms)
+    recurrence_backward(gen, totals)
+    return totals
+
+
+def recurrence_backward(gen, totals):
+    """The two Functions' grads on the card: WKV (kernel forward,
+    chunk-recompute backward) against autograd through the plain chunked
+    form at a small shape, and its backward's time at the training
+    shape; RG-LRU (the reversed launch) against its plain route at the
+    training shape."""
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+
+    dev = torch.device("cuda")
+    xs = wkv_inputs(gen, 1, 256, 4, 64, torch.float32, False)
+    dy = torch.randn(xs[0].shape, generator=gen, device=dev)
+    ds = torch.randn((1, 4, 64, 64), generator=gen, device=dev)
+    got, want = [], []
+    for out, fn in ((got, lambda *a: wkv_ops.wkv(*a, backend="cuda")),
+                    (want, lambda *a: wkv_ref.wkv_chunked(*a, chunk=64))):
+        leaves = [x.clone().requires_grad_() for x in xs]
+        y, s = fn(*leaves)
+        out.extend(torch.autograd.grad((y, s), leaves, (dy, ds)))
+    wkv_err = max(check_close(f"wkv grad d{n}", g, w_, 1e-5)
+                  for n, g, w_ in zip("rkvwu", got, want))
+    wkv_shape = list(WKV_CASES[0][1:5])
+    b, _, h, k = wkv_shape
+    xs = wkv_inputs(gen, *wkv_shape, WKV_CASES[0][5], False)
+    dy = torch.randn(xs[0].shape, generator=gen, device=dev)
+    ds = torch.zeros((b, h, k, k), device=dev)
+    bwd_ms = time_ms(lambda: wkv_ops.wkv_bwd(*xs, dy, ds), reps=3,
+                     warmup=1)
+
+    b, t, d = RGLRU_CASES[0][1:4]
+    a = torch.rand((b, t, d), generator=gen, device=dev)
+    x = torch.randn((b, t, d), generator=gen, device=dev)
+    dh = torch.randn((b, t, d), generator=gen, device=dev)
+    grads = []
+    for backend in ("cuda", "plain"):
+        ta, tx = a.clone().requires_grad_(), x.clone().requires_grad_()
+        grads.append(torch.autograd.grad(
+            rg_ops.rglru_scan(ta, tx, backend=backend), (ta, tx), dh))
+    rg_err = max(check_close(f"rglru grad d{n}", g, w_, RGLRU_TOL)
+                 for n, g, w_ in zip("ab", *grads))
+    totals["rglru_fwd"]["max_abs_err"] = max(
+        totals["rglru_fwd"]["max_abs_err"], rg_err)
+    emit({"phase": "recurrence_backward",
+          "wkv_grad_shape": [1, 256, 4, 64], "wkv_grad_max_err": wkv_err,
+          "wkv_bwd_shape": wkv_shape, "wkv_bwd_ms": bwd_ms,
+          "wkv_bwd": "plain chunk-recompute (no kernel)",
+          "rglru_grad_shape": [b, t, d], "rglru_grad_max_err": rg_err})
+    return bwd_ms
+
+
+def recurrent_kinds(cfg) -> dict:
+    from repro_torch.models import transformer
+    kinds = transformer.layer_kinds(cfg)
+    return {k: kinds.count(k) for k in ("rwkv", "rec", "attn")}
+
+
+def recurrent_launches(cfg, steps) -> dict:
+    """The launches ``steps`` training steps of ``cfg`` make: per replica
+    and step one ``wkv_fwd`` per rwkv layer, two ``rglru_fwd`` (forward
+    and backward) per rec layer and one of each flash kernel per attn
+    layer."""
+    n = recurrent_kinds(cfg)
+    want = {k: 0 for k in launch_counts()}
+    want.update(wkv_fwd=REPLICAS * n["rwkv"] * steps,
+                rglru_fwd=2 * REPLICAS * n["rec"] * steps)
+    for k in ("flash_fwd", "flash_dq", "flash_dkv"):
+        want[k] = REPLICAS * n["attn"] * steps
+    return want
+
+
+def recurrent_parity(arch, seed):
+    """Kernels against the plain policy at the published width in fp32,
+    at the parity depth: ``trace`` runs 3 steps of R=2 from one state
+    under each (losses and params within LOSS_TOL); ``grads`` compares
+    one replica's loss (LOSS_TOL) and every param grad (GRAD_REL_TOL of
+    the leaf's largest), where two fp32 replicas of the embedding do
+    not fit."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_leaves
+
+    _, batch, layers, mode = RECURRENT[arch]
+    base = dataclasses.replace(ARCHS[arch], n_layers=layers,
+                               dtype="float32")
+    cfgs = [dataclasses.replace(base, kernels=KernelPolicy(be))
+            for be in ("auto", "plain")]
+    pool = lm_pool(base, batch * REPLICAS, 3, seed + 23)
+    row = {"phase": "recurrent_parity", "config": base.name,
+           "layers": layers, "dtype": "float32", "mode": mode,
+           "seq_len": LM_SEQ}
+    if mode == "trace":
+        items = batch * REPLICAS
+        runs = [session(lm_loss(c), lm_state(c, seed), lm_stream(pool), 3,
+                        items, staging="queue",
+                        metrics_path=os.devnull).run() for c in cfgs]
+        losses, plain_losses = (losses_of(r) for r in runs)
+        loss_errs = [abs(a - b) for a, b in zip(losses, plain_losses)]
+        param_err = max(max_err(a, b) for a, b in zip(
+            *(tree_leaves(r.state.params) for r in runs)))
+        del runs
+        if not all(math.isfinite(v) for v in losses) or \
+                max(loss_errs) > LOSS_TOL or param_err > LOSS_TOL:
+            raise AssertionError(f"{arch} kernel vs plain: losses {losses}"
+                                 f" / {plain_losses}, params max |err| "
+                                 f"{param_err}")
+        row.update(replicas=REPLICAS, per_replica_batch=batch, steps=3,
+                   losses=losses, plain_losses=plain_losses,
+                   loss_abs_err=loss_errs, params_max_abs_err=param_err)
+    else:
+        params = transformer.init(base, torch.Generator().manual_seed(seed),
+                                  device="cuda")
+        tokens = torch.from_numpy(pool[0]["tokens"][:batch]).cuda()
+        bt = {"tokens": tokens, "labels": tokens}
+        leaves = [t.requires_grad_() for t in tree_leaves(params)]
+        out = []
+        for c in cfgs:
+            loss = models.loss_fn(params, c, bt)
+            out.append((loss.item(), torch.autograd.grad(loss, leaves)))
+        (loss, grads), (plain_loss, plain_grads) = out
+        rel = max(max_err(g, pg) / max(pg.abs().max().item(), 1e-30)
+                  for g, pg in zip(grads, plain_grads))
+        del out, grads, plain_grads, params, leaves
+        if not math.isfinite(loss) or abs(loss - plain_loss) > LOSS_TOL \
+                or rel > GRAD_REL_TOL:
+            raise AssertionError(f"{arch} kernel vs plain: loss {loss} / "
+                                 f"{plain_loss}, grads max relative err "
+                                 f"{rel}")
+        row.update(replicas=1, batch=batch, loss=loss,
+                   plain_loss=plain_loss,
+                   loss_abs_err=abs(loss - plain_loss),
+                   grads_max_rel_err=rel)
+    emit(row)
+
+
+def recurrent_train_phase(arch, seed):
+    """``arch`` at the published width in its bf16 params, cut in depth
+    (``RECURRENT``), 2 replicas x b x 2048 tokens, SGD momentum, every-
+    step all-reduce, the state updated in place: launch
+    counts and spread over 3 steps, the peak memory, then the timed and
+    traced windows (device ms by family, the WKV backward's plain
+    recompute booked apart).  The fp32 kernel-vs-plain check runs
+    first."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.tree import tree_leaves
+
+    recurrent_parity(arch, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers, batch, _, _ = RECURRENT[arch]
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=layers,
+                              kernels=KernelPolicy("auto"))
+    t0 = time.perf_counter()
+    make_stream = lm_stream(lm_pool(cfg, batch * REPLICAS, 4, seed + 29))
+    state = lm_state(cfg, seed)
+    setup_s = time.perf_counter() - t0
+    steps, items = 3, batch * REPLICAS
+    spreads = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = session(lm_loss(cfg), state, make_stream, steps, items,
+                  metrics_path=os.devnull, spreads=spreads).run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    want = recurrent_launches(cfg, steps)
+    if launches != want:
+        raise AssertionError(f"{arch} training launches {launches} != "
+                             f"{want}")
+    losses = losses_of(res)
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{arch} training losses {losses}")
+    if len(spreads) != steps or max(spreads) != 0.0:
+        raise AssertionError(f"{arch} replica spread after each sync "
+                             f"{spreads}")
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "recurrent_train", "config": cfg.name,
+          "layers": cfg.n_layers, "layer_kinds": recurrent_kinds(cfg),
+          "d_model": cfg.d_model,
+          "params": sum(x[0].numel() for x in tree_leaves(res.state.params)),
+          "dtype": cfg.dtype, "replicas": REPLICAS,
+          "per_replica_batch": batch, "seq_len": LM_SEQ, "steps": steps,
+          "launches": launches,
+          "launches_per_step": {k: v // steps for k, v in launches.items()
+                                if v},
+          "losses": losses, "replica_spread": spreads, "wall_s": wall,
+          "setup_s": setup_s, "peak_mem_gb": peak / 1e9,
+          "peak_mem_reserved_gb": torch.cuda.max_memory_reserved() / 1e9})
+    train_timing(lm_loss(cfg), res.state, make_stream, cfg.name,
+                 "markov_lm pool", items, steps=3, family=lm_family,
+                 tokens_per_item=LM_SEQ, scopes=("wkv_bwd",))
+    return launches
+
+
+def recurrent_cli_phase():
+    """The train CLI on the two recurrent archs at full width:
+    ``rwkv6-7b --layers 2`` for 4 steps with a checkpoint, resumed to 6,
+    against 6 uninterrupted steps (every loss equal bit for bit), and
+    ``recurrentgemma-9b --layers 3`` for 3 steps (its two replicas'
+    state, 32 GB, is not checkpointed here)."""
+    from repro_torch.train_loop.metrics import read_jsonl
+
+    base = ["--seq-len", "256", "--batch", "4", "--replicas", "2",
+            "--log-every", "1"]
+    rwkv = ["--arch", "rwkv6-7b", "--layers", "2"] + base
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, a, c = (os.path.join(tmp, n) for n in ("ck", "a.jsonl",
+                                                   "c.jsonl"))
+        done = {}
+        for name, extra in (
+                ("first", ["--steps", "4", "--ckpt-dir", ck,
+                           "--ckpt-every", "4", "--metrics-out", a]),
+                ("resumed", ["--steps", "6", "--ckpt-dir", ck, "--resume",
+                             "--metrics-out", a]),
+                ("straight", ["--steps", "6", "--metrics-out", c])):
+            lines, seconds[name] = _run_cli("repro_torch.launch.train",
+                                            rwkv + extra)
+            if not lines or not lines[-1].startswith("done:"):
+                raise AssertionError(f"rwkv6-7b train CLI ({name}) did not "
+                                     "end in 'done:'")
+            done[name] = lines[-1]
+        if not done["resumed"].startswith("done: steps 4 -> 6"):
+            raise AssertionError(f"the resumed rwkv6-7b run: "
+                                 f"{done['resumed']}")
+        resumed = {r["step"]: r["loss"] for r in read_jsonl(a, "train")}
+        straight = {r["step"]: r["loss"] for r in read_jsonl(c, "train")}
+    if sorted(resumed) != list(range(1, 7)) or sorted(straight) != list(
+            range(1, 7)) or not all(map(math.isfinite, straight.values())):
+        raise AssertionError(f"rwkv6-7b CLI losses {resumed} / {straight}")
+    if any(resumed[st] != straight[st] for st in range(1, 7)):
+        raise AssertionError(f"resumed vs uninterrupted rwkv6-7b losses "
+                             f"differ: {resumed} / {straight}")
+    lines, seconds["recurrentgemma"] = _run_cli(
+        "repro_torch.launch.train", ["--arch", "recurrentgemma-9b",
+                                     "--layers", "3", "--steps", "3"]
+        + base)
+    if not lines or not lines[-1].startswith("done: steps 0 -> 3"):
+        raise AssertionError("recurrentgemma-9b train CLI did not end in "
+                             "'done: steps 0 -> 3'")
+    emit({"phase": "recurrent_cli", "seconds": seconds,
+          "rwkv_losses": [straight[st] for st in range(1, 7)],
+          "bit_exact_resume": True, "recurrentgemma_done": lines[-1]})
 
 
 # rows mid-fill and wrapped
@@ -1522,7 +1980,7 @@ def lm_serve_counts(params, cfg, prompts, block_size):
             "wall_s": wall, **serve_metrics(wall, res)}
 
 
-def lm_serving_phase(seed, windows=3, n_req=64):
+def lm_serving_phase(seed, windows=3, n_req=32):
     """olmo-1b at full width and depth in bf16, 8 slots, capacity 2048:
     launch counts over one wave (ring, then block pool), the first decode
     tick's logits against the plain policy from the same state, then
@@ -1778,22 +2236,42 @@ def main() -> int:
         gen, (ALEXNET_FAITHFUL.name, TRAIN_BATCH),
         [(ALEXNET_FAITHFUL, SERVE_BATCH), (ALEXNET, SERVE_BATCH),
          (ALEXNET_FAITHFUL, TRAIN_BATCH)])
+    seconds = {}
+
+    def mark(name):
+        seconds[name] = time.perf_counter() - t_start
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    mark("kernel")
     totals.update(flash_phase(gen))
+    mark("flash")
     totals.update(decode_phase(gen))
+    mark("decode")
+    totals.update(recurrence_phase(gen))
+    mark("recurrence")
     by_path = {"serving": serving_phase(ALEXNET_FAITHFUL, args.seed)}
+    mark("serving")
     by_path["train"] = train_phase(ALEXNET_FAITHFUL, args.seed)
+    mark("train")
     by_path["train_im2col"] = im2col_phase(ALEXNET_FAITHFUL, args.seed)
+    mark("train_im2col")
     by_path["lm_train"] = lm_train_phase(args.seed)
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("lm_train")
     serve_waves = lm_serving_phase(args.seed)
     by_path["lm_serving"] = serve_waves["ring"]
     by_path["lm_serving_block"] = serve_waves["block"]
-    # the CLIs run in child processes: hand the cached memory back
-    gc.collect()
-    torch.cuda.empty_cache()
+    mark("lm_serving")
+    by_path["rwkv_train"] = recurrent_train_phase("rwkv6-7b", args.seed)
+    mark("rwkv_train")
+    by_path["rg_train"] = recurrent_train_phase("recurrentgemma-9b",
+                                                args.seed)
+    # the CLIs run in child processes: mark() hands the cached memory back
+    mark("rg_train")
     cli_phase()
     lm_cli_phase()
+    recurrent_cli_phase()
+    mark("cli")
 
     src = "src/repro_torch/kernels"
     meta = {
@@ -1816,6 +2294,10 @@ def main() -> int:
                              ("decode_table", 145, "lm_serving_block")):
         meta[name] = (f"{src}/decode_attention/csrc/decode_attention.cu",
                       f"{decode}:{line}", path)
+    meta["wkv_fwd"] = (f"{src}/rwkv6/csrc/wkv.cu",
+                       "src/repro/kernels/rwkv6/rwkv6.py:41", "rwkv_train")
+    meta["rglru_fwd"] = (f"{src}/rglru/csrc/rglru.cu",
+                         "src/repro/kernels/rglru/rglru.py:40", "rg_train")
     kernels = []
     for name, (source, replaces, path) in meta.items():
         tot = totals[name]
@@ -1829,7 +2311,8 @@ def main() -> int:
             "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": bound_by, "library_ms": tot["library_ms"]})
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "seconds_at_end_of": seconds})
     print(card(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -26,6 +26,7 @@ import torch
 from repro_torch.tree import tree_leaves, tree_map
 
 STRATEGIES = ("all_reduce", "ring", "pairwise", "none")
+CHUNK = 1 << 24   # elements per replica that one pass over a leaf touches
 COMPRESSIONS = ("none", "bf16", "topk")
 _NOT_PORTED = ("{what} is not ported yet: see ROADMAP.md queue A (the "
                "overlapped delay=1 exchange and bf16/top-k compression)")
@@ -84,6 +85,18 @@ class Exchanger:
         return tree_map(lambda x: x if x.dim() == 0 else
                         fn(x.float()).to(x.dtype).contiguous(), tree)
 
+    def average_(self, tree) -> None:
+        """``average`` written into the tree's own (contiguous) tensors,
+        one ``chunks`` block at a time, so no fp32 copy of a whole leaf
+        is made (``copy_`` casts back, as ``average``'s ``to`` does)."""
+        if self.strategy == "none":
+            return
+        fn = _FNS[self.strategy]
+        for x in tree_leaves(tree):
+            if x.dim():
+                for c in chunks(x):
+                    c.copy_(fn(c.float()))
+
 
 @dataclasses.dataclass(frozen=True)
 class ExchangeConfig:
@@ -138,12 +151,24 @@ def replicate(tree, n_replicas: int):
         (n_replicas,) + (1,) * x.dim()), tree)
 
 
+def chunks(x, read_only=False):
+    """``x`` (a leading replica axis) as (R, n) column blocks of at most
+    ``CHUNK`` elements per replica: views to write through (``x`` must
+    be contiguous), or ``read_only`` blocks of any layout."""
+    flat = x.reshape(x.shape[0], -1) if read_only else \
+        x.view(x.shape[0], -1)
+    return [flat[:, i:i + CHUNK] for i in range(0, flat.shape[1], CHUNK)]
+
+
 def replica_spread(tree) -> float:
     """Max abs deviation across replicas: 0 right after a sync step, a
-    diagnostic for local-SGD drift."""
+    diagnostic for local-SGD drift.  Taken over ``chunks`` of each leaf,
+    so it allocates no fp32 copy of a multi-GB embedding."""
     out = 0.0
     for x in tree_leaves(tree):
         if x.dim():
-            xf = x.float()
-            out = max(out, (xf - xf.mean(0, keepdim=True)).abs().max().item())
+            for c in chunks(x, read_only=True):
+                xf = c.float()
+                out = max(out, (xf - xf.mean(0, keepdim=True)).abs().max()
+                          .item())
     return out

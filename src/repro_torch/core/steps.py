@@ -11,9 +11,16 @@ The reference vmaps the replicas (``replica_exec="vmap"``).  A
 ``torch.autograd.Function`` that launches a hand-written kernel cannot be
 ``torch.func.vmap``-ped, so the port runs the R replicas one after
 another, as the reference's ``replica_exec="scan"`` does: replica r's
-loss is taken on detached views ``p[r]`` of the stacked leaves and its
-grads are stacked back to (R, ...).  The update then runs on the stacked
-tensors at once (the optimizer's math is the same per replica).
+loss is taken on detached views ``p[r]`` of the stacked leaves.
+
+The step updates the state in place, the port's counterpart of the
+reference's buffer donation (``jax.jit(..., donate_argnums)``): two
+replicas of a multi-billion-param LM could not afford a new state beside
+the old one on one card.  Each replica's grads are applied to its slices
+as soon as its backward ends and then dropped, and the optimizer and the
+exchange run one leaf, and one ``param_avg.chunks`` block of it, at a
+time, so nothing of the size of the params is allocated beside them.
+The state passed in is consumed.
 """
 from __future__ import annotations
 
@@ -22,8 +29,8 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.core.param_avg import ExchangeConfig, Exchanger, \
-    as_exchanger, replicate
+from repro_torch.core.param_avg import ExchangeConfig, as_exchanger, \
+    chunks, replicate
 from repro_torch.optim.optimizers import Optimizer, apply_updates
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -49,37 +56,53 @@ def init_param_avg_state(generator, init_fn: Callable, optimizer: Optimizer,
     return TrainState(replicate(params, n_replicas), opt_state, 0)
 
 
-def _synced(exchanger: Exchanger, params, opt_state, step: int,
-            sync_every: int):
-    """Apply the exchange, every step or every ``sync_every``-th step."""
-    if sync_every == 1 or (step + 1) % sync_every == 0:
-        return exchanger.average(params), exchanger.average(opt_state)
-    return params, opt_state
-
-
-def replica_grads(loss_fn: Callable, params, batch):
-    """Per-replica loss and grads, one replica after another.  Returns
-    (the mean of the replicas' losses, grads stacked like ``params``)."""
+def _per_replica_grads(loss_fn: Callable, params, batch):
+    """(r, loss, grads as a list of leaves) for each replica in turn."""
     n_rep = tree_leaves(params)[0].shape[0]
-    losses, per_rep = [], []
     for r in range(n_rep):
         p = tree_map(lambda x: x[r].detach().requires_grad_(), params)
         b = tree_map(lambda x: x[r], batch)
         with torch.enable_grad():
             loss = loss_fn(p, b)
-            per_rep.append(torch.autograd.grad(loss, tree_leaves(p)))
-        losses.append(loss.detach())
-    stacked = iter([torch.stack(gs) for gs in zip(*per_rep)])
-    return torch.stack(losses).mean(), tree_map(lambda _: next(stacked),
-                                                params)
+            grads = list(torch.autograd.grad(loss, tree_leaves(p)))
+        yield r, loss.detach(), grads
+
+
+def update_replica_(optimizer: Optimizer, grads, params, opt_state, r: int,
+                    lr) -> None:
+    """Replica ``r``'s optimizer update written into its slices of
+    ``params`` and ``opt_state`` (whose params-shaped trees are updated
+    leaf by leaf and chunk by chunk; a tensor entry, AdamW's count, once
+    at the end).  ``grads`` is a list of replica r's leaves, emptied as
+    they are used."""
+    shaped = {k: tree_leaves(v) for k, v in opt_state.items()
+              if not torch.is_tensor(v)}
+    scalars = {k: v[r] for k, v in opt_state.items() if torch.is_tensor(v)}
+    new = scalars
+    for i, p in enumerate(tree_leaves(params)):
+        g = grads[i]
+        grads[i] = None
+        parts = [chunks(g[None], read_only=True)] + [
+            chunks(x[r][None])
+            for x in [p] + [leaves[i] for leaves in shaped.values()]]
+        for gc, pc, *sc in zip(*parts):
+            state = dict(zip(shaped, sc), **scalars)
+            upd, new = optimizer.update(gc, state, pc, lr)
+            pc.copy_(apply_updates(pc, upd))
+            for k, dst in zip(shaped, sc):
+                dst.copy_(new[k])
+    for k, v in scalars.items():
+        v.copy_(new[k])
 
 
 def make_param_avg_step(loss_fn: Callable, optimizer: Optimizer,
                         schedule: Callable, *, strategy="all_reduce",
                         sync_every: int = 1):
     """``loss_fn(params, batch)`` -> scalar; returns ``step(state, batch)
-    -> (state, mean loss)``.  ``strategy`` is a name, an ``Exchanger`` or
-    an ``ExchangeConfig`` (which then supplies ``sync_every``)."""
+    -> (state, mean loss)``, which updates ``state``'s tensors in place
+    and returns them (see the module's docstring).  ``strategy`` is a
+    name, an ``Exchanger`` or an ``ExchangeConfig`` (which then supplies
+    ``sync_every``)."""
     if isinstance(strategy, ExchangeConfig):
         sync_every = strategy.sync_every
     exchanger = as_exchanger(strategy)
@@ -88,15 +111,19 @@ def make_param_avg_step(loss_fn: Callable, optimizer: Optimizer,
 
     def step(state: TrainState, batch):
         lr = schedule(state.step)
-        loss, grads = replica_grads(loss_fn, state.params, batch)
-        with torch.no_grad():
-            updates, opt_state = optimizer.update(grads, state.opt_state,
-                                                  state.params, lr)
-            params = apply_updates(state.params, updates)
-            # exchange & average params AND optimizer state (paper fn. 3)
-            params, opt_state = _synced(exchanger, params, opt_state,
-                                        state.step, sync_every)
-        return TrainState(params, opt_state, state.step + 1), loss
+        losses = []
+        for r, loss, grads in _per_replica_grads(loss_fn, state.params,
+                                                 batch):
+            losses.append(loss)
+            with torch.no_grad():
+                update_replica_(optimizer, grads, state.params,
+                                state.opt_state, r, lr)
+        # exchange & average params AND optimizer state (paper fn. 3)
+        if sync_every == 1 or (state.step + 1) % sync_every == 0:
+            with torch.no_grad():
+                exchanger.average_((state.params, state.opt_state))
+        return (TrainState(state.params, state.opt_state, state.step + 1),
+                torch.stack(losses).mean())
 
     return step
 

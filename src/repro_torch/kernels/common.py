@@ -33,6 +33,12 @@ ATTENTION_NOT_PORTED = ("chunked", "qloop")
 # ``backend``; ``xla`` is the plain version on any device (the reference's
 # ``resolve_decode_impl``)
 DECODE_ATTENTION = (None, "auto", "xla")
+# ``rwkv6`` / ``rglru``: None and ``auto`` are the recurrence kernels under
+# ``backend``; ``chunked`` (the reference's XLA form of the WKV) and
+# ``xla`` (its associative scan of the RG-LRU) are the plain versions on
+# any device
+RWKV6 = (None, "auto", "chunked")
+RGLRU = (None, "auto", "xla")
 
 
 def _check_backend(name: str, value) -> None:
@@ -45,11 +51,14 @@ class KernelPolicy:
     """Per-run kernel selection: ``backend`` applies to every op;
     ``conv2d`` picks the conv formulation (``CONV2D``), ``attention`` the
     attention implementation (``ATTENTION``), ``decode_attention`` the
-    single-token decode attention (``DECODE_ATTENTION``)."""
+    single-token decode attention (``DECODE_ATTENTION``), ``rwkv6`` and
+    ``rglru`` the two recurrences (``RWKV6``, ``RGLRU``)."""
     backend: str = "auto"
     conv2d: Optional[str] = None
     attention: Optional[str] = None
     decode_attention: Optional[str] = None
+    rwkv6: Optional[str] = None
+    rglru: Optional[str] = None
 
     def __post_init__(self):
         _check_backend("backend", self.backend)
@@ -68,6 +77,10 @@ class KernelPolicy:
             raise ValueError(f"decode_attention must be one of "
                              f"{DECODE_ATTENTION}, got "
                              f"{self.decode_attention!r}")
+        for name, known in (("rwkv6", RWKV6), ("rglru", RGLRU)):
+            if getattr(self, name) not in known:
+                raise ValueError(f"{name} must be one of {known}, got "
+                                 f"{getattr(self, name)!r}")
 
     def attention_backend(self) -> str:
         """The backend the flash-attention ops run under: the global one
@@ -78,6 +91,16 @@ class KernelPolicy:
         """The backend the decode-attention op runs under: the global one
         for the flash-decode kernels, ``plain`` for ``xla``."""
         return "plain" if self.decode_attention == "xla" else self.backend
+
+    def rwkv6_backend(self) -> str:
+        """The backend the WKV op runs under: the global one for the
+        kernel, ``plain`` for ``chunked``."""
+        return "plain" if self.rwkv6 == "chunked" else self.backend
+
+    def rglru_backend(self) -> str:
+        """The backend the RG-LRU scan runs under: the global one for the
+        kernel, ``plain`` for ``xla``."""
+        return "plain" if self.rglru == "xla" else self.backend
 
     def describe(self) -> dict:
         """Stable summary for logging: the fields that are set."""

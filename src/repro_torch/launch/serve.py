@@ -52,8 +52,10 @@ LM_ARCHS = sorted(a for a, c in ARCHS.items() if c.family == "dense")
 def build_parser():
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="olmo-1b",
-                    choices=["alexnet"] + LM_ARCHS,
-                    help="alexnet or a dense LM of the zoo")
+                    choices=["alexnet"] + sorted(ARCHS),
+                    help="alexnet or a dense LM of the zoo ("
+                    + ", ".join(LM_ARCHS) + "); the other families do not "
+                    "serve yet")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-sized)")
     ap.add_argument("--layers", type=int, default=None,
@@ -169,6 +171,10 @@ def report(engine, results, wall: float, family: str) -> None:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.arch != "alexnet" and args.arch not in LM_ARCHS:
+        raise NotImplementedError(
+            f"serving --arch {args.arch} ({ARCHS[args.arch].family}) is not "
+            "ported yet: see ROADMAP.md queue A item 8")
     try:
         device = device_of(args.device)
     except RuntimeError as e:

@@ -1,6 +1,7 @@
 """Training CLI of the port: the paper's parameter-averaging data
 parallelism on one GPU (or, when asked, on the CPU), for the paper's
-AlexNet and for the dense LMs of the zoo (``--arch olmo-1b``, ...).
+AlexNet and for the dense and recurrent LMs of the zoo (``--arch
+olmo-1b``, ``--arch rwkv6-7b``, ``--arch recurrentgemma-9b``, ...).
 
 Builds the model, loss and data streams, the optimizer (SGD momentum or
 AdamW), the LR controller and the exchange, and hands the loop to
@@ -13,6 +14,8 @@ update they exchange and average their weights and optimizer state.
         --faithful --replicas 2 --batch 256 --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
         --replicas 2 --batch 8 --seq-len 2048 --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
+        --layers 8 --replicas 2 --batch 8 --seq-len 2048 --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
         --smoke --steps 2 --batch 4 --seq-len 32 --replicas 2 --device cpu
     # checkpoint every 10 steps, then pick up where a killed run stopped:
@@ -29,8 +32,9 @@ exits non-zero when CUDA is asked for and absent.  On the GPU fp32 runs
 with TF32 off and deterministic cuDNN algorithms.  Weights are random
 from ``--seed`` through ``torch.Generator``, so they differ from the JAX
 CLI's for the same seed; the data streams are the same numpy streams.
-The other LM families, the mesh engine, model parallelism, bf16 numerics
-and the overlapped / compressed exchange are not ported yet and raise.
+The moe, vlm and encdec families, the mesh engine, model parallelism,
+bf16 numerics and the overlapped / compressed exchange are not ported
+yet and raise.
 """
 from __future__ import annotations
 
@@ -55,9 +59,10 @@ from repro_torch.optim import schedules
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.train_loop import (EVAL_SEED_OFFSET, TrainSession,
                                     alexnet_metrics, lm_metrics)
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 CONV_BACKENDS = {"fused": None, "im2col_ref": "im2col_ref"}
+LM_FAMILIES = ("dense", "ssm", "hybrid")
 ATTN_IMPLS = ["auto", "xla", "chunked", "qloop", "flash"]
 
 
@@ -81,9 +86,9 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 def build_parser():
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", default="alexnet",
-                    help="alexnet or a dense LM of the zoo ("
+                    help="alexnet or a dense or recurrent LM of the zoo ("
                     + ", ".join(sorted(a for a, c in ARCHS.items()
-                                       if c.family == "dense")) + ")")
+                                       if c.family in LM_FAMILIES)) + ")")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-sized)")
     ap.add_argument("--seq-len", type=int, default=128,
@@ -165,7 +170,7 @@ def check_ported(args) -> None:
         if args.arch not in ARCHS:
             raise SystemExit(f"unknown --arch {args.arch!r}; known: "
                              f"alexnet, {', '.join(sorted(ARCHS))}")
-        if ARCHS[args.arch].family != "dense":
+        if ARCHS[args.arch].family not in LM_FAMILIES:
             raise not_ported(f"--arch {args.arch} ({ARCHS[args.arch].family}"
                              ")", "queue A item 8 (the remaining LM "
                              "families)")
@@ -316,6 +321,7 @@ def main(argv=None):
     state = init_param_avg_state(torch.Generator().manual_seed(args.seed),
                                  build.init, opt, n_rep)
     policy = cfg.kernels.describe()
+    n_params = sum(x[0].numel() for x in tree_leaves(state.params))
     session = TrainSession(
         state=state,
         build_step=lambda sched: make_param_avg_step(build.loss, opt, sched,
@@ -343,7 +349,7 @@ def main(argv=None):
           + ("" if args.arch == "alexnet" else
              f"layers={cfg.n_layers} d_model={cfg.d_model} "
              f"seq_len={args.seq_len} optimizer={args.optimizer} "
-             f"params={cfg.n_params()} dtype={cfg.dtype} ")
+             f"params={n_params} dtype={cfg.dtype} ")
           + 
           f"model_parallel=1 engine=reference exchange={exch.describe()} "
           f"replica_exec=sequential staging={args.staging} "

@@ -1,10 +1,11 @@
 """Model API of the port: init, logits, loss and the decode-state surface
 by family (the counterpart of ``repro/models/__init__.py``).
 
-Ported: the conv family (AlexNet) and the ``dense`` LM family
+Ported: the conv family (AlexNet) and the ``dense``, ``ssm`` (RWKV6)
+and ``hybrid`` (RG-LRU + local attention) LM families
 (``transformer``).  ``init`` returns an ``AlexNet`` module for conv and a
-params tree in the reference's structure for dense; ``logits_fn`` /
-``loss_fn`` take a params tree and a batch dict for both.  The LM loss is
+params tree in the reference's structure for the LMs; ``logits_fn`` /
+``loss_fn`` take a params tree and a batch dict for all.  The LM loss is
 next-token cross-entropy: ``logits[:, :-1]`` against ``labels[:, 1:]``.
 
 The **DecodeState contract** (the reference's docs/serving.md):
@@ -16,13 +17,14 @@ The **DecodeState contract** (the reference's docs/serving.md):
 plus the slot surgery of the serving engine (``read_slots`` /
 ``write_slots``).  Image classification is one forward pass, so its
 ``DecodeState`` carries an empty cache and ``pos``; the dense family's
-cache is the stacked ring KV cache of ``transformer.init_decode_cache``.
+cache is the stacked ring KV cache of ``transformer.init_decode_cache``;
+the recurrent families train but do not decode yet.
 ``DecodeState.pos`` is per row.  Unlike the reference, the cache is
 written in place: ``decode_step`` and ``write_slots`` return a state
 that shares (and has updated) the cache of the state passed in.  The
-other LM families (moe, ssm, hybrid, vlm, encdec) and speculative
-decoding (``decode_seq_pending`` / ``commit_pending``) come with later
-slices (ROADMAP queue A); asking for them raises.
+other LM families (moe, vlm, encdec), decoding ssm and hybrid, and
+speculative decoding (``decode_seq_pending`` / ``commit_pending``) come
+with later slices (ROADMAP queue A); asking for them raises.
 """
 from __future__ import annotations
 
@@ -38,7 +40,9 @@ from repro_torch.models.layers import softmax_xent
 
 _NOT_PORTED = ("family {family!r} ({name}) is not ported to PyTorch yet: "
                "see ROADMAP.md queue A ({what})")
-FAMILIES = ("conv", "dense")
+FAMILIES = ("conv", "dense", "ssm", "hybrid")
+DECODE_FAMILIES = ("conv", "dense")
+_DECODE_LATER = "item 8, decoding the LM families other than dense"
 
 
 def _check_family(cfg, families=FAMILIES, what="item 8, the remaining "
@@ -50,7 +54,7 @@ def _check_family(cfg, families=FAMILIES, what="item 8, the remaining "
 
 def init(cfg, generator: torch.Generator, *, device=None):
     """A randomly initialized model for ``cfg`` on ``device``: an
-    ``AlexNet`` for conv, a params tree for dense."""
+    ``AlexNet`` for conv, a params tree for the LMs."""
     _check_family(cfg)
     if cfg.family == "conv":
         return alexnet.init(cfg, generator, device=device)
@@ -59,7 +63,7 @@ def init(cfg, generator: torch.Generator, *, device=None):
 
 def logits_fn(params, cfg, batch):
     """Logits of a params tree on a batch dict (``images`` for conv,
-    ``tokens`` for dense); fp32."""
+    ``tokens`` for the LMs); fp32."""
     _check_family(cfg)
     if cfg.family == "conv":
         return alexnet.forward(params, cfg, batch["images"])
@@ -87,7 +91,7 @@ class DecodeState:
 
 def init_decode_cache(cfg, batch: int, seq_len: int, *, device=None):
     """The DecodeState's ``cache`` tree (``{}`` for conv)."""
-    _check_family(cfg)
+    _check_family(cfg, DECODE_FAMILIES, _DECODE_LATER)
     if cfg.family == "conv":
         # classification is one forward: there is no state to carry
         return {}
@@ -104,7 +108,7 @@ def init_decode_state(cfg, batch: int, capacity: int, *,
 
 def _check_lm(cfg):
     if cfg.family != "dense":
-        _check_family(cfg)
+        _check_family(cfg, DECODE_FAMILIES, _DECODE_LATER)
         raise ValueError(f"{cfg.name} ({cfg.family}) has no token decode "
                          "path: the conv family classifies in one forward")
 

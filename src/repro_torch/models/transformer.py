@@ -1,24 +1,30 @@
-"""Decoder-only transformer, the ``dense`` family (the counterpart of
-``repro/models/transformer.py`` for ``family == "dense"``).
+"""Decoder-only transformer for the ``dense``, ``ssm`` and ``hybrid``
+families (the counterpart of ``repro/models/transformer.py``), through a
+per-layer *pattern* of block kinds:
+
+  ``dense``  attention (full or sliding-window per config) + MLP
+  ``attn``   local (sliding-window) attention + MLP      [hybrid]
+  ``rec``    RG-LRU recurrent block + MLP                [hybrid]
+  ``rwkv``   RWKV6 time-mix + channel-mix                [ssm]
 
 Params are the reference's tree: ``{"embed": {"tok"[, "lm_head"]},
-"final_norm": {...}, "blocks": (stacked,), "rem_blocks": ()}``, where
-``blocks`` holds one entry per pattern position (one for ``dense``) whose
-leaves carry a leading ``n_layers`` axis, so the weight bridge and
-checkpoints copy them as they are.  The forward unbinds the stacked
-leaves and loops over the layers (the reference scans them); unbind's
-backward stacks the layers' grads in one pass.
+"final_norm": {...}, "blocks": (stacked, ...), "rem_blocks": (...)}``.
+Layers are grouped into superblocks of ``len(pattern)``: ``blocks``
+holds one entry per pattern position whose leaves carry a leading axis
+of ``n_layers // len(pattern)``, and ``rem_blocks`` the remaining
+``n_layers % len(pattern)`` layers unstacked, so the weight bridge and
+checkpoints copy them as they are.  The forward runs the layers in the
+reference's superblock-major order (``blocks[0][i]``, ``blocks[1][i]``,
+... for each i, then ``rem_blocks``; the reference scans the
+superblocks), unbinding the stacked leaves; unbind's backward stacks the
+layers' grads in one pass.
 
-A ``dense`` block is pre-norm attention (full or sliding-window per
-``cfg.sliding_window``) and a pre-norm MLP, each added to the residual.
-
-Decode: ``init_decode_cache`` stacks one ring KV cache per layer under
-``blocks`` with a leading ``n_layers`` axis, as the reference's scan
-does; ``prefill`` / ``forward(..., cache=)`` fill it and ``decode_step``
-advances it one token.  Each layer writes its view (``unbind``) of the
-stacked leaves, so every write lands in place in the stacked tensors.
-The other families (moe, ssm, hybrid, vlm) are not ported (ROADMAP
-queue A item 8).
+Decode (``dense`` only): ``init_decode_cache`` stacks one ring KV cache
+per layer in the same tree, ``prefill`` / ``forward(..., cache=)`` fill
+it and ``decode_step`` advances it one token.  Each layer writes its
+view (``unbind``) of the stacked leaves, so every write lands in place
+in the stacked tensors.  Decoding the recurrent families and the other
+families (moe, vlm) are not ported (ROADMAP queue A item 8).
 """
 from __future__ import annotations
 
@@ -26,6 +32,8 @@ import torch
 
 from repro_torch.kernels.common import device_of
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (embed_apply, embed_init, mlp_apply,
                                        mlp_init, norm_apply, norm_init,
                                        unembed_apply)
@@ -34,19 +42,51 @@ from repro_torch.tree import tree_map
 
 
 def block_kinds(cfg) -> tuple:
+    """The pattern of block kinds one superblock repeats."""
+    if cfg.family == "dense":
+        return ("dense",)
+    if cfg.family == "ssm":
+        return ("rwkv",)
+    if cfg.family == "hybrid":
+        return tuple(cfg.layer_pattern or ("rec", "rec", "attn"))
+    raise NotImplementedError(
+        f"family {cfg.family!r} ({cfg.name}) is not ported yet: see "
+        "ROADMAP.md queue A item 8")
+
+
+def _split(cfg):
+    """(pattern, superblocks, remainder layers)."""
+    pattern = block_kinds(cfg)
+    n_super, rem = divmod(cfg.n_layers, len(pattern))
+    return pattern, n_super, rem
+
+
+def layer_kinds(cfg) -> list:
+    """Every layer's kind, in the order the forward runs them."""
+    pattern, n_super, rem = _split(cfg)
+    return list(pattern) * n_super + list(pattern[:rem])
+
+
+def _check_decode(cfg) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: see "
-            "ROADMAP.md queue A item 8")
-    return ("dense",)
+            f"decoding the {cfg.family!r} family ({cfg.name}) is not "
+            "ported yet: see ROADMAP.md queue A item 8 (serving the "
+            "recurrent families)")
 
 
 def block_init(cfg, generator, kind: str, device):
     dt = param_dtype(cfg)
-    return {"norm1": norm_init(cfg, dt, device),
-            "norm2": norm_init(cfg, dt, device),
-            "attn": attn.attn_init(cfg, generator, dt, device),
-            "ffn": mlp_init(cfg, generator, dt, device)}
+    p = {"norm1": norm_init(cfg, dt, device),
+         "norm2": norm_init(cfg, dt, device)}
+    if kind == "rwkv":
+        return {**rwkv_mod.rwkv_block_init(cfg, generator, dt, device), **p}
+    if kind == "rec":
+        p["mix"] = rglru_mod.rglru_block_init(cfg, generator, dt, device)
+    else:
+        p["attn"] = attn.attn_init(cfg, generator, dt, device)
+    p["ffn"] = mlp_init(cfg, generator, dt, device)
+    return p
 
 
 def _device_generator(generator: torch.Generator, device) -> torch.Generator:
@@ -61,26 +101,42 @@ def init(cfg, generator: torch.Generator, *, device=None) -> dict:
     through ``torch.Generator``: they differ from the reference's
     ``jax.random`` draws; the bridge carries the reference's over)."""
     dev = device_of(device)
-    (kind,) = block_kinds(cfg)
+    pattern, n_super, rem = _split(cfg)
     gen = _device_generator(generator, dev)
     dt = param_dtype(cfg)
     params = {"embed": embed_init(cfg, gen, dt, dev),
               "final_norm": norm_init(cfg, dt, dev)}
-    layers = [block_init(cfg, gen, kind, dev) for _ in range(cfg.n_layers)]
-    params["blocks"] = (tree_map(lambda *xs: torch.stack(xs), *layers),) \
-        if layers else ()
-    params["rem_blocks"] = ()
+    params["blocks"] = tuple(
+        tree_map(lambda *xs: torch.stack(xs),
+                 *[block_init(cfg, gen, kind, dev) for _ in range(n_super)])
+        for kind in pattern) if n_super else ()
+    params["rem_blocks"] = tuple(block_init(cfg, gen, pattern[i], dev)
+                                 for i in range(rem))
     return params
 
 
 def block_apply_seq(p, cfg, kind, h, *, cache=None, length=None):
-    """One full-sequence block: h (B,S,d) -> h (B,S,d).  ``cache`` (this
-    layer's ring) is filled in place with the prefix's K/V, per row up
-    to ``length`` when given."""
+    """One full-sequence block: h (B,S,d) -> h (B,S,d).  ``cache`` (a
+    ``dense`` layer's ring) is filled in place with the prefix's K/V, per
+    row up to ``length`` when given."""
+    if kind == "rwkv":
+        y, _ = rwkv_mod.time_mix_seq(p, cfg, norm_apply(p["norm1"], cfg, h),
+                                     length=length)
+        h = h + y
+        y, _ = rwkv_mod.channel_mix_seq(p, cfg,
+                                        norm_apply(p["norm2"], cfg, h),
+                                        length=length)
+        return h + y
     x = norm_apply(p["norm1"], cfg, h)
-    h = h + attn.full_attention(p["attn"], cfg, x, causal=True,
+    if kind == "rec":
+        y, _ = rglru_mod.rglru_seq(p["mix"], cfg, x, cache, length)
+    else:
+        # dense layers are windowed when the config says so; hybrid attn
+        # layers are local by construction (the reference's _window)
+        y = attn.full_attention(p["attn"], cfg, x, causal=True,
                                 window=cfg.sliding_window, cache=cache,
                                 length=length)
+    h = h + y
     x = norm_apply(p["norm2"], cfg, h)
     return h + mlp_apply(p["ffn"], cfg, x)
 
@@ -109,25 +165,28 @@ def _layers(stacked, n: int) -> list:
 
 
 def _all_layers(tree, cfg) -> list:
-    """One subtree per layer of a params or decode-cache tree: views of
-    the stacked leaves (writes to a cache's land in the stacked tensors),
+    """One subtree per layer of a params or decode-cache tree, in the
+    reference's superblock-major order (``layer_kinds``): views of the
+    stacked leaves (writes to a cache's land in the stacked tensors),
     then the remainder layers'."""
-    out = []
-    for stacked in tree["blocks"]:
-        out += _layers(stacked, cfg.n_layers)
-    return out + list(tree["rem_blocks"])
+    _, n_super, _ = _split(cfg)
+    stacks = [_layers(stacked, n_super) for stacked in tree["blocks"]]
+    return [stack[i] for i in range(n_super) for stack in stacks] + \
+        list(tree["rem_blocks"])
 
 
 def forward(params, cfg, tokens, *, cache=None, length=None):
     """tokens (B,S) -> fp32 logits (B,S,V).  With ``cache`` (an
     ``init_decode_cache`` tree) the prefix's K/V fill it in place (per
     row up to ``length``) and the result is (logits, cache)."""
-    (kind,) = block_kinds(cfg)
+    if cache is not None:
+        _check_decode(cfg)
     h = embed_apply(params["embed"], cfg, tokens)
     layers = _all_layers(params, cfg)
     caches = [None] * len(layers) if cache is None \
         else _all_layers(cache, cfg)
-    for layer, c in zip(layers, caches, strict=True):
+    for kind, layer, c in zip(layer_kinds(cfg), layers, caches,
+                              strict=True):
         h = block_apply_seq(layer, cfg, kind, h, cache=c, length=length)
     h = norm_apply(params["final_norm"], cfg, h)
     logits = unembed_apply(params["embed"], cfg, h)
@@ -145,16 +204,22 @@ def prefill(params, cfg, tokens, capacity: int, *, length=None):
 
 
 def init_decode_cache(cfg, batch: int, seq_len: int, *, device=None):
-    """The stacked per-layer ring caches: ``{"blocks": ({k, v[, k_scale,
-    v_scale]: (n_layers, batch, cap, ...)},), "rem_blocks": ()}`` with
-    ``cap = cache_capacity(cfg, seq_len)``, in the params' dtype (or the
-    numerics policy's ``kv_cache_dtype``)."""
-    block_kinds(cfg)
+    """The stacked per-layer ring caches, in the params' tree: ``{"blocks":
+    ({k, v[, k_scale, v_scale]: (n_layers, batch, cap, ...)},),
+    "rem_blocks": ()}`` with ``cap = cache_capacity(cfg, seq_len)``, in
+    the params' dtype (or the numerics policy's ``kv_cache_dtype``)."""
+    _check_decode(cfg)
     dev = device_of(device)
+    pattern, n_super, rem = _split(cfg)
     cap = attn.cache_capacity(cfg, seq_len)
-    blocks = (attn.init_cache(cfg, batch, cap, param_dtype(cfg), dev,
-                              lead=(cfg.n_layers,)),) if cfg.n_layers else ()
-    return {"blocks": blocks, "rem_blocks": ()}
+
+    def ring(lead=()):
+        return attn.init_cache(cfg, batch, cap, param_dtype(cfg), dev,
+                               lead=lead)
+
+    return {"blocks": tuple(ring((n_super,)) for _ in pattern)
+            if n_super else (),
+            "rem_blocks": tuple(ring() for _ in range(rem))}
 
 
 def decode_step(params, cfg, cache, tokens, pos, table=None):
@@ -162,10 +227,10 @@ def decode_step(params, cfg, cache, tokens, pos, table=None):
     absolute position.  Writes ``cache`` in place and returns fp32
     logits (B,1,V).  ``table`` (B, cap/bs) int32: the block-pool layout
     (``attention.decode_attention``)."""
-    (kind,) = block_kinds(cfg)
+    _check_decode(cfg)
     h = embed_apply(params["embed"], cfg, tokens)
-    for layer, c in zip(_all_layers(params, cfg), _all_layers(cache, cfg),
-                        strict=True):
+    for kind, layer, c in zip(layer_kinds(cfg), _all_layers(params, cfg),
+                              _all_layers(cache, cfg), strict=True):
         h = block_apply_decode(layer, cfg, kind, h, c, pos, table)
     h = norm_apply(params["final_norm"], cfg, h)
     return unembed_apply(params["embed"], cfg, h)
@@ -173,8 +238,8 @@ def decode_step(params, cfg, cache, tokens, pos, table=None):
 
 def param_shapes(cfg) -> dict:
     """The params tree's shapes (tuples of ints), without allocating."""
-    (kind,) = block_kinds(cfg)
-    d, L = cfg.d_model, cfg.n_layers
+    pattern, n_super, rem = _split(cfg)
+    d = cfg.d_model
     v = cfg.padded_vocab
     norm = {} if cfg.norm == "np_ln" else (
         {"scale": (d,), "bias": (d,)} if cfg.norm == "layernorm"
@@ -183,17 +248,28 @@ def param_shapes(cfg) -> dict:
     ffn = {"w_in": (d, f), "w_out": (f, d)}
     if cfg.mlp in ("swiglu", "geglu"):
         ffn["w_gate"] = (d, f)
-    block = {"norm1": norm, "norm2": norm,
-             "attn": {"wq": (d, hq, hd), "wk": (d, hkv, hd),
-                      "wv": (d, hkv, hd), "wo": (hq, hd, d)},
-             "ffn": ffn}
+
+    def block(kind):
+        p = {"norm1": norm, "norm2": norm}
+        if kind == "rwkv":
+            return {**rwkv_mod.param_shapes(cfg), **p}
+        if kind == "rec":
+            p["mix"] = rglru_mod.param_shapes(cfg)
+        else:
+            p["attn"] = {"wq": (d, hq, hd), "wk": (d, hkv, hd),
+                         "wv": (d, hkv, hd), "wo": (hq, hd, d)}
+        p["ffn"] = ffn
+        return p
+
     embed = {"tok": (v, d)}
     if not cfg.tie_embeddings:
         embed["lm_head"] = (d, v)
 
     def stack(t):
         return {k: stack(v) for k, v in t.items()} \
-            if isinstance(t, dict) else (L,) + t
+            if isinstance(t, dict) else (n_super,) + t
 
     return {"embed": embed, "final_norm": norm,
-            "blocks": (stack(block),) if L else (), "rem_blocks": ()}
+            "blocks": tuple(stack(block(kind)) for kind in pattern)
+            if n_super else (),
+            "rem_blocks": tuple(block(pattern[i]) for i in range(rem))}

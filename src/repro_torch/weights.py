@@ -9,7 +9,7 @@ holds the same arrays in the same layouts, so the bridge copies them
 bit for bit in both directions.  Arrays cross as numpy (convert JAX
 arrays with ``np.asarray``).
 
-The dense LMs: ``lm_from_reference`` / ``lm_to_reference`` copy the
+The LMs (dense, ssm, hybrid): ``lm_from_reference`` / ``lm_to_reference`` copy the
 reference's params tree (``repro.models.init``) as it is, tuples and the
 empty ``{}`` of a non-parametric norm included; leaves keep their dtype
 (bf16 crosses bit for bit as its 16-bit pattern; numpy names the type
@@ -103,7 +103,7 @@ def _prefixed(shapes, n: int):
 
 @torch.no_grad()
 def lm_from_reference(params, cfg, *, device=None) -> dict:
-    """The reference's dense-LM params tree as the port's, on ``device``
+    """The reference's LM params tree as the port's, on ``device``
     (checked against ``cfg``'s shapes and param dtype)."""
     return _convert(params, transformer.param_shapes(cfg), param_dtype(cfg),
                     device_of(device))

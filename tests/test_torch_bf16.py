@@ -92,3 +92,19 @@ def test_exchange_averages_bf16_leaves_in_fp32(strategy):
     want = jax_pa.Exchanger(strategy).average(tree)
     got = param_avg.Exchanger(strategy).average(_port(tree))
     _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("strategy", ["all_reduce", "ring", "pairwise"])
+def test_exchange_in_place_matches_reference(strategy, monkeypatch):
+    """``average_`` writes the same bits into the tree's own tensors,
+    chunk by chunk (chunks cut small so that every leaf spans several),
+    the leaves' dtypes kept."""
+    monkeypatch.setattr(param_avg, "CHUNK", 5)
+    tree = {"params": _tree(3, lead=(4,)),
+            "velocity": jax.tree.map(lambda x: x.astype(jnp.float32) * 0.37,
+                                     _tree(4, lead=(4,))),
+            "count": jnp.full((4,), 7, jnp.int32)}
+    want = jax_pa.Exchanger(strategy).average(tree)
+    got = _port(tree)
+    param_avg.Exchanger(strategy).average_(got)
+    _bits_equal(got, want)

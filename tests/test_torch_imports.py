@@ -1,6 +1,6 @@
 """The port stands alone: it never imports ``jax`` or the reference
 package ``repro``, at import time, while it serves AlexNet or a dense LM
-or while it trains either."""
+or while it trains either or a recurrent LM (RWKV6, RG-LRU)."""
 import os
 import re
 import subprocess
@@ -39,6 +39,10 @@ train.main(["--arch", "alexnet", "--smoke", "--faithful", "--device", "cpu",
 train.main(["--arch", "olmo-1b", "--smoke", "--device", "cpu", "--steps",
             "2", "--batch", "4", "--replicas", "2", "--seq-len", "32",
             "--eval-every", "1", "--eval-batches", "1"])
+for arch, layers in (("rwkv6-7b", "1"), ("recurrentgemma-9b", "4")):
+    train.main(["--arch", arch, "--smoke", "--layers", layers,
+                "--d-model", "64", "--device", "cpu", "--steps", "2",
+                "--batch", "4", "--replicas", "2", "--seq-len", "16"])
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -54,7 +58,8 @@ def test_port_never_imports_jax_or_the_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.count("serve OK") == 2
     assert "arch=olmo-1b-smoke family=dense" in proc.stdout
-    assert proc.stdout.count("done: steps 0 -> 2") == 2
+    assert proc.stdout.count("done: steps 0 -> 2") == 4
+    assert "arch=recurrentgemma-9b-smoke" in proc.stdout
     assert "arch=olmo-1b-smoke" in proc.stdout
     n = int(re.search(r"imported (\d+) modules", proc.stdout).group(1))
     assert n == len([f for f in FILES if f.parent != ROOT]) - 1

@@ -408,7 +408,8 @@ def test_lm_cli_resume_repeats_an_uninterrupted_run(tmp_path):
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--arch", "rwkv6-7b"], NotImplementedError, "ROADMAP.md queue A item 8"),
+    (["--arch", "phi-3-vision-4.2b"], NotImplementedError,
+     "ROADMAP.md queue A item 8"),
     (["--arch", "mixtral-8x7b"], NotImplementedError, "ROADMAP.md"),
     (["--attn-impl", "chunked"], NotImplementedError, "ROADMAP.md"),
 ])

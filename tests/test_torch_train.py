@@ -264,7 +264,7 @@ def test_plateau_schedule_drives_eval(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--arch", "rwkv6-7b"], "ROADMAP.md queue A item 8"),
+    (["--arch", "mixtral-8x7b"], "ROADMAP.md queue A item 8"),
     (["--model-parallel", "2"], "ROADMAP.md queue A item 12"),
     (["--engine", "mesh"], "ROADMAP.md queue A item 4"),
     (["--numerics", "bf16"], "ROADMAP.md queue A item 6"),
