@@ -24,9 +24,11 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    3e-2) at the LM training shape (B=4, H=16, S=2048, hd=128, causal) and
    at GQA (32 / 8 heads, ragged S=1000), window-256, hd-64 and hd-256
    shapes and the ``recurrentgemma-9b`` attn layers' (B 2, 16 query
-   heads on 1 KV head, hd 256, window 2048), in fp32 and bf16, timed beside their plain versions,
-   ``F.scaled_dot_product_attention``'s forward and backward (a yardstick
-   only) and the bound over the unmasked (q, k) pairs;
+   heads on 1 KV head, hd 256, window 2048), in fp32 and bf16, timed
+   beside their plain versions, ``F.scaled_dot_product_attention``'s
+   forward and whole backward (a yardstick only) and the bound over the
+   unmasked (q, k) pairs (bf16 at the tensor cores' 989 TFLOP/s, fp32 at
+   67); two dk/dv calls must agree bit for bit;
 5. decode kernel phase: the flash-decode kernels ``decode_ring`` and
    ``decode_table`` against their plain version (fp32 2e-4, bf16 outputs
    2e-2; int8 against the plain int8) at the serving tick's shape (B 8,
@@ -150,6 +152,7 @@ TRAIN_BATCH = 128        # per replica: the paper's global 256 over 2
 IM2COL_BATCH = 32        # per replica, the im2col training phase
 REPLICAS = 2
 FP32_PEAK = 67e12        # H100 SXM fp32 outside the tensor cores, FLOP/s
+BF16_PEAK = 989e12       # H100 SXM dense bf16 on the tensor cores, FLOP/s
 HBM_RATE = 3.35e12       # H100 SXM HBM3, bytes/s
 CONV_TOL = 2e-4          # registry tolerance of repro/kernels/conv2d/ops.py
 LRN_TOL = 2e-5           # registry tolerance of repro/kernels/lrn/ops.py
@@ -407,8 +410,10 @@ def gemm_cases(cfg, batch):
     return out
 
 
-def _bound(flops, nbytes):
-    ops, mem = flops / FP32_PEAK, nbytes / HBM_RATE
+def _bound(flops, nbytes, peak=FP32_PEAK):
+    """(least ms, what sets it): the FLOPs at ``peak`` (the rate of the
+    arithmetic's type) or the bytes at the HBM rate, the longer."""
+    ops, mem = flops / peak, nbytes / HBM_RATE
     return max(ops, mem) * 1e3, ("operations" if ops >= mem else "bytes")
 
 
@@ -1093,7 +1098,11 @@ def flash_phase(gen):
     case of ``FLASH_CASES``, in fp32 and bf16, timed beside the plain
     versions and the library's fused attention (yardstick only).
     Returns per kernel the totals of the main path's case (``train``,
-    bf16: one launch at the LM training shape) and the worst error."""
+    bf16: one launch at the LM training shape) and the worst error.
+    bf16 rows are bounded at the tensor cores' dense bf16 rate (the card
+    could do that work there), fp32 rows at the fp32 rate outside them;
+    the library time of dq and dk/dv is SDPA's whole backward (dq, dk
+    and dv in one call)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops
@@ -1136,6 +1145,12 @@ def flash_phase(gen):
                                           want_dk.float(), grad_tol),
                               check_close(f"flash_dkv dv {what}", dv.float(),
                                           want_dv.float(), grad_tol))
+                again = ops.flash_dkv(*args, **kw)   # a split group's sum
+                if not (torch.equal(again[0], dk)
+                        and torch.equal(again[1], dv)):
+                    raise AssertionError(f"flash_dkv {what}: two calls "
+                                         "differ (the backward must be "
+                                         "deterministic)")
                 timed = {
                     "flash_fwd": (lambda: ops.flash_fwd(q, k, v, **kw),
                                   lambda: ops.flash_fwd(
@@ -1181,8 +1196,9 @@ def flash_phase(gen):
                                   2 * qo + 4 * kv + 2 * rows)}
             errs = {"flash_fwd": fwd_err, "flash_dq": dq_err,
                     "flash_dkv": dkv_err}
+            peak = BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK
             for name, (flops, nbytes) in work.items():
-                bound, bound_by = _bound(flops, nbytes)
+                bound, bound_by = _bound(flops, nbytes, peak)
                 k_ms, p_ms = ms[name]
                 row[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                              "bound_by": bound_by, "flops": flops,
@@ -1192,14 +1208,20 @@ def flash_phase(gen):
                 tot = totals[name]
                 tot["max_abs_err"] = max(tot["max_abs_err"], errs[name])
                 if case == "train" and dtype == torch.bfloat16:
+                    fwd = name == "flash_fwd"
                     tot.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                                bound_by=bound_by,
-                               library_ms=sdpa_fwd if name == "flash_fwd"
-                               else None)
+                               library_ms=sdpa_fwd if fwd else sdpa_bwd,
+                               library=("SDPA forward" if fwd else
+                                        "SDPA's whole backward (dq, dk "
+                                        "and dv)"))
             row.update(lse_err=lse_err, pairs=pairs, sdpa_fwd_ms=sdpa_fwd,
                        sdpa_bwd_ms=sdpa_bwd, sdpa_fwd_err=sdpa_err,
-                       assumes="67 TFLOP/s fp32 non-tensor, 3.35 TB/s; "
-                       "FLOPs over the unmasked pairs")
+                       assumes=("989 TFLOP/s dense bf16 tensor-core"
+                                if dtype == torch.bfloat16 else
+                                "67 TFLOP/s fp32 non-tensor")
+                       + ", 3.35 TB/s; FLOPs over the unmasked pairs; "
+                       "sdpa_bwd_ms is the whole backward")
             emit(row)
     return totals
 
@@ -2283,10 +2305,12 @@ def main() -> int:
                         "src/repro/kernels/conv2d/conv2d.py:50",
                         "train_im2col"),
     }
+    # the main path is bf16: the tensor-core forward and dk/dv (their fp32
+    # kernels are flash_fwd.cu and flash_bwd.cu)
     flash = "src/repro/kernels/flash_attention/flash_attention.py"
-    for name, source, line in (("flash_fwd", "flash_fwd.cu", 78),
+    for name, source, line in (("flash_fwd", "flash_fwd_sm90.cu", 78),
                                ("flash_dq", "flash_bwd.cu", 168),
-                               ("flash_dkv", "flash_bwd.cu", 206)):
+                               ("flash_dkv", "flash_dkv_sm90.cu", 206)):
         meta[name] = (f"{src}/flash_attention/csrc/{source}",
                       f"{flash}:{line}", "lm_train")
     decode = "src/repro/kernels/decode_attention/decode_attention.py"
@@ -2310,7 +2334,8 @@ def main() -> int:
                                  for p, c in by_path.items()},
             "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": bound_by, "library_ms": tot["library_ms"]})
+            "bound_by": bound_by, "library_ms": tot["library_ms"],
+            **({"library": tot["library"]} if "library" in tot else {})})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "seconds_at_end_of": seconds})
     print(card(), flush=True)

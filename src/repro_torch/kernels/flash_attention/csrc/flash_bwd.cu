@@ -1,4 +1,5 @@
-// Flash-attention backward, sm_90a: the dq kernel and the dk/dv kernel.
+// Flash-attention backward, sm_90a: the dq kernel and the fp32 dk/dv kernel
+// (bf16 dk/dv runs on the tensor cores, flash_dkv_sm90.cu).
 //
 // Replaces the TPU kernels src/repro/kernels/flash_attention/flash_attention.py,
 // _flash_dq_kernel and _flash_dkv_kernel (the custom_vjp backward of
@@ -351,25 +352,39 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v,
 #undef FLASH_DQ
 }
 
+extern "C" int flash_dkv_sm90(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse,
+                              const float* delta, void* dk, void* dv,
+                              float* part, int n_split, int bh_kv, int S,
+                              int hd, int n_q_heads, int n_kv_heads,
+                              int causal, int window, float scale,
+                              void* stream);
+
 // dk, dv (bh_kv, S, hd) in k's type, summed over the G query heads of each
-// KV head; bh_kv = bh_q / G; other arguments as flash_dq.
+// KV head; bh_kv = bh_q / G; other arguments as flash_dq.  bf16 goes to
+// flash_dkv_sm90, with its split of the group (part, n_split); fp32 ignores
+// both.
 extern "C" int flash_dkv(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse,
-                         const float* delta, void* dk, void* dv, int bh_kv,
-                         int S, int hd, int n_q_heads, int n_kv_heads,
-                         int causal, int window, float scale, int bf16,
-                         void* stream) {
+                         const float* delta, void* dk, void* dv, float* part,
+                         int n_split, int bh_kv, int S, int hd,
+                         int n_q_heads, int n_kv_heads, int causal,
+                         int window, float scale, int bf16, void* stream) {
+  if (bf16)
+    return flash_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, part, n_split,
+                          bh_kv, S, hd, n_q_heads, n_kv_heads, causal, window,
+                          scale, stream);
   const cudaStream_t s = (cudaStream_t)stream;
-#define FLASH_DKV(T, HD)                                                     \
-  run_dkv<T, HD>(q, k, v, dout, lse, delta, dk, dv, bh_kv, S, n_q_heads,    \
-                 n_kv_heads, causal, window, scale, s)
+#define FLASH_DKV(HD)                                                        \
+  run_dkv<float, HD>(q, k, v, dout, lse, delta, dk, dv, bh_kv, S, n_q_heads, \
+                     n_kv_heads, causal, window, scale, s)
   switch (hd) {
     case 64:
-      return bf16 ? FLASH_DKV(__nv_bfloat16, 64) : FLASH_DKV(float, 64);
+      return FLASH_DKV(64);
     case 128:
-      return bf16 ? FLASH_DKV(__nv_bfloat16, 128) : FLASH_DKV(float, 128);
+      return FLASH_DKV(128);
     case 256:
-      return bf16 ? FLASH_DKV(__nv_bfloat16, 256) : FLASH_DKV(float, 256);
+      return FLASH_DKV(256);
     default:
       return (int)cudaErrorInvalidValue;
   }

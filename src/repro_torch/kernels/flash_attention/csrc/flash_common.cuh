@@ -90,14 +90,15 @@ __device__ __forceinline__ int kv_row(int bh_q, int n_q_heads,
   return b * n_kv_heads + h / (n_q_heads / n_kv_heads);
 }
 
-// Opt in to more than 48 KB of dynamic shared memory, then launch.
-template <typename Kernel, typename... Args>
+// Opt in to more than 48 KB of dynamic shared memory, then launch blocks of
+// Threads threads.
+template <int Threads = THREADS, typename Kernel, typename... Args>
 int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
            Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, THREADS, smem, stream>>>(args...);
+  kernel<<<grid, Threads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-// Flash-attention forward, sm_90a.
+// Flash-attention forward, sm_90a: the fp32 kernel (bf16 inputs go to the
+// tensor-core kernel of flash_fwd_sm90.cu).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py,
 // _flash_kernel (wrapper flash_attention_folded): causal / sliding-window
@@ -9,8 +10,9 @@
 // What bounds it on the H100: operations.  Per unmasked (q, k) pair it does
 // 4 * hd FLOPs (q.k and p.v) against 4 * hd bytes of q, k, v and o per row,
 // so at S = 2048 it is far above the fp32 ridge; the least time is the
-// unmasked pairs' FLOPs over 67 TFLOP/s of non-tensor fp32 (this first kernel
-// runs on the FMA pipes, no wgmma; that is later work).
+// unmasked pairs' FLOPs over 67 TFLOP/s of non-tensor fp32 (the FMA pipes:
+// the fp32 parity tests and loss traces rest on this kernel's full-fp32
+// products).
 //
 // What the design does about it:
 //  * One block per (B*Hq row, BQ-row q tile) walks only the KV tiles that
@@ -188,19 +190,23 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
+                              void* o, float* lse, int bh_q, int S, int hd,
+                              int n_q_heads, int n_kv_heads, int causal,
+                              int window, float scale, void* stream);
+
 // o (bh_q, S, hd) in q's type and lse (bh_q, S) fp32 for q (bh_q, S, hd) and
 // k, v (bh_q / G, S, hd), G = n_q_heads / n_kv_heads, all contiguous and of
-// one type: fp32 (bf16 == 0) or bf16 (bf16 == 1).  hd is 64, 128 or 256;
-// window <= 0 means none.  Launches on `stream`; returns the launch's
-// cudaError_t (0 on success); no sync.
+// one type: fp32 (bf16 == 0) or bf16 (bf16 == 1, flash_fwd_sm90).  hd is 64,
+// 128 or 256; window <= 0 means none.  Launches on `stream`; returns the
+// launch's cudaError_t (0 on success); no sync.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, float* lse, int bh_q, int S, int hd,
                          int n_q_heads, int n_kv_heads, int causal,
                          int window, float scale, int bf16, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return dispatch<__nv_bfloat16>(hd, q, k, v, o, lse, bh_q, S, n_q_heads,
-                                   n_kv_heads, causal, window, scale, s);
+    return flash_fwd_sm90(q, k, v, o, lse, bh_q, S, hd, n_q_heads,
+                          n_kv_heads, causal, window, scale, stream);
   return dispatch<float>(hd, q, k, v, o, lse, bh_q, S, n_q_heads, n_kv_heads,
-                         causal, window, scale, s);
+                         causal, window, scale, (cudaStream_t)stream);
 }

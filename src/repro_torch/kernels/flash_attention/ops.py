@@ -1,5 +1,7 @@
 """Flash-attention dispatch: the CUDA kernels (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``) or their plain versions (``ref``).
+``csrc/flash_bwd.cu``; for bf16 the forward and dk/dv run on the tensor
+cores, ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_dkv_sm90.cu``) or their
+plain versions (``ref``).
 
 ``flash_attention_folded(q, k, v, ...)`` takes the kernels' layout, q
 (B*Hq, S, hd) and k, v (B*Hkv, S, hd), the counterpart of the
@@ -16,7 +18,9 @@ masked-softmax attention, differentiated by autograd.  ``backend="plain"``
 asks for the plain version on any device.
 
 ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` are the three kernel
-wrappers; each counts its launches in ``.launches``.
+wrappers; each counts its launches in ``.launches`` (one per call, however
+many kernels the call runs: bf16 dk/dv at hd 256 is two passes, and a
+split group adds a fixed-order sum, ``dkv_split``).
 """
 from __future__ import annotations
 
@@ -32,7 +36,26 @@ DTYPES = (torch.float32, torch.bfloat16)
 _HEAD = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _FWD_ARGTYPES = [ctypes.c_void_p] * 5 + _HEAD
 _DQ_ARGTYPES = [ctypes.c_void_p] * 7 + _HEAD
-_DKV_ARGTYPES = [ctypes.c_void_p] * 8 + _HEAD
+_DKV_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] + _HEAD
+# KV rows per block of the bf16 dk/dv kernel: flash_dkv_sm90.cu's
+# Layout::BK (64 per consumer warpgroup) at the warpgroups its dispatch picks
+# for each hd; tests/test_torch_cli_flags.py reads both from the source and
+# holds this table to them.
+DKV_ROWS = {64: 128, 128: 64, 256: 64}
+
+
+def dkv_split(b: int, n_kv_heads: int, s: int, group: int, hd: int,
+              sms: int) -> int:
+    """Blocks over which the bf16 dk/dv kernel deals out the ``group``
+    query heads of each (KV head, KV tile), split z taking heads
+    [z G / n, (z + 1) G / n): doubled while the grid has fewer than two
+    blocks per SM of a card with ``sms`` SMs, at most ``group``.  1 at
+    G 1 (no scratch, no sum)."""
+    blocks = b * n_kv_heads * -(-s // DKV_ROWS[hd])
+    n = 1
+    while n < group and blocks * n < 2 * sms:
+        n *= 2
+    return min(n, group)
 
 
 def _check_shapes(q, k, v, n_q_heads, n_kv_heads, window):
@@ -54,9 +77,11 @@ def _check_shapes(q, k, v, n_q_heads, n_kv_heads, window):
         raise ValueError(f"window must be None or >= 1, got {window}")
 
 
-def _check_cuda(named, hd):
+def _check_cuda(named, hd, tma=False):
     """What the kernels take: contiguous CUDA tensors of one type (fp32 or
-    bf16; lse and delta fp32) and a head dim of 64, 128 or 256."""
+    bf16; lse and delta fp32) and a head dim of 64, 128 or 256; with
+    ``tma`` (the tensor-core kernels' TMA loads) bf16 ones 16-byte
+    aligned."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"the flash kernels take head_dim in {HEAD_DIMS}, "
                          f"got {hd}")
@@ -68,6 +93,8 @@ def _check_cuda(named, hd):
             common.check_operand(name, t, 3, DTYPES)
             if t.dtype != dtype:
                 raise ValueError(f"{name} is {t.dtype}, q is {dtype}")
+            if tma and dtype == torch.bfloat16 and t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
     return int(dtype == torch.bfloat16)
 
 
@@ -93,7 +120,7 @@ def flash_fwd(q, k, v, *, n_q_heads: int, n_kv_heads: int, causal=True,
     if common.route(backend, q) == "plain":
         return ref.flash_fwd_ref(q, k, v, **kw)
     bhq, s, hd = q.shape
-    bf16 = _check_cuda([("q", q), ("k", k), ("v", v)], hd)
+    bf16 = _check_cuda([("q", q), ("k", k), ("v", v)], hd, tma=True)
     o = torch.empty_like(q)
     lse = torch.empty((bhq, s), device=q.device, dtype=torch.float32)
     _call("flash_fwd", _FWD_ARGTYPES, q.data_ptr(), k.data_ptr(),
@@ -135,11 +162,17 @@ def flash_dkv(q, k, v, do, lse, delta, *, n_q_heads: int, n_kv_heads: int,
         return ref.flash_dkv_ref(q, k, v, do, lse, delta, **kw)
     bhkv, s, hd = k.shape
     bf16 = _check_cuda([("q", q), ("k", k), ("v", v), ("do", do),
-                        ("lse", lse), ("delta", delta)], hd)
+                        ("lse", lse), ("delta", delta)], hd, tma=True)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    sms = torch.cuda.get_device_properties(k.device).multi_processor_count
+    n_split = (dkv_split(bhkv // n_kv_heads, n_kv_heads, s,
+                         n_q_heads // n_kv_heads, hd, sms) if bf16 else 1)
+    part = (torch.empty((2, n_split, bhkv, s, hd), device=k.device,
+                        dtype=torch.float32) if n_split > 1 else None)
     _call("flash_dkv", _DKV_ARGTYPES, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-          dk.data_ptr(), dv.data_ptr(), bhkv, s, hd,
+          dk.data_ptr(), dv.data_ptr(),
+          None if part is None else part.data_ptr(), n_split, bhkv, s, hd,
           *_conf(n_q_heads, n_kv_heads, causal, window, scale), bf16)
     flash_dkv.launches += 1
     return dk, dv

@@ -43,6 +43,7 @@ import torch
 from repro_torch import models
 from repro_torch.configs import ALEXNET, ALEXNET_SMOKE, ARCHS, reduced
 from repro_torch.kernels.common import BACKENDS, KernelPolicy, device_of
+from repro_torch.launch import not_ported
 from repro_torch.numerics import KV_CACHE_DTYPES
 from repro_torch.serving import Request, ServingEngine
 
@@ -56,6 +57,9 @@ def build_parser():
                     help="alexnet or a dense LM of the zoo ("
                     + ", ".join(LM_ARCHS) + "); the other families do not "
                     "serve yet")
+    ap.add_argument("--images", action="store_true",
+                    help="vlm: attach random raw pixels to every request "
+                    "(the vlm family is not ported)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-sized)")
     ap.add_argument("--layers", type=int, default=None,
@@ -77,12 +81,23 @@ def build_parser():
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--ticks-per-dispatch", type=int, default=1,
                     help="decode ticks per host read of the sampled tokens")
+    ap.add_argument("--draft-arch", default=None,
+                    help="speculative decoding with this draft arch (not "
+                    "ported)")
+    ap.add_argument("--draft-layers", type=int, default=0,
+                    help="> 0: a draft of the target's first k layers (not "
+                    "ported)")
+    ap.add_argument("--spec-tokens", type=int, default=4,
+                    help="draft tokens per verify round (not ported)")
     ap.add_argument("--block-size", type=int, default=0,
                     help="> 0: shared-prefix block-pool KV cache with this "
                     "many ring positions per block (full-attention archs)")
     ap.add_argument("--num-blocks", type=int, default=0,
                     help="pool size for --block-size (default: full "
                     "private provisioning, slots*capacity/bs + trash)")
+    ap.add_argument("--numerics", default="fp32", choices=["fp32", "bf16"],
+                    help="NumericsPolicy preset of the served model (bf16 "
+                    "is not ported)")
     ap.add_argument("--kv-cache-dtype", default="auto",
                     choices=KV_CACHE_DTYPES,
                     help="KV-cache storage: auto follows the model dtype; "
@@ -92,7 +107,44 @@ def build_parser():
                     "on the GPU and their plain versions on the CPU")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    # the reference's multi-process tier, not ported: every flag at its
+    # default runs the single engine
+    ap.add_argument("--tier", "--instances", type=int, default=0,
+                    dest="tier", help="> 0: engine worker processes behind "
+                    "a router")
+    ap.add_argument("--disagg", action="store_true",
+                    help="tier mode: a dedicated prefill worker")
+    ap.add_argument("--role", default="driver",
+                    choices=["driver", "router", "engine", "decode",
+                             "prefill"],
+                    help="the process's role in the tier")
+    ap.add_argument("--port", type=int, default=0,
+                    help="worker roles: localhost port to listen on")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="worker backpressure bound")
     return ap
+
+
+def check_ported(args) -> None:
+    """Raise for the reference flag values the port does not run yet,
+    naming their ROADMAP item."""
+    if args.arch != "alexnet" and args.arch not in LM_ARCHS:
+        raise not_ported(f"serving --arch {args.arch} "
+                         f"({ARCHS[args.arch].family})", "queue A item 8")
+    if args.numerics != "fp32":
+        raise not_ported(f"--numerics {args.numerics}", "queue A item 6 "
+                         "(the bf16 NumericsPolicy)")
+    if args.images:
+        raise not_ported("--images", "queue A item 8 (A8b, the vlm family)")
+    if (args.draft_arch is not None or args.draft_layers
+            or args.spec_tokens != 4):
+        raise not_ported("speculative decoding (--draft-arch, "
+                         "--draft-layers, --spec-tokens)",
+                         "queue A item 10")
+    if (args.tier or args.disagg or args.role != "driver" or args.port
+            or args.max_queue):
+        raise not_ported("the multi-process tier (--tier, --disagg, "
+                         "--role, --port, --max-queue)", "queue A item 11")
 
 
 def build_cfg(args, error):
@@ -171,10 +223,7 @@ def report(engine, results, wall: float, family: str) -> None:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.arch != "alexnet" and args.arch not in LM_ARCHS:
-        raise NotImplementedError(
-            f"serving --arch {args.arch} ({ARCHS[args.arch].family}) is not "
-            "ported yet: see ROADMAP.md queue A item 8")
+    check_ported(args)
     try:
         device = device_of(args.device)
     except RuntimeError as e:

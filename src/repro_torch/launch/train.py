@@ -54,7 +54,9 @@ from repro_torch.core.steps import (init_param_avg_state, make_eval_step,
 from repro_torch.data import synthetic
 from repro_torch.data.preprocess import make_image_preprocess
 from repro_torch.kernels.common import BACKENDS, KernelPolicy, device_of
+from repro_torch.launch import not_ported
 from repro_torch.models import alexnet, transformer
+from repro_torch.numerics import KV_CACHE_DTYPES
 from repro_torch.optim import schedules
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.train_loop import (EVAL_SEED_OFFSET, TrainSession,
@@ -76,11 +78,6 @@ class Build:
     make_eval_batches: Callable       # () -> fresh held-out iterator
     eval_metric_fn: Callable          # (params, batch) -> {name: scalar}
     plateau_metric: str               # the metric the LR controller tracks
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md "
-                               f"{item}")
 
 
 def build_parser():
@@ -119,6 +116,14 @@ def build_parser():
     ap.add_argument("--exchange-delay", type=int, default=0, choices=[0, 1])
     ap.add_argument("--exchange-compression", default="none",
                     choices=["none", "bf16", "topk"])
+    ap.add_argument("--topk-frac", type=float, default=0.01,
+                    help="kept fraction per leaf for --exchange-compression "
+                    "topk (compression is not ported)")
+    ap.add_argument("--replica-exec", default="vmap",
+                    choices=["vmap", "scan"],
+                    help="the reference's batched (vmap) or sequential "
+                    "(scan) replicas; the port runs its replicas one after "
+                    "another under either")
     ap.add_argument("--staging", default="queue",
                     choices=["queue", "pinned"],
                     help="queue = prefetch handoff queue; pinned = "
@@ -147,6 +152,10 @@ def build_parser():
                     help="fused = implicit-GEMM conv kernel; im2col_ref = "
                     "unfold + the matmul_bias kernel (parity path)")
     ap.add_argument("--numerics", default="fp32", choices=["fp32", "bf16"])
+    ap.add_argument("--kv-cache-dtype", default="auto",
+                    choices=KV_CACHE_DTYPES,
+                    help="decode KV-cache storage dtype of the LM's numerics "
+                    "policy (serving only: training does not read it)")
     ap.add_argument("--prefetch", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
@@ -215,8 +224,11 @@ def build_lm_cfg(args, error):
                   "published width is kept otherwise)")
         if args.layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    return dataclasses.replace(cfg, kernels=KernelPolicy(
-        backend=args.kernel_backend, attention=args.attn_impl))
+    return dataclasses.replace(
+        cfg, kernels=KernelPolicy(backend=args.kernel_backend,
+                                  attention=args.attn_impl),
+        numerics=dataclasses.replace(cfg.numerics,
+                                     kv_cache_dtype=args.kv_cache_dtype))
 
 
 def build_lm(args, cfg, dev) -> Build:

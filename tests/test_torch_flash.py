@@ -188,6 +188,8 @@ CARD_CASES = [  # (B, Hq, Hkv, S, hd, causal, window)
     (1, 4, 4, 777, 128, True, 256),       # window, ragged S
     (1, 4, 2, 300, 256, False, 100),      # hd 256, no causal mask
     (2, 2, 1, 130, 64, False, None),
+    (1, 16, 1, 333, 256, True, 100),      # MQA, G 16, window, ragged S
+    (1, 16, 2, 517, 64, True, None),      # G 8 at hd 64, ragged S
 ]
 
 
@@ -240,3 +242,23 @@ def test_autograd_through_the_kernels(cuda, window):
     for a, b in zip(leaves, plain):
         torch.testing.assert_close(a.grad, b.grad, rtol=CUDA_GRAD_TOL,
                                    atol=CUDA_GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,window", [(256, 2048), (128, None)])
+def test_split_dkv_is_deterministic(cuda, hd, window):
+    """At G 16 the bf16 dk/dv kernel splits each group's heads over blocks
+    and sums their fp32 partials in a fixed order: two calls agree bit
+    for bit (a resumed run repeats an uninterrupted one)."""
+    b, hq, hkv, s = 1, 16, 1, 640
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ops.dkv_split(b, hkv, s, hq // hkv, hd, sms) > 1
+    q, k, v, do = _card_inputs(b, hq, hkv, s, hd, torch.bfloat16, seed=2)
+    kw = dict(n_q_heads=hq, n_kv_heads=hkv, causal=True, window=window,
+              scale=hd ** -0.5)
+    o, lse = ops.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    first = ops.flash_dkv(q, k, v, do, lse, delta, **kw)
+    second = ops.flash_dkv(q, k, v, do, lse, delta, **kw)
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
