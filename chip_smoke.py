@@ -18,7 +18,8 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    bound, one JSON line per kernel and shape.  Conv and LRN run at the
    serving batch (8) and the training batch (128 per replica); the GEMM
    runs the forward, dx and dw products of every conv of the im2col
-   training phase (32 per replica);
+   training phase (32 per replica), two calls agreeing bit for bit where
+   the reduction is split over blocks;
 4. flash kernel phase: the flash-attention forward, dq and dk/dv kernels
    against their plain versions (fp32: 2e-4 forward, 2e-3 grads; bf16:
    3e-2) at the LM training shape (B=4, H=16, S=2048, hd=128, causal) and
@@ -28,7 +29,7 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    beside their plain versions, ``F.scaled_dot_product_attention``'s
    forward and whole backward (a yardstick only) and the bound over the
    unmasked (q, k) pairs (bf16 at the tensor cores' 989 TFLOP/s, fp32 at
-   67); two dk/dv calls must agree bit for bit;
+   67); two dq and two dk/dv calls must agree bit for bit;
 5. decode kernel phase: the flash-decode kernels ``decode_ring`` and
    ``decode_table`` against their plain version (fp32 2e-4, bf16 outputs
    2e-2; int8 against the plain int8) at the serving tick's shape (B 8,
@@ -545,6 +546,7 @@ def gemm_phase(gen, totals, account):
     from repro_torch.kernels.conv2d.ref import matmul_bias_ref
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for layer, product, m, k, n, ta, tb in gemm_cases(ALEXNET_FAITHFUL,
                                                        IM2COL_BATCH):
         # unit-variance a and b ~ N(0, 1/K), as He-scaled weights or a
@@ -563,6 +565,12 @@ def gemm_phase(gen, totals, account):
             want = matmul_bias_ref(a, b, bias, relu)
             err = check_close(f"matmul_bias {layer} {product}", got, want,
                               GEMM_TOL)
+            split = conv_ops.gemm_split(m, n, k, sms)
+            if not torch.equal(got, conv_ops.matmul_bias(
+                    a, b, bias, relu=relu, backend="cuda")):
+                raise AssertionError(f"matmul_bias {layer} {product}: two "
+                                     f"calls differ (split {split}; the "
+                                     "split-K sum must be deterministic)")
 
             def library():
                 y = torch.addmm(bias, a, b) if relu else torch.mm(a, b)
@@ -587,7 +595,9 @@ def gemm_phase(gen, totals, account):
                "assumes": "67 TFLOP/s fp32 non-tensor, 3.35 TB/s",
                "flops": flops, "bytes": nbytes,
                "tflops": flops / (k_ms * 1e-3) / 1e12,
-               "blocks": -(-m // 64) * -(-n // 64),
+               "blocks": (-(-m // conv_ops.GEMM_BM)
+                          * -(-n // conv_ops.gemm_bn(n)) * split),
+               "split": split,
                "max_err": err, "library_err": lib_err}
         emit(row)
         account("matmul_bias", None, row)
@@ -1136,6 +1146,10 @@ def flash_phase(gen):
                 dq = ops.flash_dq(*args, **kw)
                 dk, dv = ops.flash_dkv(*args, **kw)
                 torch.cuda.synchronize()
+                if not torch.equal(ops.flash_dq(*args, **kw), dq):
+                    raise AssertionError(f"flash_dq {what}: two calls differ "
+                                         "(the backward must be "
+                                         "deterministic)")
                 dq_err = check_close(f"flash_dq {what}", dq.float(),
                                      ops.flash_dq(*args, backend="plain",
                                                   **kw).float(), grad_tol)
@@ -2305,11 +2319,11 @@ def main() -> int:
                         "src/repro/kernels/conv2d/conv2d.py:50",
                         "train_im2col"),
     }
-    # the main path is bf16: the tensor-core forward and dk/dv (their fp32
-    # kernels are flash_fwd.cu and flash_bwd.cu)
+    # the main path is bf16: the tensor-core forward, dq and dk/dv (their
+    # fp32 kernels are flash_fwd.cu and flash_bwd.cu)
     flash = "src/repro/kernels/flash_attention/flash_attention.py"
     for name, source, line in (("flash_fwd", "flash_fwd_sm90.cu", 78),
-                               ("flash_dq", "flash_bwd.cu", 168),
+                               ("flash_dq", "flash_dq_sm90.cu", 168),
                                ("flash_dkv", "flash_dkv_sm90.cu", 206)):
         meta[name] = (f"{src}/flash_attention/csrc/{source}",
                       f"{flash}:{line}", "lm_train")

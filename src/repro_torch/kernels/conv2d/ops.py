@@ -11,7 +11,10 @@ reference leaves to XLA's conv-grad and this port to the library's
 ``matmul_bias(x, w, b, ...)`` is (M,K) @ (K,N) + b with the bias/ReLU
 epilogue; its backward is two more launches of the same kernel,
 ``dx = dy @ w^T`` and ``dw = x^T @ dy``, with the transposes read in
-place.  ``conv2d_im2col`` is the two-stage parity formulation built on
+place.  Where the output tiles are too few to fill the card,
+``gemm_split`` deals each tile's reduction out over several blocks, whose
+partials a second kernel adds in a fixed order (one launch all the
+same).  ``conv2d_im2col`` is the two-stage parity formulation built on
 it: ``F.unfold`` patches (the reference's XLA patch extraction) times
 the reordered, block-diagonal weight matrix.
 
@@ -23,6 +26,7 @@ counts every launch, backward included.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -32,8 +36,26 @@ from repro_torch.kernels.conv2d import ref as conv_ref
 
 _CONV_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
                   + [ctypes.c_void_p])
-_MATMUL_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+_MATMUL_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
+# The GEMM kernel's output tile (GEMM_BM rows, gemm_bn(N) columns) and its
+# reduction chunk (csrc/matmul_bias.cu's BM, BK and the N <= 64 pick of
+# launch_tiles; tests/test_torch_matmul.py reads them from the source).
+GEMM_BM, GEMM_BK = 128, 16
+GEMM_MIN_CHUNKS = 8      # a split's reduction runs at least this many chunks
+# gemm_split's cost model, in chunk-times (one block's step of GEMM_BK over
+# its tile): a block's cost outside its reduction (the ring's fill, the
+# epilogue), and the HBM rate at which each split's fp32 partial is written
+# and read back by the sum.  A chunk-time of a 128 x 128 tile is 262,144
+# FMAs, 2,048 cycles of an H100 SM's 128 fp32 lanes: 1.17 us at 1.755 GHz.
+# GEMM_CHUNK_S sits between that and the 1.5-1.6 us the unsplit products
+# took on an H100 80GB HBM3 at 700 W (kernel_sweep.py: conv2's dx, 27 waves
+# of 20 chunk-times in 0.824 ms; conv2's forward, 3 waves of 154 in 0.758).
+# It only weighs the partials' traffic against the chunks, and HBM_RATE is
+# the H100 SXM's 3.35 TB/s.
+GEMM_FILL_CHUNKS = 4
+GEMM_CHUNK_S = 1.4e-6
+HBM_RATE = 3.35e12
 
 
 # ------------------------------------------------------- fused conv ------
@@ -149,8 +171,52 @@ def _layout(name: str, t: torch.Tensor) -> int:
                      "contiguous matrix")
 
 
-def _matmul(x, w, b, relu, backend):
-    """One product: the kernel launch, or the plain version."""
+def gemm_bn(n: int) -> int:
+    """Output columns per block of the GEMM kernel for N = ``n``."""
+    return 64 if n <= 64 else 128
+
+
+def gemm_ranges(k: int, n_split: int) -> list:
+    """The runs ``[lo, hi)`` of the ``ceil(k / GEMM_BK)`` reduction chunks
+    that the GEMM kernel's splits take when ``n_split`` are asked: split z
+    takes the z-th run of ``ceil(chunks / n_split)`` (the kernel's
+    ``c_lo`` / ``c_hi``).  Empty runs are left out, so the list's length
+    is the split that covers the chunks with none empty."""
+    chunks = -(-k // GEMM_BK)
+    per = -(-chunks // n_split)
+    return [(lo, min(chunks, lo + per)) for lo in range(0, chunks, per)]
+
+
+@functools.lru_cache(maxsize=1024)
+def gemm_split(m: int, n: int, k: int, sms: int) -> int:
+    """Blocks over which the GEMM kernel deals out each output tile's
+    reduction chunks (``gemm_ranges``), none empty and every one but the
+    last at least ``GEMM_MIN_CHUNKS`` long.  It minimises the run's time
+    in waves on a card with ``sms`` SMs: ``ceil(tiles * n_split / sms)``
+    waves of blocks, each taking its chunks plus ``GEMM_FILL_CHUNKS``,
+    plus every split's partial through HBM.  So a grid that fills whole
+    waves keeps 1, and a small grid with a long reduction (conv1's dw)
+    splits until its blocks fill the card."""
+    tiles = -(-m // GEMM_BM) * -(-n // gemm_bn(n))
+    chunks = -(-k // GEMM_BK)
+    partial = 8.0 * m * n / HBM_RATE / GEMM_CHUNK_S
+    best, best_cost = 1, None
+    for want in range(1, min(chunks // GEMM_MIN_CHUNKS,
+                             -(-4 * sms // tiles)) + 1):
+        runs = gemm_ranges(k, want)
+        split, per = len(runs), runs[0][1]
+        cost = (-(-tiles * split // sms) * (per + GEMM_FILL_CHUNKS)
+                + (split > 1) * split * partial)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = split, cost
+    return best
+
+
+def _matmul(x, w, b, relu, backend, n_split=None):
+    """One product: the kernel launch, or the plain version.  The kernel
+    splits the reduction as ``gemm_split`` picks, or over the runs of
+    ``gemm_ranges(K, n_split)`` when ``n_split`` is given (kernel_sweep.py
+    times the choices)."""
     if common.route(backend, x) == "plain":
         return conv_ref.matmul_bias_ref(x, w, b, relu)
     m, k = x.shape
@@ -163,9 +229,18 @@ def _matmul(x, w, b, relu, backend):
         raise ValueError(f"N = {n} exceeds the kernel's grid")
     y = torch.empty((m, n), device=x.device, dtype=torch.float32)
     common.check_operand("y", y, 2)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    n_split = (gemm_split(m, n, k, sms) if n_split is None
+               else len(gemm_ranges(k, n_split)))
+    part = None
+    if n_split > 1:
+        part = torch.empty((n_split, m, n), device=x.device,
+                           dtype=torch.float32)
+        common.check_operand("part", part, 3)
     fn = _build.function("matmul_bias_f32", _MATMUL_ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-             y.data_ptr(), m, n, k, trans_a, trans_b, int(relu),
+             y.data_ptr(), None if part is None else part.data_ptr(), m, n,
+             k, trans_a, trans_b, int(relu), n_split,
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise _build.launch_error("matmul_bias_f32", err)

@@ -1,5 +1,6 @@
-// Flash-attention backward, sm_90a: the dq kernel and the fp32 dk/dv kernel
-// (bf16 dk/dv runs on the tensor cores, flash_dkv_sm90.cu).
+// Flash-attention backward for fp32, sm_90a: the dq and dk/dv kernels on
+// the FMA pipes (bf16 runs on the tensor cores: dq in flash_dq_sm90.cu,
+// dk/dv in flash_dkv_sm90.cu; the C entries below route it there).
 //
 // Replaces the TPU kernels src/repro/kernels/flash_attention/flash_attention.py,
 // _flash_dq_kernel and _flash_dkv_kernel (the custom_vjp backward of
@@ -22,11 +23,10 @@
 //
 // What bounds them on the H100: operations, 6 * hd FLOPs per unmasked
 // (q, k) pair for dq (q.k, do.v, ds.k) and 8 * hd for dk/dv (q.k, do.v,
-// p^T do, ds^T q), against the fp32 non-tensor peak of 67 TFLOP/s (FMA pipes,
-// no wgmma yet).  The design is the forward's: fp32 tiles staged transposed
-// in shared memory (flash_common.cuh), register blocks of (16 x 16)-strided
-// rows and columns per thread, fully masked tiles skipped, ragged S
-// bounds-checked.
+// p^T do, ds^T q), against the fp32 non-tensor peak of 67 TFLOP/s.  The
+// design is the forward's: fp32 tiles staged transposed in shared memory
+// (flash_common.cuh), register blocks of (16 x 16)-strided rows and columns
+// per thread, fully masked tiles skipped, ragged S bounds-checked.
 #include "flash_common.cuh"
 
 namespace {
@@ -287,8 +287,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Tile sizes by head dim: 64 x 64 up to hd = 128; 32 x 32 at hd = 256 keeps
-// each block within the 227 KB of opt-in shared memory.
+// fp32 tile sizes by head dim: 64 x 64 up to hd = 128; 32 x 32 at hd = 256
+// keeps each block within the 227 KB of opt-in shared memory.
 template <int HD>
 struct Tiles {
   static constexpr int BQ = HD == 256 ? 32 : 64;
@@ -326,26 +326,38 @@ int run_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
+extern "C" int flash_dq_sm90(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* delta, void* dq, int bh_q, int S,
+                             int hd, int n_q_heads, int n_kv_heads,
+                             int causal, int window, float scale,
+                             void* stream);
+
 // dq (bh_q, S, hd) in q's type for q, do (bh_q, S, hd), k, v (bh_q / G, S,
 // hd), lse and delta (bh_q, S) fp32; one input type, fp32 (bf16 == 0) or
-// bf16 (bf16 == 1); hd 64, 128 or 256; window <= 0 means none.  Launches on
-// `stream`, returns the launch's cudaError_t; no sync.
+// bf16 (bf16 == 1, routed to flash_dq_sm90); hd 64, 128 or 256; window <= 0
+// means none.  Launches on `stream`, returns the launch's cudaError_t; no
+// sync.
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         const void* dout, const float* lse,
                         const float* delta, void* dq, int bh_q, int S, int hd,
                         int n_q_heads, int n_kv_heads, int causal, int window,
                         float scale, int bf16, void* stream) {
+  if (bf16)
+    return flash_dq_sm90(q, k, v, dout, lse, delta, dq, bh_q, S, hd,
+                         n_q_heads, n_kv_heads, causal, window, scale,
+                         stream);
   const cudaStream_t s = (cudaStream_t)stream;
-#define FLASH_DQ(T, HD)                                                      \
-  run_dq<T, HD>(q, k, v, dout, lse, delta, dq, bh_q, S, n_q_heads,          \
-                n_kv_heads, causal, window, scale, s)
+#define FLASH_DQ(HD)                                                         \
+  run_dq<float, HD>(q, k, v, dout, lse, delta, dq, bh_q, S, n_q_heads,      \
+                    n_kv_heads, causal, window, scale, s)
   switch (hd) {
     case 64:
-      return bf16 ? FLASH_DQ(__nv_bfloat16, 64) : FLASH_DQ(float, 64);
+      return FLASH_DQ(64);
     case 128:
-      return bf16 ? FLASH_DQ(__nv_bfloat16, 128) : FLASH_DQ(float, 128);
+      return FLASH_DQ(128);
     case 256:
-      return bf16 ? FLASH_DQ(__nv_bfloat16, 256) : FLASH_DQ(float, 256);
+      return FLASH_DQ(256);
     default:
       return (int)cudaErrorInvalidValue;
   }

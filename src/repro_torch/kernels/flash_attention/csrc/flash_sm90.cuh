@@ -1,6 +1,7 @@
 // Hopper pieces shared by the bf16 tensor-core flash kernels
-// (flash_fwd_sm90.cu, flash_dkv_sm90.cu): TMA tensor maps, mbarriers, the
-// wgmma shared-memory descriptors and the wgmma instructions.
+// (flash_fwd_sm90.cu, flash_dq_sm90.cu, flash_dkv_sm90.cu): TMA tensor maps,
+// mbarriers, the wgmma shared-memory descriptors and the wgmma
+// instructions.
 //
 // Shared-memory tiles.  A tile of R rows x HD bf16 columns is stored as HD/64
 // panels of R rows x 128 bytes (panel p holds columns 64p..64p+63), every

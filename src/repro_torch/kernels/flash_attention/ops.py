@@ -1,7 +1,7 @@
 """Flash-attention dispatch: the CUDA kernels (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``; for bf16 the forward and dk/dv run on the tensor
-cores, ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_dkv_sm90.cu``) or their
-plain versions (``ref``).
+``csrc/flash_bwd.cu``; for bf16 all three run on the tensor cores,
+``csrc/flash_fwd_sm90.cu``, ``csrc/flash_dq_sm90.cu`` and
+``csrc/flash_dkv_sm90.cu``) or their plain versions (``ref``).
 
 ``flash_attention_folded(q, k, v, ...)`` takes the kernels' layout, q
 (B*Hq, S, hd) and k, v (B*Hkv, S, hd), the counterpart of the
@@ -141,7 +141,7 @@ def flash_dq(q, k, v, do, lse, delta, *, n_q_heads: int, n_kv_heads: int,
         return ref.flash_dq_ref(q, k, v, do, lse, delta, **kw)
     bhq, s, hd = q.shape
     bf16 = _check_cuda([("q", q), ("k", k), ("v", v), ("do", do),
-                        ("lse", lse), ("delta", delta)], hd)
+                        ("lse", lse), ("delta", delta)], hd, tma=True)
     dq = torch.empty_like(q)
     _call("flash_dq", _DQ_ARGTYPES, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),

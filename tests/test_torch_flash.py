@@ -190,6 +190,9 @@ CARD_CASES = [  # (B, Hq, Hkv, S, hd, causal, window)
     (2, 2, 1, 130, 64, False, None),
     (1, 16, 1, 333, 256, True, 100),      # MQA, G 16, window, ragged S
     (1, 16, 2, 517, 64, True, None),      # G 8 at hd 64, ragged S
+    # hd 128 with a window, S off every 64- and 128-row tile: the window's
+    # edge and the ragged end cut q and KV tiles of the bf16 dq kernel
+    (1, 4, 2, 600, 128, True, 200),
 ]
 
 
@@ -262,3 +265,21 @@ def test_split_dkv_is_deterministic(cuda, hd, window):
     second = ops.flash_dkv(q, k, v, do, lse, delta, **kw)
     assert torch.equal(first[0], second[0])
     assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,s,hd,window", [(16, 1, 640, 256, 2048),
+                                                (4, 2, 640, 128, None)])
+def test_dq_is_deterministic(cuda, hq, hkv, s, hd, window):
+    """The bf16 dq kernel writes each dq element once, from the block that
+    owns its q tile: two calls agree bit for bit (at G 16, hd 256 with
+    the hybrid's window, and at hd 128)."""
+    q, k, v, do = _card_inputs(1, hq, hkv, s, hd, torch.bfloat16, seed=3)
+    kw = dict(n_q_heads=hq, n_kv_heads=hkv, causal=True, window=window,
+              scale=hd ** -0.5)
+    o, lse = ops.flash_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    first = ops.flash_dq(q, k, v, do, lse, delta, **kw)
+    second = ops.flash_dq(q, k, v, do, lse, delta, **kw)
+    assert first.dtype == torch.bfloat16
+    assert torch.equal(first, second)

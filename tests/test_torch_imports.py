@@ -12,7 +12,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "ab_smoke.py"]
+                                      ROOT / "ab_smoke.py",
+                                      ROOT / "kernel_sweep.py"]
 
 # `import jax`, `from jax`, `import repro[.]`, `from repro[. ]` — but not
 # the port's own `repro_torch`

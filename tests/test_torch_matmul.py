@@ -8,6 +8,9 @@ inputs; grads go through the port's ``torch.autograd.Function`` and
 ``cuda`` hold the CUDA kernel against the plain version on the card and
 skip on a host without one; they import no JAX.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -145,7 +148,7 @@ def test_im2col_features_are_channel_major_like_the_reference():
 
 
 # kernel edge cases: M, K or N of 1, K off the 16-wide chunk, ragged
-# 64-wide tiles, every transposed-operand flag, ReLU on and off
+# 64- and 128-wide tiles, every transposed-operand flag, ReLU on and off
 CUDA_CASES = [
     # m, k, n, trans_a, trans_b, bias, relu
     (1, 16, 64, False, False, True, True),
@@ -157,6 +160,10 @@ CUDA_CASES = [
     (363, 1000, 96, True, False, False, False),
     (130, 33, 129, True, True, True, True),
     (1, 1, 1, True, True, True, False),
+    # split-K: transposed A, a long reduction and a small output (rows of
+    # 363 floats take the 4-byte copies, of 1,200 the 16-byte ones)
+    (363, 20000, 96, True, False, False, False),
+    (1200, 5000, 128, True, False, True, True),
 ]
 
 
@@ -206,3 +213,71 @@ def test_cuda_im2col_conv_matches_fused(cuda):
         want = ops.conv2d_fused(xt, wt, stride=1, padding=1, groups=2,
                                 relu=True)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("m,n,k,sms", [
+    (363, 96, 96800, 132),      # conv1's dw at batch 32
+    (5408, 384, 2304, 132),     # conv3's forward
+    (1200, 128, 5000, 132),
+    (363, 96, 20000, 16),
+    (100, 100, 100, 132),       # too short to split
+])
+def test_gemm_split_covers_each_chunk_once(m, n, k, sms):
+    """The split rule deals every reduction chunk to exactly one split,
+    none empty, so the partials sum to the whole product."""
+    n_split = ops.gemm_split(m, n, k, sms)
+    ranges = ops.gemm_ranges(k, n_split)
+    # split z's chunks as matmul_bias_kernel computes them (c_lo, c_hi)
+    chunks = -(-k // ops.GEMM_BK)
+    per = -(-chunks // n_split)
+    assert ranges == [(z * per, min(chunks, (z + 1) * per))
+                      for z in range(n_split)]
+    assert len(ranges) == n_split >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == chunks
+    for (lo, hi), (nxt, _) in zip(ranges, ranges[1:] + [(ranges[-1][1], 0)]):
+        assert lo < hi == nxt
+    if n_split > 1:   # the last split takes what is left
+        assert all(hi - lo >= ops.GEMM_MIN_CHUNKS for lo, hi in ranges[:-1])
+
+
+def test_gemm_split_by_grid_and_card():
+    """1 where the tile grid already fills the card, more for conv1's dw,
+    and fewer on a card with fewer SMs."""
+    assert ops.gemm_split(96800, 96, 363, 132) == 1
+    assert ops.gemm_split(23328, 2400, 256, 132) == 1
+    big = ops.gemm_split(363, 96, 96800, 132)
+    assert big > 1
+    assert 1 < ops.gemm_split(363, 96, 96800, 16) < big
+
+
+def test_gemm_tile_constants_match_the_kernel():
+    """``GEMM_BM``, ``GEMM_BK`` and ``gemm_bn`` mirror the kernel's BM, BK
+    and its choice of 64- or 128-column tiles (``launch_tiles``)."""
+    src = (Path(ops.__file__).parent / "csrc" / "matmul_bias.cu").read_text()
+    bm = re.search(r"constexpr int BM = (\d+);", src)
+    bk = re.search(r"constexpr int BK = (\d+);", src)
+    narrow = re.search(r"return N <= (\d+) \? launch<TA, TB, (\d+)>", src)
+    wide = re.search(r": launch<TA, TB, (\d+)>", src)
+    assert bm and bk and narrow and wide, "the kernel's tile constants moved"
+    assert ops.GEMM_BM == int(bm.group(1))
+    assert ops.GEMM_BK == int(bk.group(1))
+    cut, bn_narrow = int(narrow.group(1)), int(narrow.group(2))
+    assert ops.gemm_bn(cut) == bn_narrow
+    assert ops.gemm_bn(cut + 1) == int(wide.group(1))
+
+
+@pytest.mark.cuda
+def test_cuda_split_is_deterministic(cuda):
+    """Where the reduction is split over blocks, the partials are added in
+    split order by a second kernel, not by atomics: two calls agree bit
+    for bit."""
+    m, k, n = 363, 20000, 96
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ops.gemm_split(m, n, k, sms) > 1
+    x, w, _ = _mats(m, k, n, seed=8)
+    xt = torch.from_numpy(np.ascontiguousarray(x.T)).to(cuda).t()
+    wt = torch.from_numpy(w).to(cuda)
+    with torch.no_grad():
+        first = ops.matmul_bias(xt, wt)
+        second = ops.matmul_bias(xt, wt)
+    assert torch.equal(first, second)
