@@ -16,10 +16,11 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    same function (cuDNN conv, ``F.local_response_norm``, cuBLAS
    ``addmm``; yardsticks only, never called by the port) and the card's
    bound, one JSON line per kernel and shape.  Conv and LRN run at the
-   serving batch (8) and the training batch (128 per replica); the GEMM
-   runs the forward, dx and dw products of every conv of the im2col
-   training phase (32 per replica), two calls agreeing bit for bit where
-   the reduction is split over blocks;
+   serving batch (8) and the training batch (128 per replica), the conv
+   rows with the kernel's tile, blocks and split and two calls agreeing
+   bit for bit; the GEMM runs the forward, dx and dw products of every
+   conv of the im2col training phase (32 per replica), two calls agreeing
+   bit for bit where the reduction is split over blocks;
 4. flash kernel phase: the flash-attention forward, dq and dk/dv kernels
    against their plain versions (fp32: 2e-4 forward, 2e-3 grads; bf16:
    3e-2) at the LM training shape (B=4, H=16, S=2048, hd=128, causal) and
@@ -35,10 +36,12 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    2e-2; int8 against the plain int8) at the serving tick's shape (B 8,
    cap 2048, Hkv 16, G 1, hd 128, rows mid-fill and wrapped, bf16; ring
    and a block table of bs 16) and at GQA (Hkv 8, G 4), window-256,
-   hd-64, hd-256, fp32-q, fp32 and int8 K/V shapes, timed beside the
-   plain version, ``F.scaled_dot_product_attention`` over the same slots
-   with a mask (a yardstick only) and the bound (the visible K/V bytes
-   over 3.35 TB/s);
+   hd-64, hd-256, fp32-q, fp32 and int8 K/V shapes, two calls agreeing
+   bit for bit, timed beside the plain version,
+   ``F.scaled_dot_product_attention`` over the same slots with a mask (a
+   yardstick only; for the table cases also the gather through the table
+   plus SDPA) and the bound (the visible K/V bytes over 3.35 TB/s); the
+   table rows report the kernel's split of each row's slots;
 6. recurrence kernel phase: the WKV kernel ``wkv_fwd`` against the
    plain chunked form (bf16 y 1e-2, fp32 2e-4; the final state 2e-4) at
    the ``rwkv6-7b`` training shape (B 4, T 2048, H 64, K 64, bf16), B 1
@@ -418,13 +421,88 @@ def _bound(flops, nbytes, peak=FP32_PEAK):
     return max(ops, mem) * 1e3, ("operations" if ops >= mem else "bytes")
 
 
+def conv_phase(gen, cases, account=None):
+    """``conv2d_fused`` against its plain version at every conv of
+    ``cases`` (2e-4), two calls bit-equal, timed beside the plain version,
+    cuDNN (a yardstick only) and the bound; one row per layer with the
+    kernel's tile width, blocks and split (``conv_tiles``).
+    ``account(name, key, row)`` sees every row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.conv2d import ops as conv_ops
+    from repro_torch.kernels.conv2d.ref import conv2d_ref
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for cfg_name, batch, layer, xs, cs in conv_cases(cases):
+        cin = xs[-1]
+        cg = cin // cs.groups
+        x = torch.randn(xs, generator=gen, device=dev)
+        w = torch.randn((cs.kernel, cs.kernel, cg, cs.out_channels),
+                        generator=gen, device=dev) * (2.0 / (
+                            cs.kernel * cs.kernel * cg)) ** 0.5
+        b = torch.randn((cs.out_channels,), generator=gen, device=dev) * 0.1
+        kw = dict(stride=cs.stride, padding=cs.padding, bias=b, relu=True,
+                  groups=cs.groups)
+        with torch.inference_mode():
+            got = conv_ops.conv2d_fused(x, w, backend="cuda", **kw)
+            torch.cuda.synchronize()
+            want = conv2d_ref(x, w, cs.stride, cs.padding, cs.groups,
+                              bias=b, relu=True)
+            err = check_close(f"conv2d_fused {cfg_name} b{batch} {layer}",
+                              got, want, CONV_TOL)
+            if not torch.equal(got, conv_ops.conv2d_fused(
+                    x, w, backend="cuda", **kw)):
+                raise AssertionError(f"conv2d_fused {cfg_name} b{batch} "
+                                     f"{layer}: two calls differ")
+            # cuDNN yardstick: the same function in channels-last NCHW
+            x_cl = x.permute(0, 3, 1, 2)
+            w_cl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+
+            def library():
+                return F.relu(F.conv2d(x_cl, w_cl, b, cs.stride, cs.padding,
+                                       1, cs.groups))
+
+            lib_err = max_err(library().permute(0, 2, 3, 1), got)
+            k_ms = time_ms(lambda: conv_ops.conv2d_fused(
+                x, w, backend="cuda", **kw))
+            p_ms = time_ms(lambda: conv2d_ref(x, w, cs.stride, cs.padding,
+                                              cs.groups, bias=b, relu=True),
+                           reps=5)
+            l_ms = time_ms(library)
+        oh, ow = got.shape[1], got.shape[2]
+        m = batch * oh * ow
+        npg = cs.out_channels // cs.groups
+        bn, split = conv_ops.conv_tiles(m, npg, cs.kernel ** 2 * cg,
+                                        cs.groups, sms)
+        flops = 2.0 * m * cs.out_channels * cs.kernel ** 2 * cg
+        nbytes = 4.0 * (x.numel() + w.numel() + b.numel() + got.numel())
+        bound, bound_by = _bound(flops, nbytes)
+        row = {"phase": "kernel", "kernel": "conv2d_fused",
+               "config": cfg_name, "batch": batch, "layer": layer,
+               "x": list(xs), "w": list(w.shape), "stride": cs.stride,
+               "padding": cs.padding, "groups": cs.groups,
+               "tile": [conv_ops.CONV_BM, bn],
+               "blocks": (-(-m // conv_ops.CONV_BM) * -(-npg // bn)
+                          * cs.groups * split),
+               "split": split,
+               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "bound_ms": bound, "bound_by": bound_by,
+               "assumes": "67 TFLOP/s fp32 non-tensor, 3.35 TB/s",
+               "flops": flops, "bytes": nbytes,
+               "tflops": flops / (k_ms * 1e-3) / 1e12,
+               "max_err": err, "library_err": lib_err}
+        emit(row)
+        if account:
+            account("conv2d_fused", (cfg_name, batch), row)
+
+
 def kernel_phase(gen, main, cases):
     """Kernel rows at every shape of ``cases``; the totals sum the rows
     of ``main`` = (config name, batch), the training path's forward."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.conv2d import ops as conv_ops
-    from repro_torch.kernels.conv2d.ref import conv2d_ref
     from repro_torch.kernels.lrn import ops as lrn_ops
     from repro_torch.kernels.lrn.ref import lrn_ref
 
@@ -444,55 +522,7 @@ def kernel_phase(gen, main, cases):
             tot["flops"] += row["flops"]
             tot["bytes"] += row["bytes"]
 
-    for cfg_name, batch, layer, xs, cs in conv_cases(cases):
-        cin = xs[-1]
-        cg = cin // cs.groups
-        x = torch.randn(xs, generator=gen, device=dev)
-        w = torch.randn((cs.kernel, cs.kernel, cg, cs.out_channels),
-                        generator=gen, device=dev) * (2.0 / (
-                            cs.kernel * cs.kernel * cg)) ** 0.5
-        b = torch.randn((cs.out_channels,), generator=gen, device=dev) * 0.1
-        kw = dict(stride=cs.stride, padding=cs.padding, bias=b, relu=True,
-                  groups=cs.groups)
-        with torch.inference_mode():
-            got = conv_ops.conv2d_fused(x, w, backend="cuda", **kw)
-            torch.cuda.synchronize()
-            want = conv2d_ref(x, w, cs.stride, cs.padding, cs.groups,
-                              bias=b, relu=True)
-            err = check_close(f"conv2d_fused {cfg_name} b{batch} {layer}",
-                              got, want, CONV_TOL)
-            # cuDNN yardstick: the same function in channels-last NCHW
-            x_cl = x.permute(0, 3, 1, 2)
-            w_cl = w.permute(3, 2, 0, 1).contiguous(
-                memory_format=torch.channels_last)
-
-            def library():
-                return F.relu(F.conv2d(x_cl, w_cl, b, cs.stride, cs.padding,
-                                       1, cs.groups))
-
-            lib_err = max_err(library().permute(0, 2, 3, 1), got)
-            k_ms = time_ms(lambda: conv_ops.conv2d_fused(
-                x, w, backend="cuda", **kw))
-            p_ms = time_ms(lambda: conv2d_ref(x, w, cs.stride, cs.padding,
-                                              cs.groups, bias=b, relu=True),
-                           reps=5)
-            l_ms = time_ms(library)
-        oh, ow = got.shape[1], got.shape[2]
-        flops = 2.0 * batch * oh * ow * cs.out_channels * cs.kernel ** 2 * cg
-        nbytes = 4.0 * (x.numel() + w.numel() + b.numel() + got.numel())
-        bound, bound_by = _bound(flops, nbytes)
-        row = {"phase": "kernel", "kernel": "conv2d_fused",
-               "config": cfg_name, "batch": batch, "layer": layer,
-               "x": list(xs), "w": list(w.shape), "stride": cs.stride,
-               "padding": cs.padding, "groups": cs.groups,
-               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-               "bound_ms": bound, "bound_by": bound_by,
-               "assumes": "67 TFLOP/s fp32 non-tensor, 3.35 TB/s",
-               "flops": flops, "bytes": nbytes,
-               "tflops": flops / (k_ms * 1e-3) / 1e12,
-               "max_err": err, "library_err": lib_err}
-        emit(row)
-        account("conv2d_fused", (cfg_name, batch), row)
+    conv_phase(gen, cases, account)
 
     for cfg_name, batch, layer, xs in lrn_cases(cases):
         cfg = next(c for c, _ in cases if c.name == cfg_name)
@@ -1805,18 +1835,22 @@ def decode_inputs(gen, b, cap, hkv, g, hd, q_dtype, kv_dtype, bs):
 
 def decode_phase(gen):
     """The two flash-decode kernels against their plain version at every
-    case of ``DECODE_CASES``, timed beside it and beside
-    ``F.scaled_dot_product_attention`` over the same slots with a mask
-    (a yardstick only: on the gathered ring for the table cases, on the
-    dequantized cache for int8).  Returns per kernel the main path's
-    case (``serve`` / ``serve_table``: one launch at the serving tick's
-    shape) and the worst error."""
+    case of ``DECODE_CASES`` (two calls bit-equal), timed beside it and
+    beside ``F.scaled_dot_product_attention`` over the same slots with a
+    mask (a yardstick only: on the gathered ring for the table cases,
+    ``library_ms``, and there also the gather through the table plus SDPA,
+    ``gather_sdpa_ms``; on the dequantized cache for int8).  Each row
+    reports the kernel's split of the slots (``chunk`` slots each,
+    ``n_split`` blocks per row; 1 for the ring).
+    Returns per kernel the main path's case (``serve`` / ``serve_table``:
+    one launch at the serving tick's shape) and the worst error."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops, ref
 
     totals = {k: {"max_abs_err": 0.0} for k in ("decode_ring",
                                                  "decode_table")}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for (case, b, cap, hkv, g, hd, window, qd, kvd,
          bs) in DECODE_CASES:
         q_dtype, kv_dtype = getattr(torch, qd), getattr(torch, kvd)
@@ -1831,20 +1865,15 @@ def decode_phase(gen):
             want = ops.decode_attention(q, k, v, pos, backend="plain", **kw)
             err = check_close(f"{name} {case}", got.float(), want.float(),
                               DECODE_TOL[q_dtype])
+            if not torch.equal(got, ops.decode_attention(q, k, v, pos,
+                                                         **kw)):
+                raise AssertionError(f"{name} {case}: two calls differ")
             k_ms = time_ms(lambda: ops.decode_attention(q, k, v, pos, **kw),
                            reps=50)
             p_ms = time_ms(lambda: ops.decode_attention(
                 q, k, v, pos, backend="plain", **kw), reps=5)
             # the library's attention over the same slots: the ring in
             # (B, Hkv, cap, hd) views, in q's dtype
-            kr, vr = k, v
-            if bs:
-                kr, vr = (ref.gather_pool(x, table) for x in (k, v))
-                if ks is not None:
-                    ks, vs = (ref.gather_pool(x, table) for x in (ks, vs))
-            if ks is not None:
-                kr, vr = kr.float() * ks[..., None], vr.float() * vs[..., None]
-            kr, vr = (x.to(q_dtype).permute(0, 2, 1, 3) for x in (kr, vr))
             sp = ref.slot_positions(pos, cap)
             valid = sp >= 0
             if window is not None:
@@ -1852,13 +1881,31 @@ def decode_phase(gen):
             mask = valid[:, None, None, :]
             q4 = q.reshape(b, hkv * g, 1, hd)
 
-            def library():
+            def ring_views(k, v, ks, vs):
+                if bs:
+                    k, v = (ref.gather_pool(x, table) for x in (k, v))
+                    if ks is not None:
+                        ks, vs = (ref.gather_pool(x, table)
+                                  for x in (ks, vs))
+                if ks is not None:
+                    k, v = k.float() * ks[..., None], v.float() * vs[..., None]
+                return (x.to(q_dtype).permute(0, 2, 1, 3) for x in (k, v))
+
+            kr, vr = ring_views(k, v, ks, vs)
+
+            def sdpa(kr, vr):
                 return F.scaled_dot_product_attention(
                     q4, kr, vr, attn_mask=mask, scale=hd ** -0.5,
                     enable_gqa=g > 1)
 
+            def library():
+                return sdpa(kr, vr)
+
             lib_err = max_err(library().reshape(got.shape), got)
             l_ms = time_ms(library, reps=50)
+            # the table cases: the gather through the table, then SDPA
+            g_ms = (time_ms(lambda: sdpa(*ring_views(k, v, ks, vs)),
+                            reps=50) if bs else None)
         n_vis = int(valid.sum())                 # visible (row, slot) pairs
         elt = k.element_size()
         nbytes = (2 * n_vis * hkv * hd * elt + 2 * q.numel()
@@ -1866,11 +1913,19 @@ def decode_phase(gen):
                                         else 0))
         flops = 4.0 * n_vis * hkv * g * hd
         bound, bound_by = _bound(flops, nbytes)
+        chunk = ops.decode_chunk(
+            cap, bs, b * hkv * -(-g // ops.group_tile(g)), sms)
         row = {"phase": "decode_kernel", "kernel": name, "case": case,
                "shape": [b, cap, hkv, g, hd], "window": window,
                "block_size": bs, "q_dtype": qd, "kv_dtype": kvd,
                "pos": DECODE_POS[:b], "visible_slots": n_vis,
-               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "chunk": chunk,
+               "n_split": len(ops.decode_chunks(cap, chunk)),
+               "kernel_ms": k_ms, "plain_ms": p_ms,
+               "library_ms": l_ms,
+               "library": ("SDPA on the gathered ring" if bs
+                           else "SDPA on the ring"),
+               "gather_sdpa_ms": g_ms,
                "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
                "flops": flops, "gbps": nbytes / (k_ms * 1e-3) / 1e9,
                "bound_share": bound / k_ms, "max_err": err,

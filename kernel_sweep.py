@@ -1,17 +1,30 @@
 #!/usr/bin/env python3
-"""Time the GEMM kernel's split-K choices on one NVIDIA GPU.
+"""Time the split and tile choices of the GEMM, fused conv and table
+decode kernels on one NVIDIA GPU.
 
     python3 kernel_sweep.py
 
 Run from the root of a checkout; it imports ``repro_torch`` from ``src/``
 and ``chip_smoke``'s helpers (never ``jax`` or ``repro``), builds the
-kernels, and prints one JSON line for each of the 14 GEMM products of one
-im2col replica-step (``chip_smoke.gemm_cases``): the kernel's time at the
-split ``gemm_split`` picks and at every split of ``SPLITS`` that leaves no
-split shorter than ``GEMM_MIN_CHUNKS`` chunks, each result within
-``chip_smoke.GEMM_TOL`` of the plain version; then the sums over the 14
-products of the rule's times and of each product's fastest split.  Exits
-non-zero without a CUDA device or when a check fails.
+kernels, and prints one JSON line per shape, each result within the
+kernel's ``chip_smoke`` tolerance of its plain version:
+
+* ``matmul_bias``, each of the 14 GEMM products of one im2col
+  replica-step (``chip_smoke.gemm_cases``): the time at the split
+  ``gemm_split`` picks and at every split of ``SPLITS`` that leaves no
+  split shorter than ``GEMM_MIN_CHUNKS`` chunks;
+* ``conv2d_fused``, each AlexNet conv at the serving batch (8, both
+  AlexNets) and the training batch (128): the time at the (width, split)
+  ``conv_tiles`` picks and at every width of ``CONV_BNS`` with every split
+  of ``CONV_SPLITS`` that leaves no split shorter than
+  ``GEMM_MIN_CHUNKS`` chunks;
+* ``decode_table`` at the serving tick's shape (``chip_smoke``'s
+  ``serve_table`` and ``int8_table`` cases): the time at the chunk
+  ``decode_chunk`` picks and at every chunk of ``DECODE_CHUNKS``;
+
+then, per kernel, the sums over its shapes of the rule's times and of
+each shape's fastest choice.  Exits non-zero without a CUDA device or
+when a check fails.
 """
 import os
 import sys
@@ -20,29 +33,15 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SPLITS = [1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 88]
+CONV_SPLITS = [1, 2, 3, 4, 6, 8]
+DECODE_CHUNKS = [64, 128, 256, 512, 1024, 2048]
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("kernel_sweep: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.join(ROOT, "src"))
-    sys.path.insert(0, ROOT)
-    import chip_smoke as cs
+def gemm_sweep(cs, gen, dev, sms):
     from repro_torch.configs import ALEXNET_FAITHFUL
-    from repro_torch.kernels import _build
     from repro_torch.kernels.conv2d import ops
     from repro_torch.kernels.conv2d.ref import matmul_bias_ref
-    from repro_torch.launch.train import fp32_numerics
 
-    print(cs.card(), flush=True)
-    dev = torch.device("cuda")
-    fp32_numerics(dev)
-    _build.build()
-    _build.load()
-    cs.CYCLES_PER_MS = cs._sleep_cycles_per_ms()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rule_sum = best_sum = 0.0
     for layer, product, m, k, n, ta, tb in cs.gemm_cases(ALEXNET_FAITHFUL,
                                                           cs.IM2COL_BATCH):
@@ -75,6 +74,114 @@ def main() -> int:
                  "ms_by_split": {str(z): t for z, t in times.items()}})
     cs.emit({"matmul_bias_rule_sum_ms": rule_sum,
              "matmul_bias_best_sum_ms": best_sum})
+
+
+def conv_sweep(cs, gen, dev, sms):
+    from repro_torch.configs import ALEXNET, ALEXNET_FAITHFUL
+    from repro_torch.kernels.conv2d import ops
+    from repro_torch.kernels.conv2d.ref import conv2d_ref
+
+    sums = {}
+    for cfg_name, batch, layer, xs, c in cs.conv_cases(
+            [(ALEXNET_FAITHFUL, cs.SERVE_BATCH), (ALEXNET, cs.SERVE_BATCH),
+             (ALEXNET_FAITHFUL, cs.TRAIN_BATCH)]):
+        cg = xs[-1] // c.groups
+        x = torch.randn(xs, generator=gen, device=dev)
+        w = torch.randn((c.kernel, c.kernel, cg, c.out_channels),
+                        generator=gen, device=dev) * (
+                            2.0 / (c.kernel ** 2 * cg)) ** 0.5
+        b = torch.randn((c.out_channels,), generator=gen, device=dev) * 0.1
+        want = conv2d_ref(x, w, c.stride, c.padding, c.groups, bias=b,
+                          relu=True)
+        oh = want.shape[1]
+        m, npg, kdim = batch * oh * oh, c.out_channels // c.groups, \
+            c.kernel ** 2 * cg
+        rule = ops.conv_tiles(m, npg, kdim, c.groups, sms)
+        most = max(1, -(-kdim // ops.CONV_BK) // ops.GEMM_MIN_CHUNKS)
+        choices = {rule} | {(bn, len(ops.conv_ranges(kdim, z)))
+                            for bn in ops.CONV_BNS
+                            for z in CONV_SPLITS if z <= most}
+        times = {}
+        for tiles in sorted(choices):
+            def call(tiles=tiles):
+                return ops._conv_forward(x, w, b, c.stride, c.padding, True,
+                                         c.groups, "cuda", tiles=tiles)
+
+            with torch.inference_mode():
+                cs.check_close(f"conv2d_fused {cfg_name} b{batch} {layer} "
+                               f"{tiles}", call(), want, cs.CONV_TOL)
+                times[tiles] = cs.time_ms(call, reps=5)
+        best = min(times, key=times.get)
+        tot = sums.setdefault(batch, [0.0, 0.0])
+        tot[0] += times[rule]
+        tot[1] += times[best]
+        cs.emit({"kernel": "conv2d_fused", "config": cfg_name,
+                 "batch": batch, "layer": layer, "m": m, "npg": npg,
+                 "kdim": kdim, "groups": c.groups, "rule": list(rule),
+                 "rule_ms": times[rule], "best": list(best),
+                 "best_ms": times[best],
+                 "ms_by_tiles": {f"{bn}x{z}": t
+                                 for (bn, z), t in times.items()}})
+    for batch, (rule_ms, best_ms) in sorted(sums.items()):
+        cs.emit({"conv2d_fused_batch": batch, "rule_sum_ms": rule_ms,
+                 "best_sum_ms": best_ms})
+
+
+def decode_sweep(cs, gen, sms):
+    from repro_torch.kernels.decode_attention import ops
+
+    for case in cs.DECODE_CASES:
+        name, b, cap, hkv, g, hd, window, qd, kvd, bs = case
+        if not bs:
+            continue
+        q_dtype, kv_dtype = getattr(torch, qd), getattr(torch, kvd)
+        q, k, v, pos, ks, vs, table = cs.decode_inputs(
+            gen, b, cap, hkv, g, hd, q_dtype, kv_dtype, bs)
+        args = (q, k, v, pos, table, window, hd ** -0.5, ks, vs)
+        want = ops.decode_attention(q, k, v, pos, window=window,
+                                    scale=hd ** -0.5, k_scale=ks,
+                                    v_scale=vs, table=table,
+                                    backend="plain")
+        rule = ops.decode_chunk(cap, bs, b * hkv * -(-g // ops.group_tile(g)),
+                                sms)
+        times = {}
+        for chunk in sorted({rule} | set(DECODE_CHUNKS)):
+            def call(chunk=chunk):
+                return ops._table(*args, chunk=chunk)
+
+            with torch.inference_mode():
+                cs.check_close(f"decode_table {name} chunk {chunk}",
+                               call().float(), want.float(),
+                               cs.DECODE_TOL[q_dtype])
+                times[chunk] = cs.time_ms(call, reps=50)
+        best = min(times, key=times.get)
+        cs.emit({"kernel": "decode_table", "case": name, "rule": rule,
+                 "rule_ms": times[rule], "best": best,
+                 "best_ms": times[best],
+                 "ms_by_chunk": {str(z): t for z, t in times.items()}})
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_sweep: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import fp32_numerics
+
+    print(cs.card(), flush=True)
+    dev = torch.device("cuda")
+    fp32_numerics(dev)
+    _build.build()
+    _build.load()
+    cs.CYCLES_PER_MS = cs._sleep_cycles_per_ms()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    decode_sweep(cs, gen, sms)
+    conv_sweep(cs, gen, dev, sms)
+    gemm_sweep(cs, gen, dev, sms)
     return 0
 
 

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build, common
 from repro_torch.kernels.conv2d import ref as conv_ref
 
-_CONV_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
+_CONV_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14
                   + [ctypes.c_void_p])
 _MATMUL_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
@@ -56,12 +56,72 @@ GEMM_MIN_CHUNKS = 8      # a split's reduction runs at least this many chunks
 GEMM_FILL_CHUNKS = 4
 GEMM_CHUNK_S = 1.4e-6
 HBM_RATE = 3.35e12
-
+# The fused conv kernel's output tile (CONV_BM rows, one of CONV_BNS
+# columns) and reduction chunk (csrc/conv2d_fused.cu's BM, BK and the bn
+# cases of conv2d_fused_f32; tests/test_torch_conv2d.py reads them from the
+# source).  conv_tiles' cost model: the 64-wide kernel fits two blocks to
+# an SM (116-128 registers a thread), the 96-wide one one (181-199); a
+# block's chunk takes CONV_CHUNK_US[bn] of its SM's time, or CONV_ALONE_US
+# where a 64-wide block has its SM to itself.  kernel_sweep.py's times on
+# an H100 80GB HBM3 at 700 W: conv2 at batch 128 at width 64, 1.539 ms
+# for 12 waves of two blocks of 79 chunk-times (75 chunks + the fill);
+# conv4 at width 96, 0.921 ms for 6 waves of 112; conv3 at batch 8 at
+# width 64 with one block per SM, 0.0858 ms for 76.
+CONV_BM, CONV_BK = 128, 16
+CONV_RESIDENT = {64: 2, 96: 1}
+CONV_CHUNK_US = {64: 0.81, 96: 1.37}
+CONV_ALONE_US = 1.13
+CONV_BNS = tuple(sorted(CONV_CHUNK_US))
 
 # ------------------------------------------------------- fused conv ------
 
-def _conv_forward(x, w, bias, stride, padding, relu, groups, backend):
-    """One forward: the kernel launch, or the plain version."""
+def conv_ranges(kdim: int, n_split: int) -> list:
+    """The runs ``[lo, hi)`` of the ``ceil(kdim / CONV_BK)`` reduction
+    chunks that the conv kernel's splits take when ``n_split`` are asked
+    (the kernel's ``c_lo`` / ``c_hi``, as ``gemm_ranges``)."""
+    chunks = -(-kdim // CONV_BK)
+    per = -(-chunks // n_split)
+    return [(lo, min(chunks, lo + per)) for lo in range(0, chunks, per)]
+
+
+@functools.lru_cache(maxsize=1024)
+def conv_tiles(m: int, npg: int, kdim: int, groups: int, sms: int) -> tuple:
+    """(bn, n_split) for the fused conv kernel: the output tile's width
+    (one of ``CONV_BNS``, one that divides ``npg`` where one does) and the
+    blocks over which each tile's reduction chunks are dealt out
+    (``conv_ranges``), for M = ``m`` output pixels, ``npg`` output
+    channels per group, a reduction of ``kdim`` = K*K*Cg and a card with
+    ``sms`` SMs.  It minimises the run's time in the model above: the
+    busiest SM's blocks, each taking its chunks plus ``GEMM_FILL_CHUNKS``,
+    plus every split's partial through HBM.  Ties go to the wider tile
+    and to fewer splits."""
+    chunks = -(-kdim // CONV_BK)
+    partial_us = 8.0 * m * npg * groups / HBM_RATE * 1e6
+    best, best_cost = None, None
+    for bn in sorted([w for w in CONV_BNS if npg % w == 0] or CONV_BNS,
+                     reverse=True):
+        tiles = -(-m // CONV_BM) * -(-npg // bn) * groups
+        for want in range(1, max(1, min(chunks // GEMM_MIN_CHUNKS,
+                                        -(-4 * sms // tiles))) + 1):
+            runs = conv_ranges(kdim, want)
+            split, per = len(runs), runs[0][1]
+            k = -(-tiles * split // sms)       # blocks on the busiest SM
+            chunk_us = (CONV_ALONE_US if k == 1 and CONV_RESIDENT[bn] > 1
+                        else k * CONV_CHUNK_US[bn])
+            cost = (chunk_us * (per + GEMM_FILL_CHUNKS)
+                    + (split > 1) * split * partial_us)
+            if best_cost is None or cost < best_cost - 1e-9:
+                best, best_cost = (bn, split), cost
+    return best
+
+
+def _conv_forward(x, w, bias, stride, padding, relu, groups, backend,
+                  tiles=None):
+    """One forward: the kernel launch, or the plain version.  The kernel
+    takes the tile width and split ``conv_tiles`` picks, or ``tiles`` =
+    (bn, n_split) when given, the split over the runs of
+    ``conv_ranges(K*K*Cg, n_split)`` (kernel_sweep.py times the
+    choices)."""
     k, _, _, cout = w.shape
     if common.route(backend, x) == "plain":
         return conv_ref.conv2d_ref(x, w, stride, padding, groups,
@@ -85,11 +145,24 @@ def _conv_forward(x, w, bias, stride, padding, relu, groups, backend):
         raise ValueError(f"empty output: batch {b_}, {oh}x{ow} map")
     y = torch.empty((b_, oh, ow, cout), device=x.device, dtype=torch.float32)
     common.check_operand("y", y, 4)
+    kdim = k * k * (cin // groups)
+    if tiles is None:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        bn, n_split = conv_tiles(b_ * oh * ow, cout // groups, kdim, groups,
+                                 sms)
+    else:
+        bn, n_split = tiles[0], len(conv_ranges(kdim, tiles[1]))
+    part = None
+    if n_split > 1:
+        part = torch.empty((n_split,) + tuple(y.shape), device=x.device,
+                           dtype=torch.float32)
+        common.check_operand("part", part, 5)
     fn = _build.function("conv2d_fused_f32", _CONV_ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(),
              None if bias is None else bias.data_ptr(), y.data_ptr(),
+             None if part is None else part.data_ptr(),
              b_, h, wd, cin, oh, ow, cout, k, stride, padding, groups,
-             int(relu), torch.cuda.current_stream().cuda_stream)
+             int(relu), bn, n_split, torch.cuda.current_stream().cuda_stream)
     if err:
         raise _build.launch_error("conv2d_fused_f32", err)
     conv2d_fused.launches += 1

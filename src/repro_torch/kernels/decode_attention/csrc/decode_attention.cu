@@ -15,14 +15,34 @@
 // the least time is the visible K/V (plus scales, q and o) over 3.35 TB/s.
 //
 // What the design does about it:
-//  * One block per (row, KV head) (and per chunk of 8 query heads when
+//  * A block owns one (row, KV head) (and one chunk of 8 query heads when
 //    G > 8): q of all G heads sits in registers and every K/V row is read
 //    once for the whole group.
+//  * Split-KV (table mode): one block per (row, KV head) is 128 blocks for
+//    132 SMs at the serving shape, and rows are ragged (101 to 2,048
+//    visible slots), so most SMs idle while a few stream a whole row.  The
+//    table kernel deals each row's slots out in chunks of `chunk` slots (a
+//    multiple of bs, so a chunk's block ids are one run of the table) over
+//    n_split blocks; the wrapper's rule (decode_attention/ops.py::
+//    decode_chunk, no device sync) picks chunks of bs * 2^j slots (whole
+//    steps of the warps) that give about four blocks per SM.  A block
+//    whose chunk starts past the row's visible slots exits at once.  Each
+//    block writes its fp32 partial (m, l, acc[hd]) and a second kernel,
+//    decode_merge, folds the partials of the splits that hold slots in
+//    split order, so two calls agree bit for bit.  The merge is a second
+//    launch and not the last block of each row behind a counter: a
+//    development build of that (a module-wide counter array that the last
+//    block resets) was a few percent faster at the serving shape and
+//    slower with int8 K/V, and its counters would race between two calls
+//    on two streams.  With
+//    n_split = 1 the block writes o itself.  The ring runs the same body
+//    with one split: the slots, their order and the arithmetic are those
+//    of the kernel before the split.
 //  * The cache is read in place with strides, (row * Hkv + h) * hd, in the
 //    model's layout: no fold or transpose of the cache, no padding of cap.
-//  * 16 warps (8 for large G * hd) stride over the slots, a few slots per
-//    warp per step (about 2 KB of K and V) with all their loads issued
-//    before any use, so bytes in flight hide the latency; each lane holds hd / 32 consecutive
+//  * Warps stride over the slots, a few slots per warp per step (about
+//    2 KB of K and V) with all their loads issued before any use, so
+//    bytes in flight hide the latency; each lane holds hd / 32 consecutive
 //    elements of a row (one vector load, kept packed until used), q.k is a
 //    warp reduction of xor-shuffles, and each warp keeps its own online
 //    softmax (m, l, acc) in registers.  The warps merge in shared memory
@@ -33,17 +53,17 @@
 //    validity test (position < 0, or outside the window) is skipped whole:
 //    it reads no bytes and adds nothing, as the reference's masked entries
 //    add exp(NEG - m) = 0 once a real score is seen.  m starts at the
-//    reference's finite NEG = -1e30, so a warp that saw no valid slot
-//    merges with weight exp(NEG - M) = 0.
+//    reference's finite NEG = -1e30, so a warp or a split that saw no valid
+//    slot merges with weight exp(NEG - M) = 0.
 //  * The ring arithmetic is floor mod: slot c holds p - ((p - c) mod cap),
 //    written ((p - c) % cap + cap) % cap, since C++'s % of a negative
 //    number is negative and would make an unwritten slot look valid.
 //  * int8 dequantizes in the score domain: s *= ks[c] and p *= vs[c], as
 //    the reference does; no cache tile is dequantized.
 //  * Table mode: slot c of row b lives at pool[table[b, c / bs], c % bs];
-//    the block stages the row's table in shared memory first, so no load
-//    of K or V waits on a load of the table.  Retired rows point at block
-//    0 (the trash block), which no live row reads.
+//    the block stages its chunk's block ids in shared memory first, so no
+//    load of K or V waits on a load of the table.  Retired rows point at
+//    block 0 (the trash block), which no live row reads.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -54,6 +74,7 @@
 namespace {
 
 constexpr float NEG = -1e30f;   // the reference's finite mask sentinel
+constexpr int MERGE_THREADS = 128;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -91,7 +112,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 // accumulator take 32 registers each per thread (GT * hd / 32), 8 keep
 // them out of local memory.  unroll: slots per warp per step, about 2 KB of
 // K and V (the step's loads are all issued before any is used), at most 32
-// scores per thread, between 2 and 16.
+// scores per thread, between 2 and 16.  The table kernel runs the same
+// shape: at the serving shape on the H100, blocks of 8 warps, steps of
+// 4 KB, and the next step's loads issued before this step's reductions
+// were each slower (development builds timed by kernel_sweep.py).
 template <typename TKV, int HD, int GT>
 struct Shape {
   static constexpr int warps = GT * HD / 32 >= 32 ? 8 : 16;
@@ -107,6 +131,12 @@ __device__ __forceinline__ int slot_pos(int p, int c, int cap) {
   return p - (((p - c) % cap) + cap) % cap;
 }
 
+// Slots of a row at position p that can hold a position: c <= p until the
+// ring has wrapped.
+__device__ __forceinline__ int visible(int p, int cap) {
+  return p < cap ? p + 1 : cap;
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -116,19 +146,27 @@ struct Args {
   const int* pos;
   const int* table;
   void* o;
+  float* part;
   int B, n_kv_heads, G, cap, bs, n_k, window;
   float scale;
+  int chunk, n_split;
   cudaStream_t stream;
 };
 
+// Block (bh * n_split + z, y): row b, KV head h, query heads y * GT ..,
+// slots [z * chunk, (z + 1) * chunk) of the visible ones (the ring: all of
+// them).  With n_split = 1 it writes o; else its partial: m and l at
+// part_ml[((bh * n_split + z) * G + g) * 2 + {0, 1}], acc at
+// part_acc[((bh * n_split + z) * G + g) * HD + d].
 template <typename TQ, typename TKV, int HD, int GT, bool TABLE>
 __global__ void __launch_bounds__(Shape<TKV, HD, GT>::threads)
 decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
               const TKV* __restrict__ v, const float* __restrict__ ks,
               const float* __restrict__ vs, const int* __restrict__ pos,
-              const int* __restrict__ table, TQ* __restrict__ o, int G,
-              int n_kv_heads, int cap, int bs, int n_k, int window,
-              float scale) {
+              const int* __restrict__ table, TQ* __restrict__ o,
+              float* __restrict__ part_acc, float* __restrict__ part_ml,
+              int G, int n_kv_heads, int cap, int bs, int n_k, int window,
+              float scale, int chunk, int n_split) {
   constexpr int E = HD / 32;
   constexpr int WARPS = Shape<TKV, HD, GT>::warps;
   constexpr int THREADS = Shape<TKV, HD, GT>::threads;
@@ -138,18 +176,27 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   float* sm_m = smem;                   // WARPS x GT
   float* sm_l = sm_m + WARPS * GT;      // WARPS x GT
   float* sm_acc = sm_l + WARPS * GT;    // WARPS x GT x HD
-  int* sm_tab = reinterpret_cast<int*>(sm_acc + WARPS * GT * HD);  // n_k
+  int* sm_tab = reinterpret_cast<int*>(sm_acc + WARPS * GT * HD);
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int bh = blockIdx.x;            // b * Hkv + h
+  const int bh = TABLE ? blockIdx.x / n_split : blockIdx.x;  // b * Hkv + h
+  const int z = TABLE ? blockIdx.x % n_split : 0;
   const int b = bh / n_kv_heads, h = bh % n_kv_heads;
   const int g0 = blockIdx.y * GT;
   const int ng = min(GT, G - g0);
   const int p = pos[b];
+  const int n_slots = visible(p, cap);
+  int lo = 0, hi = n_slots, t0 = 0;
   if constexpr (TABLE) {
-    // the row's block ids, so a slot's address costs no dependent load
-    for (int i = threadIdx.x; i < n_k; i += THREADS)
-      sm_tab[i] = table[(size_t)b * n_k + i];
+    lo = z * chunk;
+    // decode_merge reads only the splits that hold slots
+    if (n_split > 1 && lo >= n_slots) return;
+    hi = min(n_slots, lo + chunk);
+    // the chunk's block ids, so a slot's address costs no dependent load
+    t0 = lo / bs;
+    const int n_t = (hi - 1) / bs - t0 + 1;
+    for (int i = threadIdx.x; i < n_t; i += THREADS)
+      sm_tab[i] = table[(size_t)b * n_k + t0 + i];
     __syncthreads();
   }
 
@@ -171,9 +218,7 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
   }
 
-  // only slots c <= p can hold a position until the ring has wrapped
-  const int n_slots = p < cap ? p + 1 : cap;
-  for (int c0 = warp * U; c0 < n_slots; c0 += WARPS * U) {
+  for (int c0 = lo + warp * U; c0 < hi; c0 += WARPS * U) {
     bool ok[U];
     Pack<TKV, E> kp[U], vp[U];
     float ksc[U], vsc[U];
@@ -181,12 +226,12 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     for (int u = 0; u < U; ++u) {
       const int c = c0 + u;
       const int sp = slot_pos(p, c, cap);
-      ok[u] = c < n_slots && sp >= 0 && (window <= 0 || sp > p - window);
+      ok[u] = c < hi && sp >= 0 && (window <= 0 || sp > p - window);
       ksc[u] = vsc[u] = 1.f;
       if (ok[u]) {
         size_t row;
         if constexpr (TABLE)
-          row = (size_t)sm_tab[c / bs] * bs + c % bs;
+          row = (size_t)sm_tab[c / bs - t0] * bs + c % bs;
         else
           row = (size_t)b * cap + c;
         const size_t off = (row * n_kv_heads + h) * HD + lane * E;
@@ -260,27 +305,73 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       lsum = fmaf(sm_l[w * GT + g], f, lsum);
       osum = fmaf(sm_acc[(w * GT + g) * HD + d], f, osum);
     }
-    o[((size_t)bh * G + g0 + g) * HD + d] =
-        from_f<TQ>(osum / fmaxf(lsum, 1e-30f));
+    if (!TABLE || n_split == 1) {
+      o[((size_t)bh * G + g0 + g) * HD + d] =
+          from_f<TQ>(osum / fmaxf(lsum, 1e-30f));
+    } else {
+      const size_t pg = ((size_t)bh * n_split + z) * G + g0 + g;
+      part_acc[pg * HD + d] = osum;
+      if (d == 0) {
+        part_ml[2 * pg] = mx;
+        part_ml[2 * pg + 1] = lsum;
+      }
+    }
+  }
+}
+
+// o of row b, KV head h (block bh) from the partials of the splits that
+// hold visible slots, folded in split order.
+template <typename TQ>
+__global__ void __launch_bounds__(MERGE_THREADS)
+decode_merge(const float* __restrict__ part_acc,
+             const float* __restrict__ part_ml, const int* __restrict__ pos,
+             TQ* __restrict__ o, int n_kv_heads, int G, int hd, int cap,
+             int chunk, int n_split) {
+  const int bh = blockIdx.x;
+  const int n_used = (visible(pos[bh / n_kv_heads], cap) + chunk - 1) / chunk;
+  for (int i = threadIdx.x; i < G * hd; i += MERGE_THREADS) {
+    const int g = i / hd, d = i % hd;
+    const size_t p0 = (size_t)bh * n_split * G + g;   // split 0's (row, g)
+    float mx = NEG;
+    for (int z = 0; z < n_used; ++z)
+      mx = fmaxf(mx, part_ml[2 * (p0 + (size_t)z * G)]);
+    float lsum = 0.f, osum = 0.f;
+    for (int z = 0; z < n_used; ++z) {
+      const size_t pz = p0 + (size_t)z * G;
+      const float f = expf(part_ml[2 * pz] - mx);
+      lsum = fmaf(part_ml[2 * pz + 1], f, lsum);
+      osum = fmaf(part_acc[pz * hd + d], f, osum);
+    }
+    o[((size_t)bh * G + g) * hd + d] = from_f<TQ>(osum / fmaxf(lsum, 1e-30f));
   }
 }
 
 template <typename TQ, typename TKV, int HD, int GT, bool TABLE>
 int run(const Args& a) {
   using S = Shape<TKV, HD, GT>;
-  const size_t smem = sizeof(float) * S::warps * GT * (HD + 2) +
-                      (TABLE ? sizeof(int) * a.n_k : 0);
+  const int n_tab = TABLE ? (a.chunk + a.bs - 1) / a.bs + 1 : 0;
+  const size_t smem =
+      sizeof(float) * S::warps * GT * (HD + 2) + sizeof(int) * n_tab;
   auto kernel = decode_kernel<TQ, TKV, HD, GT, TABLE>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid(a.B * a.n_kv_heads, (a.G + GT - 1) / GT);
+  const int rows = a.B * a.n_kv_heads;
+  float* part_acc = a.part;
+  float* part_ml =
+      a.part ? a.part + (size_t)rows * a.n_split * a.G * HD : nullptr;
+  const dim3 grid(rows * a.n_split, (a.G + GT - 1) / GT);
   kernel<<<grid, S::threads, smem, a.stream>>>(
       (const TQ*)a.q, (const TKV*)a.k, (const TKV*)a.v, a.ks, a.vs, a.pos,
-      a.table, (TQ*)a.o, a.G, a.n_kv_heads, a.cap, a.bs, a.n_k, a.window,
-      a.scale);
+      a.table, (TQ*)a.o, part_acc, part_ml, a.G, a.n_kv_heads, a.cap, a.bs,
+      a.n_k, a.window, a.scale, a.chunk, a.n_split);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || a.n_split == 1) return (int)e;
+  decode_merge<TQ><<<rows, MERGE_THREADS, 0, a.stream>>>(
+      part_acc, part_ml, a.pos, (TQ*)a.o, a.n_kv_heads, a.G, HD, a.cap,
+      a.chunk, a.n_split);
   return (int)cudaGetLastError();
 }
 
@@ -336,21 +427,30 @@ extern "C" int decode_ring(const void* q, const void* k, const void* v,
                            void* o, int B, int n_kv_heads, int G, int cap,
                            int hd, int window, float scale, int q_type,
                            int kv_type, void* stream) {
-  const Args a{q, k, v, ks, vs, pos, nullptr, o, B, n_kv_heads, G, cap, 1,
-               0, window, scale, (cudaStream_t)stream};
+  const Args a{q,   k,      v,     ks,  vs, pos, nullptr, o, nullptr,
+               B,   n_kv_heads, G, cap, 1,  0,   window,  scale,
+               cap, 1,      (cudaStream_t)stream};
   return dispatch<false>(a, hd, q_type, kv_type);
 }
 
 // The same against the pool k, v (NB, bs, Hkv, hd) (ks, vs (NB, bs, Hkv))
 // through the block table (B, n_k) int32: the ring has cap = n_k * bs slots
-// and row b's slot c lives at pool[table[b, c / bs], c % bs].
+// and row b's slot c lives at pool[table[b, c / bs], c % bs].  The slots
+// are dealt out in n_split = ceil(cap / chunk) chunks of `chunk` slots, a
+// multiple of bs; above one split, part is fp32 scratch of
+// B * Hkv * n_split * G * (hd + 2) floats (ops.py::decode_chunk).
 extern "C" int decode_table(const void* q, const void* k, const void* v,
                             const float* ks, const float* vs, const int* pos,
-                            const int* table, void* o, int B, int n_kv_heads,
-                            int G, int n_k, int bs, int hd, int window,
-                            float scale, int q_type, int kv_type,
-                            void* stream) {
-  const Args a{q, k, v, ks, vs, pos, table, o, B, n_kv_heads, G, n_k * bs,
-               bs, n_k, window, scale, (cudaStream_t)stream};
+                            const int* table, void* o, float* part, int B,
+                            int n_kv_heads, int G, int n_k, int bs, int hd,
+                            int window, float scale, int chunk, int q_type,
+                            int kv_type, void* stream) {
+  const int cap = n_k * bs;
+  if (bs < 1 || chunk < bs || chunk % bs) return (int)cudaErrorInvalidValue;
+  const int n_split = (cap + chunk - 1) / chunk;
+  if (n_split > 1 && !part) return (int)cudaErrorInvalidValue;
+  const Args a{q,     k,       v,     ks,  vs, pos, table,  o,     part,
+               B,     n_kv_heads, G,  cap, bs, n_k, window, scale,
+               chunk, n_split, (cudaStream_t)stream};
   return dispatch<true>(a, hd, q_type, kv_type);
 }

@@ -14,11 +14,15 @@ the plain version on any device.  Inference only: nothing here is
 differentiable.
 
 ``decode_ring`` and ``decode_table`` are the kernel wrappers; each counts
-its launches in ``.launches``.
+its launches in ``.launches``.  The table kernel deals each row's slots
+out over several blocks (split-KV) in chunks of ``decode_chunk`` slots,
+whose fp32 partials a second kernel folds in split order (one launch all
+the same).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -27,12 +31,16 @@ from repro_torch.kernels.decode_attention import ref
 
 HEAD_DIMS = (64, 128, 256)
 MAX_BLOCKS = 8192        # block ids per row the table kernel stages (32 KB)
+# decode_chunk's aim: blocks per SM (two waves of the two blocks of 512
+# threads an SM holds), and the fewest slots a split takes.
+DECODE_BLOCKS_PER_SM = 4
+DECODE_MIN_CHUNK = 64
 Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _RING_ARGTYPES = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
-_TABLE_ARGTYPES = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
+_TABLE_ARGTYPES = [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _I, _I, _P]
 
 
 def _check_shapes(q, k, v, pos, k_scale, v_scale, table):
@@ -107,6 +115,40 @@ def _window(window):
     return -1 if window is None else int(window)
 
 
+def group_tile(g: int) -> int:
+    """Query heads a block of the decode kernels holds for a group of
+    ``g``: 1, 2, 4 or 8 (``by_group`` in the kernel source)."""
+    return next(t for t in (1, 2, 4, 8) if g <= t or t == 8)
+
+
+def decode_chunks(cap: int, chunk: int) -> list:
+    """The slot runs ``[lo, hi)`` of ``[0, cap)`` that the table kernel's
+    splits take for ``chunk`` slots each (the kernel's ``lo`` / ``hi``
+    before the row's visible slots cut them), the last one short."""
+    return [(lo, min(cap, lo + chunk)) for lo in range(0, cap, chunk)]
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_chunk(cap: int, bs: int, rows: int, sms: int) -> int:
+    """Slots per block of a decode kernel over ``cap`` slots, for ``rows``
+    blocks per split (B x Hkv x query-head tiles) on a card with ``sms``
+    SMs: ``cap`` (one split) for the ring (``bs`` 0); else the largest
+    chunk of bs * 2^j slots, at least ``DECODE_MIN_CHUNK``, whose splits
+    (``decode_chunks``) give ``DECODE_BLOCKS_PER_SM`` blocks per SM, so
+    that a chunk is whole steps of the kernel's warps.  Pure: it reads no
+    ``pos``, so choosing it costs no device sync; on the card a split past
+    a row's visible slots exits at once."""
+    if bs == 0:
+        return cap
+    chunk = bs
+    while chunk < DECODE_MIN_CHUNK:
+        chunk *= 2
+    want = DECODE_BLOCKS_PER_SM * sms
+    while chunk < cap and rows * -(-cap // (2 * chunk)) >= want:
+        chunk *= 2
+    return min(chunk, cap)
+
+
 def decode_ring(q, k, v, pos, *, window=None, scale=1.0, k_scale=None,
                 v_scale=None, backend: str = "auto"):
     """o (B,Hkv,G,hd) in q's dtype against the ring k, v (B,cap,Hkv,hd):
@@ -137,13 +179,32 @@ def decode_table(q, k, v, pos, table, *, window=None, scale=1.0,
         return ref.decode_attention_table_ref(
             q, k, v, pos, table, window=window, scale=scale,
             k_scale=k_scale, v_scale=v_scale)
+    return _table(q, k, v, pos, table, window, scale, k_scale, v_scale)
+
+
+def _table(q, k, v, pos, table, window, scale, k_scale, v_scale,
+           chunk=None):
+    """One launch of the table kernel, its slots split in chunks of
+    ``decode_chunk``'s size, or of ``chunk`` slots (a multiple of bs) when
+    given (kernel_sweep.py times the choices)."""
     qt, kvt = _check_cuda(q, k, v, pos, k_scale, v_scale, table)
     b, hkv, g, hd = q.shape
+    bs = k.shape[1]
+    cap = table.shape[1] * bs
+    if chunk is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        chunk = decode_chunk(cap, bs, b * hkv * -(-g // group_tile(g)), sms)
+    n_split = len(decode_chunks(cap, chunk))
     o = torch.empty_like(q)
+    part = None
+    if n_split > 1:
+        part = torch.empty((b * hkv * n_split * g * (hd + 2),),
+                           device=q.device, dtype=torch.float32)
     _call("decode_table", _TABLE_ARGTYPES, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), _ptr(k_scale), _ptr(v_scale), pos.data_ptr(),
-          table.data_ptr(), o.data_ptr(), b, hkv, g, table.shape[1],
-          k.shape[1], hd, _window(window), float(scale), qt, kvt)
+          table.data_ptr(), o.data_ptr(), _ptr(part), b, hkv, g,
+          table.shape[1], bs, hd, _window(window), float(scale), chunk, qt,
+          kvt)
     decode_table.launches += 1
     return o
 

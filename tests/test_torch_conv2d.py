@@ -7,6 +7,9 @@ The tests marked ``cuda`` hold the CUDA kernel against the plain version
 and skip on a host without a card; they import no JAX, so they run on a
 GPU host with ``python -m pytest -m cuda tests/test_torch_*.py``.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -149,6 +152,15 @@ CUDA_CASES = [
     (2, 11, 9, 9, 3, 3, 2, 3, True, True),
     (1, 10, 16, 70, 1, 1, 0, 1, True, True),
     (1, 17, 6, 130, 5, 2, 3, 2, False, True),
+    # the five layers of the faithful AlexNet at the serving batch (conv_tiles
+    # picks widths 96 and 128 and splits conv3-5), and a ragged Cg = 5
+    # (4-byte copies of x and of w's 18-wide slab) with padding
+    (8, 227, 3, 96, 11, 4, 0, 1, True, True),
+    (8, 27, 96, 256, 5, 1, 2, 2, True, True),
+    (8, 13, 256, 384, 3, 1, 1, 1, True, True),
+    (8, 13, 384, 384, 3, 1, 1, 2, True, True),
+    (8, 13, 384, 256, 3, 1, 1, 2, True, True),
+    (2, 15, 10, 36, 3, 1, 2, 2, True, True),
 ]
 
 
@@ -169,3 +181,92 @@ def test_cuda_kernel_matches_plain(cuda, b, hw, cin, cout, kernel, stride,
     want = ref.conv2d_ref(xt, wt, stride, padding, groups, bias=bt,
                           relu=relu)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_conv_is_deterministic(cuda):
+    """Where conv_tiles splits the reduction (conv3 at the serving batch),
+    the partials are added in split order by a second kernel, not by
+    atomics: two calls agree bit for bit."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ops.conv_tiles(8 * 13 * 13, 384, 9 * 256, 1, sms)[1] > 1
+    x, w, bb = _inputs(8, 13, 256, 384, 3, 1, seed=6)
+    xt, wt, bt = (torch.from_numpy(a).to(cuda) for a in (x, w, bb))
+    with torch.no_grad():
+        first = ops.conv2d_fused(xt, wt, stride=1, padding=1, bias=bt,
+                                 relu=True)
+        second = ops.conv2d_fused(xt, wt, stride=1, padding=1, bias=bt,
+                                  relu=True)
+    assert torch.equal(first, second)
+
+
+def test_conv_tile_constants_match_the_kernel():
+    """``CONV_BM``, ``CONV_BK`` and ``CONV_BNS`` mirror the kernel's BM,
+    BK and the tile widths its entry point launches."""
+    src = (Path(ops.__file__).parent / "csrc"
+           / "conv2d_fused.cu").read_text()
+    bm = re.search(r"constexpr int BM = (\d+);", src)
+    bk = re.search(r"constexpr int BK = (\d+);", src)
+    widths = [int(a) for a, b in re.findall(
+        r"case (\d+):\n\s+e = launch_vec<(\d+)>", src) if a == b]
+    assert bm and bk and widths, "the kernel's tile constants moved"
+    assert ops.CONV_BM == int(bm.group(1))
+    assert ops.CONV_BK == int(bk.group(1))
+    assert tuple(sorted(widths)) == ops.CONV_BNS
+
+
+@pytest.mark.parametrize("kdim,n_split", [(363, 1), (1200, 3), (2304, 4),
+                                          (1728, 6), (100, 4), (16, 1)])
+def test_conv_ranges_cover_each_chunk_once(kdim, n_split):
+    """The splits take every reduction chunk exactly once, none empty, in
+    the kernel's runs (``c_lo`` / ``c_hi``)."""
+    runs = ops.conv_ranges(kdim, n_split)
+    chunks = -(-kdim // ops.CONV_BK)
+    per = -(-chunks // n_split)
+    assert runs == [(z * per, min(chunks, (z + 1) * per))
+                    for z in range(len(runs))]
+    assert runs[0][0] == 0 and runs[-1][1] == chunks
+    assert all(lo < hi for lo, hi in runs)
+
+
+def _alexnet_convs():
+    """(config, layer, batch, M, npg, K*K*Cg, groups) of every conv of
+    both AlexNets at the serving and the training batch."""
+    out = []
+    for cfg in (ALEXNET_FAITHFUL, ALEXNET):
+        c_in, hw = cfg.in_channels, cfg.image_size
+        for i, cs in enumerate(cfg.convs):
+            oh = (hw + 2 * cs.padding - cs.kernel) // cs.stride + 1
+            for batch in (8, 128):
+                out.append(pytest.param(
+                    batch * oh * oh, cs.out_channels // cs.groups,
+                    cs.kernel ** 2 * c_in // cs.groups, cs.groups, batch,
+                    id=f"{cfg.name}-conv{i + 1}-b{batch}"))
+            hw = (oh - 3) // 2 + 1 if cs.pool else oh
+            c_in = cs.out_channels
+    return out
+
+
+@pytest.mark.parametrize("npg", [1, 11, 65, 130, 200])
+def test_conv_tiles_take_any_group_width(npg):
+    """Where no tile width divides the group's channels the rule still
+    picks one (the last tile is ragged) and a split that covers the
+    chunks."""
+    bn, n_split = ops.conv_tiles(1000, npg, 300, 1, 132)
+    assert bn in ops.CONV_BNS
+    assert len(ops.conv_ranges(300, n_split)) == n_split
+
+
+@pytest.mark.parametrize("m,npg,kdim,groups,batch", _alexnet_convs())
+def test_conv_tiles_fit_alexnet(m, npg, kdim, groups, batch):
+    """At every AlexNet layer the rule's width divides the group's
+    channels (no ragged tile), its split covers the chunks with none
+    empty, and at the serving batch the grid fills a wave of the card's
+    132 SMs or the reduction is split over blocks."""
+    sms = 132
+    bn, n_split = ops.conv_tiles(m, npg, kdim, groups, sms)
+    assert bn in ops.CONV_BNS and npg % bn == 0
+    assert len(ops.conv_ranges(kdim, n_split)) == n_split
+    blocks = -(-m // ops.CONV_BM) * (npg // bn) * groups
+    if batch == 8:
+        assert blocks >= sms or n_split > 1

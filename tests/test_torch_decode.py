@@ -12,6 +12,8 @@ reduced configs.  Tests marked ``cuda`` hold each kernel against its
 plain version on the card.
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -170,6 +172,61 @@ def test_wrappers_check_their_inputs():
     ops.decode_ring(q, k, v, pos)
     ops.decode_table(q, k, v, pos, torch.zeros(2, 1, dtype=torch.int32))
     assert (ops.decode_ring.launches, ops.decode_table.launches) == before
+
+
+@pytest.mark.parametrize("cap,bs,rows,sms", [
+    (2048, 16, 128, 132),       # the serving tick: B 8 x Hkv 16
+    (2048, 16, 8, 132),
+    (272, 16, 2, 132),          # cap not a multiple of the chunk
+    (256, 8, 48, 16),
+    (96, 48, 4, 132),           # bs above DECODE_MIN_CHUNK
+    (4096, 32, 4096, 132),      # the rows alone fill the card
+])
+def test_decode_split_covers_each_slot_once(cap, bs, rows, sms):
+    """The table kernel's splits take every slot of [0, cap) exactly
+    once, in chunks that are multiples of bs (so a chunk's block ids are
+    one run of the table), none empty."""
+    chunk = ops.decode_chunk(cap, bs, rows, sms)
+    runs = ops.decode_chunks(cap, chunk)
+    n_split = -(-cap // chunk)            # the kernel's n_split
+    # split z's slots as decode_kernel computes them (lo, hi)
+    assert runs == [(z * chunk, min(cap, (z + 1) * chunk))
+                    for z in range(n_split)]
+    assert chunk % bs == 0 and 1 <= n_split == len(runs)
+    assert [c for lo, hi in runs for c in range(lo, hi)] == list(range(cap))
+
+
+def test_decode_split_by_grid_and_card():
+    """One split for the ring; at the serving tick chunks of 256 slots
+    (eight splits, DECODE_BLOCKS_PER_SM blocks per SM); fewer splits on a
+    card with fewer SMs or for more rows; at most one per
+    DECODE_MIN_CHUNK slots."""
+    assert ops.decode_chunk(2048, 0, 128, 132) == 2048
+    serve = ops.decode_chunk(2048, 16, 128, 132)
+    assert serve == 256
+    assert 128 * 2048 // serve >= ops.DECODE_BLOCKS_PER_SM * 132
+    assert ops.decode_chunk(2048, 16, 128, 16) > serve
+    assert ops.decode_chunk(2048, 16, 4096, 132) == 2048
+    assert ops.decode_chunk(2048, 16, 1, 132) == ops.DECODE_MIN_CHUNK
+
+
+def test_decode_tiles_match_the_kernel():
+    """``group_tile`` mirrors the kernel's ``by_group`` (query heads per
+    block), and the wrapper's scratch of B * Hkv * n_split * G * (hd + 2)
+    floats the partials' layout (acc, then m and l) in ``run``."""
+    src = (Path(ops.__file__).parent / "csrc"
+           / "decode_attention.cu").read_text()
+    picks = [(int(a), int(b)) for a, b in re.findall(
+        r"if \(a\.G <= (\d+)\) return run<TQ, TKV, HD, (\d+), TABLE>",
+        src)]
+    last = re.search(r"\n  return run<TQ, TKV, HD, (\d+), TABLE>\(a\);",
+                     src)
+    assert picks and last, "the kernel's group tiles moved"
+    for g in range(1, 17):
+        want = next((t for cut, t in picks if g <= cut), int(last.group(1)))
+        assert ops.group_tile(g) == want
+    assert "a.part + (size_t)rows * a.n_split * a.G * HD" in src
+    assert "chunk % bs" in src
 
 
 def test_policy_selects_the_decode_attention():
@@ -479,6 +536,14 @@ CARD_CASES = [  # (b, cap, hkv, g, hd, window, pos, bs): bs 0 = ring
     (2, 64, 2, 12, 128, None, [5, 64], 0),          # G > 8: two chunks
     (3, 256, 2, 2, 128, None, [100, 255, 17], 16),
     (2, 256, 4, 4, 128, 64, [200, 255], 16),
+    # the table kernel's split (decode_chunk; chunks of 64 slots here):
+    # rows longer than several chunks, a row shorter than one, a window
+    # that empties whole chunks, cap not a multiple of the chunk, G 12
+    (2, 1024, 2, 1, 128, None, [1023, 3000], 16),
+    (3, 512, 2, 1, 64, None, [10, 511, 40], 16),
+    (2, 1024, 2, 2, 128, 100, [1023, 2000], 16),
+    (2, 272, 1, 4, 128, None, [271, 500], 16),
+    (2, 256, 2, 12, 128, None, [255, 100], 16),
 ]
 
 
@@ -525,6 +590,21 @@ def test_kernels_match_plain_version(cuda, case, dtypes):
     want = ops.decode_attention(q, k, v, pos, backend="plain", **kw)
     tol = TOL if q.dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_decode_table_is_deterministic(cuda):
+    """At the serving tick's shape the table kernel splits each row over
+    blocks whose partials a second kernel folds in split order, not by
+    atomics: two calls agree bit for bit."""
+    case = (8, 2048, 16, 1, 128, None,
+            [100, 517, 1023, 1500, 2047, 2048, 3000, 5000], 16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ops.decode_chunk(2048, 16, 8 * 16, sms) < 2048
+    q, k, v, pos, kw = _card(case, torch.bfloat16, torch.bfloat16)
+    first = ops.decode_attention(q, k, v, pos, **kw)
+    second = ops.decode_attention(q, k, v, pos, **kw)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
