@@ -15,13 +15,16 @@ the 14 GEMM products of one im2col replica-step), ``im2col``
 (``im2col_phase``'s 3 im2col training steps, then ``train_timing``'s
 windows of 10 warm steps each at the same 2 x 32 over a preprocessed
 pool: images/s, step p50 and the device's busy ms per step by family),
-``lm_train`` (``lm_train_phase``, olmo-1b), ``rg_train``
-(``recurrent_train_phase`` of recurrentgemma-9b), ``lm_serving``
+``lm_train`` (``lm_train_phase``, olmo-1b), ``rg_train`` and
+``rwkv_train`` (``recurrent_train_phase`` of recurrentgemma-9b and of
+rwkv6-7b), ``recurrence`` (``recurrence_phase``: the WKV and RG-LRU
+kernels' rows, then their Functions' grads), ``lm_serving``
 (``lm_serving_phase``), ``conv`` (the fused conv's rows at the serving
 batch, 8, of both AlexNets and the training batch, 128; a turn's sums of
 the rows by batch follow its rows as ``conv_sum`` lines), ``decode``
-(``decode_phase``, then every case's output digest; the last line says
-which cases' digests agree across the turns), ``alexnet_train`` (``train_timing``'s windows of the
+(``decode_phase``, then every case's output digest; the last line says,
+per case, whether the two turns of each tree agree and whether the two
+trees do), ``alexnet_train`` (``train_timing``'s windows of the
 fused-conv AlexNet at 2 x 128 over a preprocessed pool, as
 ``train_phase`` ends) and ``lm_ticks`` (``lm_serve_counts``' waves of
 olmo-1b on the ring and on the block pool, each traced: device ms per
@@ -58,6 +61,8 @@ cs.train_timing(cs.alexnet_loss(cfg), cs.init_state(cfg, seed),
                 "preprocessed pool", items)""",
     "lm_train": "cs.lm_train_phase(seed)",
     "rg_train": "cs.recurrent_train_phase('recurrentgemma-9b', seed)",
+    "rwkv_train": "cs.recurrent_train_phase('rwkv6-7b', seed)",
+    "recurrence": "cs.recurrence_phase(gen)",
     "lm_serving": "cs.lm_serving_phase(seed)",
     # a tree without conv_phase runs its whole kernel phase (conv rows
     # first, then LRN and GEMM)
@@ -67,9 +72,9 @@ if hasattr(cs, "conv_phase"):
     cs.conv_phase(gen, cases)
 else:
     cs.kernel_phase(gen, (ALEXNET_FAITHFUL.name, cs.TRAIN_BATCH), cases)""",
-    # then every case's output digest, from inputs drawn here: the ring's
-    # must agree between the trees (the table kernel's split reorders its
-    # sums)
+    # then every case's output digest, from inputs drawn here: each
+    # tree's two turns must agree (a change to a kernel's order of sums
+    # shows as trees that differ)
     "decode": """cs.decode_phase(gen)
 import hashlib
 from repro_torch.kernels.decode_attention import ops as dops
@@ -165,8 +170,8 @@ def main() -> int:
                     print(turn, line, end="")
                     row = json.loads(line)
                     if "digest" in row:
-                        digests.setdefault(row["case"], set()).add(
-                            row["digest"])
+                        digests.setdefault(row["case"], {}).setdefault(
+                            tree, set()).add(row["digest"])
                     if row.get("kernel") == "conv2d_fused":
                         tot = conv.setdefault(row["batch"], {
                             "layers": 0, "kernel_ms": 0.0,
@@ -182,8 +187,11 @@ def main() -> int:
                   f"see {log}", file=sys.stderr)
             return 1
     if digests:
-        print(json.dumps({"phase": "decode_digests_agree_across_turns",
-                          **{c: len(d) == 1 for c, d in digests.items()}}))
+        print(json.dumps({"phase": "decode_digests", **{
+            c: {"each_tree_agrees_with_itself": all(
+                len(x) == 1 for x in d.values()),
+                "trees_agree": len(set.union(*d.values())) == 1}
+            for c, d in digests.items()}}))
     return 0
 
 

@@ -36,19 +36,20 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    2e-2; int8 against the plain int8) at the serving tick's shape (B 8,
    cap 2048, Hkv 16, G 1, hd 128, rows mid-fill and wrapped, bf16; ring
    and a block table of bs 16) and at GQA (Hkv 8, G 4), window-256,
-   hd-64, hd-256, fp32-q, fp32 and int8 K/V shapes, two calls agreeing
-   bit for bit, timed beside the plain version,
+   hd-64, hd-256, G-16-at-hd-256, fp32-q, fp32 and int8 K/V shapes, two
+   calls agreeing bit for bit, timed beside the plain version,
    ``F.scaled_dot_product_attention`` over the same slots with a mask (a
    yardstick only; for the table cases also the gather through the table
    plus SDPA) and the bound (the visible K/V bytes over 3.35 TB/s); the
-   table rows report the kernel's split of each row's slots;
+   rows report the kernel's split of each row's slots;
 6. recurrence kernel phase: the WKV kernel ``wkv_fwd`` against the
    plain chunked form (bf16 y 1e-2, fp32 2e-4; the final state 2e-4) at
    the ``rwkv6-7b`` training shape (B 4, T 2048, H 64, K 64, bf16), B 1
    with ragged T 1000, fp32 inputs, and, against the plain sequential
-   form, one input with a w = 0 entry; the RG-LRU kernel ``rglru_fwd``,
-   forward and reversed, against the plain loops (2e-4) at the
-   ``recurrentgemma-9b`` training shape (B 2, T 2048, D 4096), ragged
+   form, one input with a w = 0 entry, two calls agreeing bit for bit,
+   each row with the kernel's chunk of steps; the RG-LRU kernel
+   ``rglru_fwd``, forward and reversed, against the plain loops (2e-4) at
+   the ``recurrentgemma-9b`` training shape (B 2, T 2048, D 4096), ragged
    T and D, and strong decay; timed beside the plain versions and the
    bound (no PyTorch call computes either, so no library yardstick).
    Then the WKV Function's grads against autograd through the plain
@@ -125,7 +126,7 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    and ``--arch olmo-1b --layers 2 --seq-len 256 --batch 4``, each for 4
    steps with checkpoints, resumed to 6, against an uninterrupted 6-step
    run (the LM's losses equal bit for bit); ``--arch rwkv6-7b --layers
-   2`` the same (one checkpoint at step 4), and ``--arch
+   1`` the same (one checkpoint at step 4), and ``--arch
    recurrentgemma-9b --layers 3`` for 3 steps;
 14. prints the card again, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
@@ -284,9 +285,9 @@ def lm_family(name: str) -> str:
     """The family a device kernel of the LM step is booked under."""
     n = name.lower()
     for fam, keys in (("flash_fwd", ("flash_fwd_kernel",)),
-                      ("wkv", ("wkv_kernel",)),
+                      ("wkv", ("wkv_chunk_kernel", "wkv_carry_kernel")),
                       ("rglru", ("rglru_kernel",)),
-                      ("decode", ("decode_kernel",)),
+                      ("decode", ("decode_kernel", "decode_merge")),
                       ("flash_dq", ("flash_dq_kernel",)),
                       ("flash_dkv", ("flash_dkv_kernel",)),
                       ("gemm", ("gemm", "nvjet", "xmma", "cutlass",
@@ -1450,6 +1451,7 @@ def recurrence_phase(gen):
     from repro_torch.kernels.rwkv6 import ref as wkv_ref
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     totals = {"wkv_fwd": {"max_abs_err": 0.0},
               "rglru_fwd": {"max_abs_err": 0.0}}
     assumes = "67 TFLOP/s fp32 non-tensor, 3.35 TB/s"
@@ -1470,6 +1472,9 @@ def recurrence_phase(gen):
                                   want_y.to(dtype).float(), WKV_TOL[dtype]),
                       check_close(f"{what} state", s, want_s,
                                   WKV_TOL[torch.float32]))
+            if not all(torch.equal(first, again) for first, again in zip(
+                    (y, s), wkv_ops.wkv_fwd(*xs, backend="cuda"))):
+                raise AssertionError(f"{what}: two calls differ")
             k_ms = time_ms(lambda: wkv_ops.wkv_fwd(*xs, backend="cuda"),
                            reps=10)
             p_ms = time_ms(plain, reps=3, warmup=1)
@@ -1478,8 +1483,10 @@ def recurrence_phase(gen):
         nbytes = float(n * (4 * xs[0].element_size() + 4) + 4 * h * k
                        + 4 * b * h * k * k)
         bound, bound_by = _bound(flops, nbytes)
+        chunk = wkv_ops.wkv_chunk(t, b * h, sms)
         row = {"phase": "recurrence_kernel", "kernel": "wkv_fwd",
-               "case": case, "shape": [b, t, h, k],
+               "case": case, "shape": [b, t, h, k], "chunk": chunk,
+               "n_chunks": len(wkv_ops.wkv_chunks(t, chunk)),
                "dtype": str(dtype)[6:], "plain": "sequential" if w_zero
                else "chunked", "ms": k_ms, "plain_ms": p_ms,
                "bound_ms": bound, "bound_by": bound_by, "flops": flops,
@@ -1741,7 +1748,7 @@ def recurrent_train_phase(arch, seed):
 
 def recurrent_cli_phase():
     """The train CLI on the two recurrent archs at full width:
-    ``rwkv6-7b --layers 2`` for 4 steps with a checkpoint, resumed to 6,
+    ``rwkv6-7b --layers 1`` for 4 steps with a checkpoint, resumed to 6,
     against 6 uninterrupted steps (every loss equal bit for bit), and
     ``recurrentgemma-9b --layers 3`` for 3 steps (its two replicas'
     state, 32 GB, is not checkpointed here)."""
@@ -1749,7 +1756,7 @@ def recurrent_cli_phase():
 
     base = ["--seq-len", "256", "--batch", "4", "--replicas", "2",
             "--log-every", "1"]
-    rwkv = ["--arch", "rwkv6-7b", "--layers", "2"] + base
+    rwkv = ["--arch", "rwkv6-7b", "--layers", "1"] + base
     seconds = {}
     with tempfile.TemporaryDirectory() as tmp:
         ck, a, c = (os.path.join(tmp, n) for n in ("ck", "a.jsonl",
@@ -1800,6 +1807,8 @@ DECODE_CASES = [  # (case, B, cap, Hkv, G, hd, window, q dtype, kv dtype, bs)
     ("window", 8, 2048, 16, 1, 128, 256, "bfloat16", "bfloat16", 0),
     ("hd64", 8, 2048, 16, 1, 64, None, "bfloat16", "bfloat16", 0),
     ("hd256", 8, 2048, 16, 1, 256, None, "bfloat16", "bfloat16", 0),
+    # the hybrid's attn layers: 16 query heads on one KV head, hd 256
+    ("g16_hd256", 8, 2048, 1, 16, 256, None, "bfloat16", "bfloat16", 0),
     ("int8", 8, 2048, 16, 1, 128, None, "float32", "int8", 0),
     ("int8_bf16_q", 8, 2048, 16, 1, 128, None, "bfloat16", "int8", 0),
     ("int8_table", 8, 2048, 16, 1, 128, None, "float32", "int8", 16),
@@ -1841,7 +1850,7 @@ def decode_phase(gen):
     ``library_ms``, and there also the gather through the table plus SDPA,
     ``gather_sdpa_ms``; on the dequantized cache for int8).  Each row
     reports the kernel's split of the slots (``chunk`` slots each,
-    ``n_split`` blocks per row; 1 for the ring).
+    ``n_split`` blocks per row).
     Returns per kernel the main path's case (``serve`` / ``serve_table``:
     one launch at the serving tick's shape) and the worst error."""
     import torch.nn.functional as F
@@ -1913,8 +1922,7 @@ def decode_phase(gen):
                                         else 0))
         flops = 4.0 * n_vis * hkv * g * hd
         bound, bound_by = _bound(flops, nbytes)
-        chunk = ops.decode_chunk(
-            cap, bs, b * hkv * -(-g // ops.group_tile(g)), sms)
+        chunk = ops.kernel_chunk(q, k, table, sms)
         row = {"phase": "decode_kernel", "kernel": name, "case": case,
                "shape": [b, cap, hkv, g, hd], "window": window,
                "block_size": bs, "q_dtype": qd, "kv_dtype": kvd,

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the split and tile choices of the GEMM, fused conv and table
-decode kernels on one NVIDIA GPU.
+"""Time the split, chunk and tile choices of the GEMM, fused conv, decode
+and WKV kernels on one NVIDIA GPU.
 
-    python3 kernel_sweep.py
+    python3 kernel_sweep.py [--kernels decode wkv conv gemm]
 
 Run from the root of a checkout; it imports ``repro_torch`` from ``src/``
 and ``chip_smoke``'s helpers (never ``jax`` or ``repro``), builds the
@@ -19,13 +19,19 @@ kernel's ``chip_smoke`` tolerance of its plain version:
   of ``CONV_SPLITS`` that leaves no split shorter than
   ``GEMM_MIN_CHUNKS`` chunks;
 * ``decode_table`` at the serving tick's shape (``chip_smoke``'s
-  ``serve_table`` and ``int8_table`` cases): the time at the chunk
-  ``decode_chunk`` picks and at every chunk of ``DECODE_CHUNKS``;
+  ``serve_table`` and ``int8_table`` cases) and ``decode_ring`` at its
+  ``serve``, ``gqa`` and ``window`` cases: the time at the chunk
+  ``kernel_chunk`` picks and at every chunk of ``DECODE_CHUNKS`` (for the
+  ring, those that are whole steps of its warps);
+* ``wkv_fwd`` at ``chip_smoke``'s ``train`` and ``ragged`` cases: the
+  time at the chunk ``wkv_chunk`` picks and at every chunk of
+  ``WKV_CHUNKS``;
 
 then, per kernel, the sums over its shapes of the rule's times and of
 each shape's fastest choice.  Exits non-zero without a CUDA device or
 when a check fails.
 """
+import argparse
 import os
 import sys
 
@@ -35,6 +41,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SPLITS = [1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 88]
 CONV_SPLITS = [1, 2, 3, 4, 6, 8]
 DECODE_CHUNKS = [64, 128, 256, 512, 1024, 2048]
+RING_CASES = ("serve", "gqa", "window")
+WKV_CHUNKS = [16, 32, 64, 128, 256, 512]
+WKV_CASES = ("train", "ragged")
 
 
 def gemm_sweep(cs, gen, dev, sms):
@@ -132,36 +141,81 @@ def decode_sweep(cs, gen, sms):
 
     for case in cs.DECODE_CASES:
         name, b, cap, hkv, g, hd, window, qd, kvd, bs = case
-        if not bs:
+        if not (bs or name in RING_CASES):
             continue
         q_dtype, kv_dtype = getattr(torch, qd), getattr(torch, kvd)
         q, k, v, pos, ks, vs, table = cs.decode_inputs(
             gen, b, cap, hkv, g, hd, q_dtype, kv_dtype, bs)
-        args = (q, k, v, pos, table, window, hd ** -0.5, ks, vs)
         want = ops.decode_attention(q, k, v, pos, window=window,
                                     scale=hd ** -0.5, k_scale=ks,
                                     v_scale=vs, table=table,
                                     backend="plain")
-        rule = ops.decode_chunk(cap, bs, b * hkv * -(-g // ops.group_tile(g)),
-                                sms)
+        rule = ops.kernel_chunk(q, k, table, sms)
+        unit = bs or ops.warp_step(hd, k.element_size(), g)
+        kernel = "decode_table" if bs else "decode_ring"
         times = {}
-        for chunk in sorted({rule} | set(DECODE_CHUNKS)):
+        for chunk in sorted({rule} | {z for z in DECODE_CHUNKS
+                                      if z % unit == 0}):
             def call(chunk=chunk):
-                return ops._table(*args, chunk=chunk)
+                if bs:
+                    return ops._table(q, k, v, pos, table, window,
+                                      hd ** -0.5, ks, vs, chunk=chunk)
+                return ops._ring(q, k, v, pos, window, hd ** -0.5, ks, vs,
+                                 chunk=chunk)
 
             with torch.inference_mode():
-                cs.check_close(f"decode_table {name} chunk {chunk}",
+                cs.check_close(f"{kernel} {name} chunk {chunk}",
                                call().float(), want.float(),
                                cs.DECODE_TOL[q_dtype])
                 times[chunk] = cs.time_ms(call, reps=50)
         best = min(times, key=times.get)
-        cs.emit({"kernel": "decode_table", "case": name, "rule": rule,
+        cs.emit({"kernel": kernel, "case": name, "rule": rule,
                  "rule_ms": times[rule], "best": best,
                  "best_ms": times[best],
                  "ms_by_chunk": {str(z): t for z, t in times.items()}})
 
 
+def wkv_sweep(cs, gen, sms):
+    from repro_torch.kernels.rwkv6 import ops, ref
+
+    rule_sum = best_sum = 0.0
+    for case, b, t, h, k, dtype, w_zero in cs.WKV_CASES:
+        if case not in WKV_CASES:
+            continue
+        xs = cs.wkv_inputs(gen, b, t, h, k, dtype, w_zero)
+        with torch.inference_mode():
+            want_y, want_s = ref.wkv_chunked(*xs, chunk=min(64, t))
+        rule = ops.wkv_chunk(t, b * h, sms)
+        times = {}
+        for chunk in sorted({rule} | set(WKV_CHUNKS)):
+            def call(chunk=chunk):
+                return ops._fwd(*xs, chunk=chunk)
+
+            with torch.inference_mode():
+                y, s = call()
+                cs.check_close(f"wkv_fwd {case} chunk {chunk}", y.float(),
+                               want_y.to(dtype).float(), cs.WKV_TOL[dtype])
+                cs.check_close(f"wkv_fwd {case} chunk {chunk} state", s,
+                               want_s, cs.WKV_TOL[torch.float32])
+                times[chunk] = cs.time_ms(call, reps=10)
+        best = min(times, key=times.get)
+        rule_sum += times[rule]
+        best_sum += times[best]
+        cs.emit({"kernel": "wkv_fwd", "case": case, "shape": [b, t, h, k],
+                 "rule": rule, "rule_ms": times[rule], "best": best,
+                 "best_ms": times[best],
+                 "ms_by_chunk": {str(z): ms for z, ms in times.items()}})
+    cs.emit({"wkv_fwd_rule_sum_ms": rule_sum, "wkv_fwd_best_sum_ms": best_sum})
+
+
+SWEEPS = ("decode", "wkv", "conv", "gemm")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", nargs="+", default=list(SWEEPS),
+                    choices=SWEEPS)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_sweep: no CUDA device", file=sys.stderr)
         return 1
@@ -179,9 +233,12 @@ def main() -> int:
     cs.CYCLES_PER_MS = cs._sleep_cycles_per_ms()
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    decode_sweep(cs, gen, sms)
-    conv_sweep(cs, gen, dev, sms)
-    gemm_sweep(cs, gen, dev, sms)
+    sweeps = {"decode": lambda: decode_sweep(cs, gen, sms),
+              "wkv": lambda: wkv_sweep(cs, gen, sms),
+              "conv": lambda: conv_sweep(cs, gen, dev, sms),
+              "gemm": lambda: gemm_sweep(cs, gen, dev, sms)}
+    for name in args.kernels:
+        sweeps[name]()
     return 0
 
 

@@ -18,26 +18,37 @@
 //  * A block owns one (row, KV head) (and one chunk of 8 query heads when
 //    G > 8): q of all G heads sits in registers and every K/V row is read
 //    once for the whole group.
-//  * Split-KV (table mode): one block per (row, KV head) is 128 blocks for
-//    132 SMs at the serving shape, and rows are ragged (101 to 2,048
-//    visible slots), so most SMs idle while a few stream a whole row.  The
-//    table kernel deals each row's slots out in chunks of `chunk` slots (a
-//    multiple of bs, so a chunk's block ids are one run of the table) over
-//    n_split blocks; the wrapper's rule (decode_attention/ops.py::
-//    decode_chunk, no device sync) picks chunks of bs * 2^j slots (whole
-//    steps of the warps) that give about four blocks per SM.  A block
-//    whose chunk starts past the row's visible slots exits at once.  Each
-//    block writes its fp32 partial (m, l, acc[hd]) and a second kernel,
-//    decode_merge, folds the partials of the splits that hold slots in
-//    split order, so two calls agree bit for bit.  The merge is a second
-//    launch and not the last block of each row behind a counter: a
-//    development build of that (a module-wide counter array that the last
-//    block resets) was a few percent faster at the serving shape and
-//    slower with int8 K/V, and its counters would race between two calls
-//    on two streams.  With
-//    n_split = 1 the block writes o itself.  The ring runs the same body
-//    with one split: the slots, their order and the arithmetic are those
-//    of the kernel before the split.
+//  * Split-KV, ring and table alike: one block per (row, KV head) is 128
+//    blocks for 132 SMs at the serving shape, and rows are ragged (101 to
+//    2,048 visible slots), so most SMs would idle while a few stream a
+//    whole row.  Each row's slots are dealt out in chunks of `chunk` slots
+//    over n_split blocks; the wrapper's rule (decode_attention/ops.py::
+//    decode_chunk, no device sync) picks chunks of unit * 2^j slots (unit:
+//    bs for the table, so a chunk's block ids are one run of the table;
+//    the warps' step for the ring, so a chunk is whole steps) that give
+//    about four blocks per SM.  A block whose chunk starts past the row's
+//    visible slots exits at once.  Each block writes its fp32 partial
+//    (m, l, acc[hd]) and a second kernel, decode_merge, folds the partials
+//    of the splits that hold visible slots in split order, so two calls
+//    agree bit for bit.  The merge is a second launch and not the last
+//    block of each row behind a counter: a development build of that (a
+//    module-wide counter array that the last block resets) was a few
+//    percent faster at the serving shape and slower with int8 K/V, and its
+//    counters would race between two calls on two streams.  With
+//    n_split = 1 the block writes o itself.
+//  * The valid slots of a row are one arc of the ring: the nv slots ending
+//    at the one p was written to, pm = p mod cap, which hold positions
+//    p, p - 1, .., p - nv + 1 (nv = min(p + 1, cap, window)).  A block cuts
+//    its chunk to the part the arc covers, so with a window most chunks of
+//    a wrapped ring are empty: such a block writes an empty partial
+//    (m = NEG, l = 0) without touching the cache, since the merge reads
+//    every split below the visible slots.  A visited slot c is valid iff
+//    (pm - c) mod cap < nv, one compare and no division: the reference's
+//    test (position >= 0, inside the window) on slot_positions' floor mod.
+//    A slot that fails it reads no bytes and adds nothing, as the
+//    reference's masked entries add exp(NEG - m) = 0 once a real score is
+//    seen.  m starts at the reference's finite NEG = -1e30, so a warp or
+//    a split that saw no valid slot merges with weight exp(NEG - M) = 0.
 //  * The cache is read in place with strides, (row * Hkv + h) * hd, in the
 //    model's layout: no fold or transpose of the cache, no padding of cap.
 //  * Warps stride over the slots, a few slots per warp per step (about
@@ -47,17 +58,6 @@
 //    warp reduction of xor-shuffles, and each warp keeps its own online
 //    softmax (m, l, acc) in registers.  The warps merge in shared memory
 //    at the end.
-//  * Slots that hold no position yet (c > p before the ring wraps) are not
-//    visited: the reference's tile visibility, (c0 < cap) && (c0 <= p ||
-//    p >= cap), at slot granularity.  A visited slot that fails the
-//    validity test (position < 0, or outside the window) is skipped whole:
-//    it reads no bytes and adds nothing, as the reference's masked entries
-//    add exp(NEG - m) = 0 once a real score is seen.  m starts at the
-//    reference's finite NEG = -1e30, so a warp or a split that saw no valid
-//    slot merges with weight exp(NEG - M) = 0.
-//  * The ring arithmetic is floor mod: slot c holds p - ((p - c) mod cap),
-//    written ((p - c) % cap + cap) % cap, since C++'s % of a negative
-//    number is negative and would make an unwritten slot look valid.
 //  * int8 dequantizes in the score domain: s *= ks[c] and p *= vs[c], as
 //    the reference does; no cache tile is dequantized.
 //  * Table mode: slot c of row b lives at pool[table[b, c / bs], c % bs];
@@ -125,12 +125,6 @@ struct Shape {
   static constexpr int unroll = u < 2 ? 2 : (u > 16 ? 16 : u);
 };
 
-// The absolute position slot c holds in a ring of capacity cap at row
-// position p (the reference's slot_positions, floor mod).
-__device__ __forceinline__ int slot_pos(int p, int c, int cap) {
-  return p - (((p - c) % cap) + cap) % cap;
-}
-
 // Slots of a row at position p that can hold a position: c <= p until the
 // ring has wrapped.
 __device__ __forceinline__ int visible(int p, int cap) {
@@ -154,8 +148,8 @@ struct Args {
 };
 
 // Block (bh * n_split + z, y): row b, KV head h, query heads y * GT ..,
-// slots [z * chunk, (z + 1) * chunk) of the visible ones (the ring: all of
-// them).  With n_split = 1 it writes o; else its partial: m and l at
+// the valid slots of [z * chunk, (z + 1) * chunk).  With n_split = 1 it
+// writes o; else its partial: m and l at
 // part_ml[((bh * n_split + z) * G + g) * 2 + {0, 1}], acc at
 // part_acc[((bh * n_split + z) * G + g) * HD + d].
 template <typename TQ, typename TKV, int HD, int GT, bool TABLE>
@@ -179,22 +173,46 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   int* sm_tab = reinterpret_cast<int*>(sm_acc + WARPS * GT * HD);
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int bh = TABLE ? blockIdx.x / n_split : blockIdx.x;  // b * Hkv + h
-  const int z = TABLE ? blockIdx.x % n_split : 0;
+  const int bh = blockIdx.x / n_split;   // b * Hkv + h
+  const int z = blockIdx.x % n_split;
   const int b = bh / n_kv_heads, h = bh % n_kv_heads;
   const int g0 = blockIdx.y * GT;
   const int ng = min(GT, G - g0);
   const int p = pos[b];
-  const int n_slots = visible(p, cap);
-  int lo = 0, hi = n_slots, t0 = 0;
+  int lo = z * chunk;
+  // decode_merge reads only the splits that hold visible slots
+  if (n_split > 1 && lo >= visible(p, cap)) return;
+  int hi = min(cap, lo + chunk);
+  // the arc of valid slots: [first, pm] when first >= 0, else
+  // [0, pm] and [first + cap, cap)
+  const int pm = p % cap;
+  const int nv = min(min(p + 1, cap), window > 0 ? window : cap);
+  const int first = pm - nv + 1;
+  if (nv <= 0) {
+    hi = lo;
+  } else if (first >= 0) {
+    lo = max(lo, first);
+    hi = min(hi, pm + 1);
+  } else {
+    if (lo > pm) lo = max(lo, first + cap);
+    if (hi <= first + cap) hi = min(hi, pm + 1);
+  }
+  if (n_split > 1 && lo >= hi) {   // no valid slot: the empty partial
+    for (int i = threadIdx.x; i < ng * HD; i += THREADS) {
+      const size_t pg = ((size_t)bh * n_split + z) * G + g0 + i / HD;
+      part_acc[pg * HD + i % HD] = 0.f;
+      if (i % HD == 0) {
+        part_ml[2 * pg] = NEG;
+        part_ml[2 * pg + 1] = 0.f;
+      }
+    }
+    return;
+  }
+  int t0 = 0;
   if constexpr (TABLE) {
-    lo = z * chunk;
-    // decode_merge reads only the splits that hold slots
-    if (n_split > 1 && lo >= n_slots) return;
-    hi = min(n_slots, lo + chunk);
     // the chunk's block ids, so a slot's address costs no dependent load
     t0 = lo / bs;
-    const int n_t = (hi - 1) / bs - t0 + 1;
+    const int n_t = lo < hi ? (hi - 1) / bs - t0 + 1 : 0;
     for (int i = threadIdx.x; i < n_t; i += THREADS)
       sm_tab[i] = table[(size_t)b * n_k + t0 + i];
     __syncthreads();
@@ -225,8 +243,7 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int c = c0 + u;
-      const int sp = slot_pos(p, c, cap);
-      ok[u] = c < hi && sp >= 0 && (window <= 0 || sp > p - window);
+      ok[u] = c < hi && pm - c + (c > pm ? cap : 0) < nv;
       ksc[u] = vsc[u] = 1.f;
       if (ok[u]) {
         size_t row;
@@ -305,7 +322,7 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       lsum = fmaf(sm_l[w * GT + g], f, lsum);
       osum = fmaf(sm_acc[(w * GT + g) * HD + d], f, osum);
     }
-    if (!TABLE || n_split == 1) {
+    if (n_split == 1) {
       o[((size_t)bh * G + g0 + g) * HD + d] =
           from_f<TQ>(osum / fmaxf(lsum, 1e-30f));
     } else {
@@ -420,16 +437,23 @@ int dispatch(const Args& a, int hd, int q_type, int kv_type) {
 // o (B, Hkv, G, hd) in q's type for q (B, Hkv, G, hd) against the ring
 // k, v (B, cap, Hkv, hd) at positions pos (B,) int32; ks, vs (B, cap, Hkv)
 // fp32 for an int8 cache, else null.  All contiguous; hd is 64, 128 or 256;
-// window <= 0 means none.  Launches on `stream`; returns the launch's
+// window <= 0 means none.  The slots are dealt out in
+// n_split = ceil(cap / chunk) chunks of `chunk` slots; above one split,
+// part is fp32 scratch of B * Hkv * n_split * G * (hd + 2) floats
+// (ops.py::decode_chunk).  Launches on `stream`; returns the launch's
 // cudaError_t (0 on success); no sync.
 extern "C" int decode_ring(const void* q, const void* k, const void* v,
                            const float* ks, const float* vs, const int* pos,
-                           void* o, int B, int n_kv_heads, int G, int cap,
-                           int hd, int window, float scale, int q_type,
-                           int kv_type, void* stream) {
-  const Args a{q,   k,      v,     ks,  vs, pos, nullptr, o, nullptr,
-               B,   n_kv_heads, G, cap, 1,  0,   window,  scale,
-               cap, 1,      (cudaStream_t)stream};
+                           void* o, float* part, int B, int n_kv_heads,
+                           int G, int cap, int hd, int window, float scale,
+                           int chunk, int q_type, int kv_type,
+                           void* stream) {
+  if (chunk < 1) return (int)cudaErrorInvalidValue;
+  const int n_split = (cap + chunk - 1) / chunk;
+  if (n_split > 1 && !part) return (int)cudaErrorInvalidValue;
+  const Args a{q,     k,       v,     ks,  vs, pos, nullptr, o,     part,
+               B,     n_kv_heads, G,  cap, 1,  0,   window,  scale,
+               chunk, n_split, (cudaStream_t)stream};
   return dispatch<false>(a, hd, q_type, kv_type);
 }
 

@@ -14,10 +14,10 @@ the plain version on any device.  Inference only: nothing here is
 differentiable.
 
 ``decode_ring`` and ``decode_table`` are the kernel wrappers; each counts
-its launches in ``.launches``.  The table kernel deals each row's slots
-out over several blocks (split-KV) in chunks of ``decode_chunk`` slots,
-whose fp32 partials a second kernel folds in split order (one launch all
-the same).
+its launches in ``.launches``.  Both kernels deal each row's slots out
+over several blocks (split-KV) in chunks of ``decode_chunk`` slots, whose
+fp32 partials a second kernel folds in split order (one launch all the
+same).
 """
 from __future__ import annotations
 
@@ -35,11 +35,14 @@ MAX_BLOCKS = 8192        # block ids per row the table kernel stages (32 KB)
 # threads an SM holds), and the fewest slots a split takes.
 DECODE_BLOCKS_PER_SM = 4
 DECODE_MIN_CHUNK = 64
+# and the fewest steps of its warps a split takes: a block's fixed cost (q,
+# the warps' merge, the partial) outweighs fewer
+DECODE_MIN_STEPS = 4
 Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_RING_ARGTYPES = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+_RING_ARGTYPES = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _P]
 _TABLE_ARGTYPES = [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _I, _I, _P]
 
 
@@ -121,32 +124,71 @@ def group_tile(g: int) -> int:
     return next(t for t in (1, 2, 4, 8) if g <= t or t == 8)
 
 
+def warp_step(hd: int, kv_bytes: int, g: int) -> int:
+    """Slots the decode kernels' warps take in one step for head_dim ``hd``,
+    K/V of ``kv_bytes`` bytes an element and a group of ``g``: warps x
+    unroll of the kernel's ``Shape`` (about 2 KB of K and V per warp, at
+    most 32 scores a thread)."""
+    gt = group_tile(g)
+    warps = 8 if gt * hd // 32 >= 32 else 16
+    unroll = min(2048 // (2 * hd * kv_bytes), 32 // gt)
+    return warps * max(2, min(16, unroll))
+
+
 def decode_chunks(cap: int, chunk: int) -> list:
-    """The slot runs ``[lo, hi)`` of ``[0, cap)`` that the table kernel's
-    splits take for ``chunk`` slots each (the kernel's ``lo`` / ``hi``
-    before the row's visible slots cut them), the last one short."""
+    """The slot runs ``[lo, hi)`` of ``[0, cap)`` that the kernels' splits
+    take for ``chunk`` slots each (the kernel's ``lo`` / ``hi`` before the
+    row's valid slots cut them), the last one short."""
     return [(lo, min(cap, lo + chunk)) for lo in range(0, cap, chunk)]
 
 
 @functools.lru_cache(maxsize=1024)
-def decode_chunk(cap: int, bs: int, rows: int, sms: int) -> int:
+def decode_chunk(cap: int, unit: int, rows: int, sms: int,
+                 least: int = DECODE_MIN_CHUNK) -> int:
     """Slots per block of a decode kernel over ``cap`` slots, for ``rows``
     blocks per split (B x Hkv x query-head tiles) on a card with ``sms``
-    SMs: ``cap`` (one split) for the ring (``bs`` 0); else the largest
-    chunk of bs * 2^j slots, at least ``DECODE_MIN_CHUNK``, whose splits
-    (``decode_chunks``) give ``DECODE_BLOCKS_PER_SM`` blocks per SM, so
-    that a chunk is whole steps of the kernel's warps.  Pure: it reads no
-    ``pos``, so choosing it costs no device sync; on the card a split past
-    a row's visible slots exits at once."""
-    if bs == 0:
-        return cap
-    chunk = bs
-    while chunk < DECODE_MIN_CHUNK:
+    SMs: the largest chunk of unit * 2^j slots, at least ``least``, whose
+    splits (``decode_chunks``) give ``DECODE_BLOCKS_PER_SM`` blocks per
+    SM.  ``unit`` is bs for the table, so a chunk's block ids are one run
+    of the table, and the ring's ``warp_step``, so a chunk is whole steps
+    of the kernel's warps.  Pure: it reads no ``pos``, so choosing it
+    costs no device sync; on the card a split past a row's visible slots
+    exits at once."""
+    chunk = unit
+    while chunk < least:
         chunk *= 2
     want = DECODE_BLOCKS_PER_SM * sms
     while chunk < cap and rows * -(-cap // (2 * chunk)) >= want:
         chunk *= 2
     return min(chunk, cap)
+
+
+def kernel_chunk(q, k, table, sms: int) -> int:
+    """``decode_chunk`` for the kernel that takes q (B,Hkv,G,hd) and the
+    cache ``k``: the table's (``table`` given, k a pool) or the ring's,
+    at least DECODE_MIN_STEPS steps of the kernel's warps."""
+    b, hkv, g, hd = q.shape
+    rows = b * hkv * -(-g // group_tile(g))
+    step = warp_step(hd, k.element_size(), g)
+    least = max(DECODE_MIN_CHUNK, DECODE_MIN_STEPS * step)
+    if table is not None:
+        bs = k.shape[1]
+        return decode_chunk(table.shape[1] * bs, bs, rows, sms, least)
+    return decode_chunk(k.shape[1], step, rows, sms, least)
+
+
+def _sms(x) -> int:
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
+def _part(q, n_split):
+    """The fp32 partials of ``n_split`` splits per (row, KV head): acc,
+    then m and l (``run`` in the kernel source); none for one split."""
+    if n_split == 1:
+        return None
+    b, hkv, g, hd = q.shape
+    return torch.empty((b * hkv * n_split * g * (hd + 2),),
+                       device=q.device, dtype=torch.float32)
 
 
 def decode_ring(q, k, v, pos, *, window=None, scale=1.0, k_scale=None,
@@ -158,13 +200,24 @@ def decode_ring(q, k, v, pos, *, window=None, scale=1.0, k_scale=None,
         return ref.decode_attention_ref(q, k, v, pos, window=window,
                                         scale=scale, k_scale=k_scale,
                                         v_scale=v_scale)
+    return _ring(q, k, v, pos, window, scale, k_scale, v_scale)
+
+
+def _ring(q, k, v, pos, window, scale, k_scale, v_scale, chunk=None):
+    """One launch of the ring kernel, its slots split in chunks of
+    ``kernel_chunk``'s size, or of ``chunk`` slots when given
+    (kernel_sweep.py times the choices)."""
     qt, kvt = _check_cuda(q, k, v, pos, k_scale, v_scale, None)
     b, hkv, g, hd = q.shape
+    cap = k.shape[1]
+    if chunk is None:
+        chunk = kernel_chunk(q, k, None, _sms(q))
     o = torch.empty_like(q)
+    part = _part(q, len(decode_chunks(cap, chunk)))
     _call("decode_ring", _RING_ARGTYPES, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), _ptr(k_scale), _ptr(v_scale), pos.data_ptr(),
-          o.data_ptr(), b, hkv, g, k.shape[1], hd, _window(window),
-          float(scale), qt, kvt)
+          o.data_ptr(), _ptr(part), b, hkv, g, cap, hd, _window(window),
+          float(scale), chunk, qt, kvt)
     decode_ring.launches += 1
     return o
 
@@ -185,21 +238,16 @@ def decode_table(q, k, v, pos, table, *, window=None, scale=1.0,
 def _table(q, k, v, pos, table, window, scale, k_scale, v_scale,
            chunk=None):
     """One launch of the table kernel, its slots split in chunks of
-    ``decode_chunk``'s size, or of ``chunk`` slots (a multiple of bs) when
+    ``kernel_chunk``'s size, or of ``chunk`` slots (a multiple of bs) when
     given (kernel_sweep.py times the choices)."""
     qt, kvt = _check_cuda(q, k, v, pos, k_scale, v_scale, table)
     b, hkv, g, hd = q.shape
     bs = k.shape[1]
     cap = table.shape[1] * bs
     if chunk is None:
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        chunk = decode_chunk(cap, bs, b * hkv * -(-g // group_tile(g)), sms)
-    n_split = len(decode_chunks(cap, chunk))
+        chunk = kernel_chunk(q, k, table, _sms(q))
     o = torch.empty_like(q)
-    part = None
-    if n_split > 1:
-        part = torch.empty((b * hkv * n_split * g * (hd + 2),),
-                           device=q.device, dtype=torch.float32)
+    part = _part(q, len(decode_chunks(cap, chunk)))
     _call("decode_table", _TABLE_ARGTYPES, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), _ptr(k_scale), _ptr(v_scale), pos.data_ptr(),
           table.data_ptr(), o.data_ptr(), _ptr(part), b, hkv, g,

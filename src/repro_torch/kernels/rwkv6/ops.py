@@ -6,9 +6,11 @@
 r's dtype, the final state (B,H,K,K) fp32), as the reference's
 ``wkv_pallas(..., return_state=True)``.  It is the ``WKV``
 ``torch.autograd.Function``: the forward is ``wkv_fwd``, the kernel on
-CUDA tensors (``wkv_fwd.launches`` counts its launches) and the plain
-chunked form on CPU tensors; ``backend="plain"`` asks for the plain
-version on any device.
+CUDA tensors (``wkv_fwd.launches`` counts its calls, one for its two or
+three kernels) and the plain chunked form on CPU tensors; ``backend="plain"``
+asks for the plain version on any device.  The kernel cuts T into chunks
+of ``wkv_chunk`` steps that it walks in parallel, with the states between
+them carried in fp32 scratch the wrapper allocates.
 
 The backward has no kernel, in the reference or here: the reference
 pulls the cotangents of y and of the final state through
@@ -24,6 +26,7 @@ card runs.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -33,7 +36,16 @@ from repro_torch.kernels.rwkv6 import ref
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 CHUNK = 64           # the reference's ``chunk=min(64, S)`` (models/rwkv.py)
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# the kernel's chunks: multiples of the steps it stages at a time (TS in
+# csrc/wkv.cu), between WKV_MIN_CHUNK and WKV_MAX_CHUNK steps; the last
+# launch's walks of the later chunks aim at WKV_BLOCKS_PER_SM blocks per SM
+# (one wave: the walk's 168 registers a thread fit six blocks of 64 threads)
+WKV_STEP = 16
+WKV_MIN_CHUNK = 32
+WKV_MAX_CHUNK = 512
+WKV_BLOCKS_PER_SM = 6
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+             + [ctypes.c_void_p])
 
 
 def _check_shapes(r, k, v, w, u):
@@ -48,15 +60,46 @@ def _check_shapes(r, k, v, w, u):
                          f"{tuple(u.shape)}")
 
 
+@functools.lru_cache(maxsize=1024)
+def wkv_chunk(t: int, bh: int, sms: int) -> int:
+    """Steps per chunk of the WKV kernel for T = ``t`` and ``bh`` (batch
+    x heads) sequences on a card with ``sms`` SMs: the largest chunk of
+    WKV_MIN_CHUNK * 2^j steps, at most WKV_MAX_CHUNK, whose chunks after
+    the first (``wkv_chunks``; the first launch walks the first) still
+    give WKV_BLOCKS_PER_SM walks per SM.  Longer chunks carry fewer
+    states through memory and cost the first launch a longer walk;
+    shorter ones fill the card.  Pure: no device sync."""
+    chunk = WKV_MIN_CHUNK
+    want = WKV_BLOCKS_PER_SM * sms
+    while (chunk < min(t, WKV_MAX_CHUNK)
+           and bh * (-(-t // (2 * chunk)) - 1) >= want):
+        chunk *= 2
+    return chunk
+
+
+def wkv_chunks(t: int, chunk: int) -> list:
+    """The step runs ``[t0, t1)`` of ``[0, t)`` the kernel's chunks take,
+    the last one short."""
+    return [(t0, min(t, t0 + chunk)) for t0 in range(0, t, chunk)]
+
+
 def wkv_fwd(r, k, v, w, u, *, backend: str = "auto"):
     """(y (B,T,H,K) in r's dtype, final state (B,H,K,K) fp32) from a
     zero state: the kernel, or the plain chunked form.  The kernel takes
     r, k, v in fp32 or bf16 (one dtype), w and u in fp32."""
     _check_shapes(r, k, v, w, u)
-    b, t, h, kk = r.shape
+    t = r.shape[1]
     if common.route(backend, r) == "plain":
         y, s = ref.wkv_chunked(r, k, v, w, u, chunk=min(CHUNK, max(t, 1)))
         return y.to(r.dtype), s
+    return _fwd(r, k, v, w, u)
+
+
+def _fwd(r, k, v, w, u, chunk=None):
+    """One call of the kernel, in chunks of ``wkv_chunk``'s size, or of
+    ``chunk`` steps (a multiple of WKV_STEP) when given (kernel_sweep.py
+    times the choices)."""
+    b, t, h, kk = r.shape
     if kk not in HEAD_DIMS:
         raise ValueError(f"the wkv kernel takes K in {HEAD_DIMS}, got {kk}")
     for name, x in (("r", r), ("k", k), ("v", v)):
@@ -65,14 +108,26 @@ def wkv_fwd(r, k, v, w, u, *, backend: str = "auto"):
             raise ValueError(f"{name} is {x.dtype}, r is {r.dtype}")
     common.check_operand("w", w, 4)
     common.check_operand("u", u, 2)
+    for name, x in (("r", r), ("k", k), ("v", v), ("w", w)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     y = torch.empty_like(r)
     s = torch.empty((b, h, kk, kk), device=r.device, dtype=torch.float32)
     if r.numel() == 0:
         return y, s.zero_()
+    if chunk is None:
+        sms = torch.cuda.get_device_properties(
+            r.device).multi_processor_count
+        chunk = wkv_chunk(t, b * h, sms)
+    n = len(wkv_chunks(t, chunk)) - 1
+    part = None
+    if n:
+        part = torch.empty((b * h * n * (kk * kk + kk),), device=r.device,
+                           dtype=torch.float32)
     err = _build.function("wkv_fwd", _ARGTYPES)(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        y.data_ptr(), s.data_ptr(), b, t, h, kk,
-        int(r.dtype == torch.bfloat16),
+        y.data_ptr(), s.data_ptr(), None if part is None else part.data_ptr(),
+        b, t, h, kk, chunk, int(r.dtype == torch.bfloat16),
         torch.cuda.current_stream().cuda_stream)
     if err:
         raise _build.launch_error("wkv_fwd", err)

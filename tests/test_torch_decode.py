@@ -34,6 +34,7 @@ try:
     from repro.configs import ARCHS as JAX_ARCHS
     from repro.configs import reduced as jax_reduced
     from repro.kernels.common import KernelPolicy as JaxPolicy
+    from repro.kernels.decode_attention import ops as jax_ops
     from repro.kernels.decode_attention import ref as jax_ref
     from repro.kernels.decode_attention.decode_attention import (
         decode_attention_pallas)
@@ -197,17 +198,222 @@ def test_decode_split_covers_each_slot_once(cap, bs, rows, sms):
 
 
 def test_decode_split_by_grid_and_card():
-    """One split for the ring; at the serving tick chunks of 256 slots
-    (eight splits, DECODE_BLOCKS_PER_SM blocks per SM); fewer splits on a
-    card with fewer SMs or for more rows; at most one per
-    DECODE_MIN_CHUNK slots."""
-    assert ops.decode_chunk(2048, 0, 128, 132) == 2048
+    """At the serving tick chunks of 256 slots for the ring (whole 64-slot
+    steps of its warps) and for the table (eight splits,
+    DECODE_BLOCKS_PER_SM blocks per SM); fewer splits on a card with
+    fewer SMs or for more rows; at most one per DECODE_MIN_CHUNK
+    slots."""
+    assert ops.decode_chunk(2048, ops.warp_step(128, 2, 1), 128, 132,
+                            4 * 64) == 256
     serve = ops.decode_chunk(2048, 16, 128, 132)
     assert serve == 256
     assert 128 * 2048 // serve >= ops.DECODE_BLOCKS_PER_SM * 132
     assert ops.decode_chunk(2048, 16, 128, 16) > serve
     assert ops.decode_chunk(2048, 16, 4096, 132) == 2048
     assert ops.decode_chunk(2048, 16, 1, 132) == ops.DECODE_MIN_CHUNK
+
+
+RING_RULE_CASES = [  # (cap, hd, K/V bytes, G, rows, sms)
+    (2048, 128, 2, 1, 128, 132),     # the serving tick: B 8 x Hkv 16
+    (2048, 128, 1, 1, 128, 132),     # int8 K/V
+    (2048, 128, 4, 1, 128, 132),     # fp32 K/V
+    (2048, 256, 2, 16, 16, 132),     # the hybrid's attn layers: 2 tiles
+    (2048, 128, 2, 4, 64, 132),      # GQA 4
+    (300, 128, 2, 1, 4, 132),        # cap not a multiple of the chunk
+    (200, 64, 2, 4, 2, 16),
+    (64, 128, 2, 12, 8, 132),        # one split
+    (2048, 128, 2, 1, 4096, 132),    # the rows alone fill the card
+]
+
+
+@pytest.mark.parametrize("cap,hd,kv_bytes,g,rows,sms", RING_RULE_CASES)
+def test_ring_split_covers_each_slot_once(cap, hd, kv_bytes, g, rows, sms):
+    """The ring kernel's splits take every slot of [0, cap) exactly once;
+    above one split their chunks are whole steps of the kernel's warps
+    (``warp_step``), at least DECODE_MIN_STEPS of them and at least
+    DECODE_MIN_CHUNK slots."""
+    dtype = {1: torch.int8, 2: torch.bfloat16, 4: torch.float32}[kv_bytes]
+    b = rows // -(-g // ops.group_tile(g))
+    q = torch.zeros((b, 1, g, hd), dtype=torch.float32)
+    k = torch.zeros((b, cap, 1, hd), dtype=dtype)
+    step = ops.warp_step(hd, kv_bytes, g)
+    chunk = ops.kernel_chunk(q, k, None, sms)
+    runs = ops.decode_chunks(cap, chunk)
+    assert runs == [(z * chunk, min(cap, (z + 1) * chunk))
+                    for z in range(-(-cap // chunk))]
+    assert [c for lo, hi in runs for c in range(lo, hi)] == list(range(cap))
+    if len(runs) > 1:
+        assert chunk % step == 0
+        assert chunk >= max(ops.DECODE_MIN_CHUNK,
+                            ops.DECODE_MIN_STEPS * step)
+    else:
+        assert chunk == cap
+
+
+def test_ring_split_at_the_serving_tick():
+    """olmo-1b's tick (B 8, Hkv 16, G 1, hd 128, bf16 ring of 2048 slots)
+    on 132 SMs: eight chunks of 256 slots, four 64-slot warp steps each;
+    ``kernel_chunk`` reads it off the tensors' shapes alone."""
+    q = torch.zeros((8, 16, 1, 128), dtype=torch.bfloat16)
+    k = torch.zeros((8, 2048, 16, 128), dtype=torch.bfloat16)
+    assert ops.warp_step(128, 2, 1) == 64
+    chunk = ops.kernel_chunk(q, k, None, 132)
+    assert chunk == 256 and len(ops.decode_chunks(2048, chunk)) == 8
+    assert 128 * 8 >= ops.DECODE_BLOCKS_PER_SM * 132
+    pool = torch.zeros((8 * 128 + 1, 16, 16, 128), dtype=torch.bfloat16)
+    table = torch.zeros((8, 128), dtype=torch.int32)
+    assert ops.kernel_chunk(q, pool, table, 132) == 256
+
+
+def _arc_cut(lo, hi, p, cap, window):
+    """decode_kernel's cut of a chunk [lo, hi) to the arc of a row's
+    valid slots (the nv slots ending at p mod cap), mirrored."""
+    pm = p % cap
+    nv = min(p + 1, cap, window if window else cap)
+    first = pm - nv + 1
+    if nv <= 0:
+        return lo, lo
+    if first >= 0:
+        return max(lo, first), min(hi, pm + 1)
+    if lo > pm:
+        lo = max(lo, first + cap)
+    if hi <= first + cap:
+        hi = min(hi, pm + 1)
+    return lo, hi
+
+
+def _slot_valid(c, p, cap, nv):
+    """decode_kernel's test of slot c: (pm - c) mod cap < nv."""
+    pm = p % cap
+    return pm - c + (cap if c > pm else 0) < nv
+
+
+@pytest.mark.parametrize("cap", [64, 96, 100])
+@pytest.mark.parametrize("window", [None, 1, 17, 40, 64, 500])
+def test_ring_arc_cut_keeps_every_valid_slot(cap, window):
+    """For rows mid-fill and wrapped, each chunk's cut [lo, hi) holds all
+    of its valid slots (those ``ref.slot_positions`` and the window
+    allow), the kernel's slot test agrees with the reference's, and a
+    chunk with no valid slot is cut to nothing."""
+    for p in (0, 5, cap - 1, cap, cap + 7, 3 * cap - 2, 1000):
+        sp = ref.slot_positions(torch.tensor([p]), cap)[0]
+        valid = sp >= 0
+        if window:
+            valid &= sp > p - window
+        nv = min(p + 1, cap, window or cap)
+        assert [_slot_valid(c, p, cap, nv) for c in range(cap)] == \
+            valid.tolist()
+        for chunk in (16, 32, cap):
+            for lo0, hi0 in ops.decode_chunks(cap, chunk):
+                lo, hi = _arc_cut(lo0, hi0, p, cap, window)
+                inside = [c for c in range(lo0, hi0) if valid[c]]
+                if not inside:
+                    assert lo >= hi
+                else:
+                    assert lo0 <= lo <= min(inside) and \
+                        max(inside) < hi <= hi0
+
+
+def _split_merge(q, k, v, pos, chunk, *, window=None, scale=1.0,
+                 k_scale=None, v_scale=None):
+    """The ring kernel's split-KV in plain PyTorch: per chunk of ``chunk``
+    slots below a row's visible ones, the online-softmax state (m, l,
+    acc) of the valid slots of its cut (m = NEG, l = 0 where none), then
+    the chunks merged in split order, as ``decode_merge`` does."""
+    b, cap, hkv, hd = k.shape
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf = kf * k_scale.float()[..., None]
+        vf = vf * v_scale.float()[..., None]
+    s = torch.einsum("bhgk,bshk->bhgs", q.float(), kf) * scale
+    out = torch.zeros(q.shape, dtype=torch.float32)
+    for row in range(b):
+        p = int(pos[row])
+        nv = min(p + 1, cap, window or cap)
+        n_used = -(-min(p + 1, cap) // chunk)
+        parts = []
+        for z in range(n_used):
+            lo, hi = _arc_cut(z * chunk, min(cap, (z + 1) * chunk), p, cap,
+                              window)
+            idx = [c for c in range(lo, hi) if _slot_valid(c, p, cap, nv)]
+            if not idx:
+                parts.append((torch.full(q.shape[1:3], ref.NEG),
+                              torch.zeros(q.shape[1:3]),
+                              torch.zeros(q.shape[1:])))
+                continue
+            sz = s[row][..., idx]                        # (Hkv, G, n)
+            m = sz.max(-1).values
+            pe = torch.exp(sz - m[..., None])
+            parts.append((m, pe.sum(-1),
+                          torch.einsum("hgs,shd->hgd", pe, vf[row, idx])))
+        mx = torch.stack([m for m, _, _ in parts]).max(0).values
+        lsum = sum(l * torch.exp(m - mx) for m, l, _ in parts)
+        osum = sum(a * torch.exp(m - mx)[..., None] for m, _, a in parts)
+        out[row] = osum / torch.clamp(lsum, min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+SPLIT_CASES = [  # (b, cap, hkv, g, hd, window, pos, chunk, int8)
+    # wrapped rows whose window empties whole chunks (6 of 8 at pos 600)
+    (2, 256, 2, 1, 64, 40, [600, 290], 32, False),
+    # a row shorter than one chunk beside rows over several
+    (3, 128, 2, 2, 32, None, [10, 127, 300], 32, False),
+    # the hybrid's attn layers: G 16 on one KV head at hd 256
+    (2, 96, 1, 16, 256, None, [50, 300], 32, False),
+    (2, 100, 2, 4, 32, 30, [99, 450], 16, True),     # int8, cap % chunk
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_ring_split_and_merge_matches_reference(case):
+    """The split-and-merge mirror against the port's plain version and
+    the reference's op (its Pallas kernel in interpret mode) on the same
+    numpy inputs."""
+    b, cap, hkv, g, hd, window, pos, chunk, int8 = case
+    q, k, v, ks, vs = _qkv(b, cap, hkv, g, hd, seed=cap + g, int8=int8)
+    pos = np.asarray(pos, np.int32)
+    kw = dict(window=window, scale=hd ** -0.5)
+    got = _split_merge(*map(_t, (q, k, v, pos)), chunk, k_scale=_t(ks),
+                       v_scale=_t(vs), **kw).numpy()
+    plain = ref.decode_attention_ref(*map(_t, (q, k, v, pos)),
+                                     k_scale=_t(ks), v_scale=_t(vs), **kw)
+    want = jax_ops.decode_attention(*map(_j, (q, k, v, pos)),
+                                    k_scale=_j(ks), v_scale=_j(vs),
+                                    impl="pallas", interpret=True, **kw)
+    for w in (plain.numpy(), np.asarray(want)):
+        np.testing.assert_allclose(got, w, rtol=TOL, atol=TOL)
+    if window:   # the case holds chunks the window empties
+        p = int(pos[0])
+        assert any(lo >= hi for lo, hi in (
+            _arc_cut(lo0, hi0, p, cap, window)
+            for lo0, hi0 in ops.decode_chunks(cap, chunk)))
+
+
+def test_warp_step_matches_the_kernel():
+    """``warp_step`` mirrors the kernel's ``Shape`` (warps x unroll), read
+    from the source, at every head dim, K/V type and group tile; the ring
+    entry takes a chunk and the partials' scratch."""
+    src = (Path(ops.__file__).parent / "csrc"
+           / "decode_attention.cu").read_text()
+    shape = re.search(
+        r"warps = GT \* HD / 32 >= (\d+) \? (\d+) : (\d+);.*?"
+        r"by_bytes = (\d+) / \(2 \* HD \* \(int\)sizeof\(TKV\)\);.*?"
+        r"u = by_bytes < (\d+) / GT \? by_bytes : \5 / GT;.*?"
+        r"unroll = u < (\d+) \? \6 : \(u > (\d+) \? \7 : u\);",
+        src, re.S)
+    assert shape, "the kernel's Shape moved"
+    cut, many, few, budget, scores, lo, hi = map(int, shape.groups())
+    for hd in ops.HEAD_DIMS:
+        for kv_bytes in (1, 2, 4):
+            for g in range(1, 17):
+                gt = ops.group_tile(g)
+                warps = many if gt * hd // 32 >= cut else few
+                u = min(budget // (2 * hd * kv_bytes), scores // gt)
+                assert ops.warp_step(hd, kv_bytes, g) == \
+                    warps * max(lo, min(hi, u))
+    ring = src[src.index('extern "C" int decode_ring'):]
+    assert "float* part" in ring and "int chunk" in ring
+    assert "n_split = (cap + chunk - 1) / chunk" in ring
 
 
 def test_decode_tiles_match_the_kernel():
@@ -544,6 +750,15 @@ CARD_CASES = [  # (b, cap, hkv, g, hd, window, pos, bs): bs 0 = ring
     (2, 1024, 2, 2, 128, 100, [1023, 2000], 16),
     (2, 272, 1, 4, 128, None, [271, 500], 16),
     (2, 256, 2, 12, 128, None, [255, 100], 16),
+    # the ring kernel's split (kernel_chunk; several chunks per row here):
+    # the same five, and G 16 at hd 256 (two query-head tiles per row, the
+    # hybrid's attn layers) on a wrapped, windowed ring
+    (2, 1024, 2, 1, 128, None, [1023, 3000], 0),
+    (3, 512, 2, 1, 64, None, [10, 511, 40], 0),
+    (2, 1024, 2, 2, 128, 100, [1023, 2000], 0),
+    (2, 272, 1, 4, 128, None, [271, 500], 0),
+    (2, 256, 2, 12, 128, None, [255, 100], 0),
+    (2, 512, 1, 16, 256, 300, [511, 1500], 0),
 ]
 
 
@@ -602,6 +817,21 @@ def test_decode_table_is_deterministic(cuda):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert ops.decode_chunk(2048, 16, 8 * 16, sms) < 2048
     q, k, v, pos, kw = _card(case, torch.bfloat16, torch.bfloat16)
+    first = ops.decode_attention(q, k, v, pos, **kw)
+    second = ops.decode_attention(q, k, v, pos, **kw)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_decode_ring_is_deterministic(cuda):
+    """At the serving tick's shape the ring kernel splits each row over
+    eight blocks whose partials a second kernel folds in split order:
+    two calls agree bit for bit."""
+    case = (8, 2048, 16, 1, 128, None,
+            [100, 517, 1023, 1500, 2047, 2048, 3000, 5000], 0)
+    q, k, v, pos, kw = _card(case, torch.bfloat16, torch.bfloat16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ops.kernel_chunk(q, k, None, sms) < 2048
     first = ops.decode_attention(q, k, v, pos, **kw)
     second = ops.decode_attention(q, k, v, pos, **kw)
     assert torch.equal(first, second)

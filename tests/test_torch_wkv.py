@@ -9,6 +9,9 @@ interpret mode (``wkv_pallas(interpret=True)``), at the shapes of its
 own tests.  Both take the same numpy inputs.  Tests marked ``cuda`` hold
 the kernel against the plain versions on the card.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -178,6 +181,138 @@ def test_underflowed_decay_stays_finite_sequentially():
         *map(jnp.asarray, (r, k, v, w, u)), chunk=32)[0])).any()
 
 
+@pytest.mark.parametrize("t,bh,sms", [
+    (2048, 256, 132),     # rwkv6-7b training: B 4 x H 64
+    (1000, 64, 132),      # ragged T
+    (4096, 4, 132),       # few sequences: the longest chunks
+    (100, 8, 16),
+    (5, 1, 132),          # T shorter than one chunk
+    (1, 1, 132),
+])
+def test_wkv_chunk_covers_each_step_once(t, bh, sms):
+    """The kernel's chunks take every step of [0, T) exactly once, in
+    whole staged runs (WKV_STEP) between WKV_MIN_CHUNK and
+    WKV_MAX_CHUNK steps, the last one short; T under one chunk is one
+    chunk."""
+    chunk = ops.wkv_chunk(t, bh, sms)
+    runs = ops.wkv_chunks(t, chunk)
+    assert chunk % ops.WKV_STEP == 0
+    assert ops.WKV_MIN_CHUNK <= chunk <= ops.WKV_MAX_CHUNK
+    assert [s for a, b in runs for s in range(a, b)] == list(range(t))
+    assert all(b - a == chunk for a, b in runs[:-1])
+    if t <= ops.WKV_MIN_CHUNK:
+        assert runs == [(0, t)]
+
+
+def test_wkv_chunk_by_shape_and_card():
+    """256-step chunks at the training shape on 132 SMs (the last launch
+    walks 7 chunks of each of 256 sequences: at least WKV_BLOCKS_PER_SM
+    walks per SM), 64 at the ragged shape's 64 sequences; shorter on a
+    card with more SMs, the longest for many sequences, the shortest for
+    one."""
+    train = ops.wkv_chunk(2048, 256, 132)
+    assert train == 256
+    assert 256 * (2048 // train - 1) >= ops.WKV_BLOCKS_PER_SM * 132
+    assert 256 * (2048 // (2 * train) - 1) < ops.WKV_BLOCKS_PER_SM * 132
+    assert ops.wkv_chunk(1000, 64, 132) == 64
+    assert ops.wkv_chunk(2048, 256, 4 * 132) < train
+    assert ops.wkv_chunk(2048, 4096, 132) == ops.WKV_MAX_CHUNK
+    assert ops.wkv_chunk(2048, 1, 132) == ops.WKV_MIN_CHUNK
+
+
+def _three_passes(r, k, v, w, u, chunk):
+    """The kernel's chunk-parallel WKV in plain PyTorch, fp32, no log:
+    (3) chunk 0 walked from a zero state, which gives its y and S_1; (1)
+    each later chunk but the last from a zero state, L = sum_s (k_s * the
+    product of the chunk's later w) v_s^T, walked backwards, and its decay
+    D = prod w; (2) the carry S_{c+1} = D_c * S_c + L_c from S_1; (3) each
+    later chunk walked from its S_c for y; the last walk ends in the final
+    state."""
+    b, t, h, kk = r.shape
+    r, k, v, w = (x.float() for x in (r, k, v, w))
+    u = u.float()
+    runs = ops.wkv_chunks(t, chunk)
+
+    def walk(t0, t1, state, ys):
+        for s in range(t0, t1):
+            kv = k[:, s, :, :, None] * v[:, s, :, None, :]
+            ys.append(torch.einsum("bhk,bhkv->bhv", r[:, s],
+                                   state + u[None, :, :, None] * kv))
+            state = w[:, s, :, :, None] * state + kv
+        return state
+
+    ys = []
+    state = walk(*runs[0], torch.zeros((b, h, kk, kk)), ys)
+    parts = []
+    for t0, t1 in runs[1:-1]:
+        q = torch.ones((b, h, kk))
+        chunk_state = torch.zeros((b, h, kk, kk))
+        for s in reversed(range(t0, t1)):
+            chunk_state = chunk_state + (k[:, s] * q)[..., None] * \
+                v[:, s, :, None, :]
+            q = q * w[:, s]
+        parts.append((chunk_state, q))
+    states = [state]
+    for chunk_state, decay in parts:
+        states.append(decay[..., None] * states[-1] + chunk_state)
+    for (t0, t1), start in zip(runs[1:], states):
+        state = walk(t0, t1, start, ys)
+    return torch.stack(ys, 1), state
+
+
+@pytest.mark.parametrize("b,t,h,k,chunk", [
+    (2, 100, 2, 16, 32),     # ragged: 3 full chunks and 4 steps
+    (1, 70, 3, 32, 16),
+    (2, 20, 1, 16, 32),      # T under one chunk
+    (1, 64, 2, 64, 16)])
+def test_three_passes_match_reference(b, t, h, k, chunk):
+    """The three-pass mirror against the port's sequential form and the
+    reference's Pallas kernel (interpret mode) on the same numpy
+    inputs, ragged T included: y and the final state at 2e-4."""
+    xs = _inputs(b, t, h, k, seed=8)
+    y, s = _three_passes(*_t(xs), chunk)
+    seq_y, seq_s = ref.wkv_sequential(*_t(xs))
+    want_y, want_s = wkv_pallas(*map(jnp.asarray, xs), chunk=min(64, t),
+                                interpret=True, return_state=True)
+    for wy, ws in ((seq_y, seq_s), (want_y, want_s)):
+        _close(y, wy)
+        _close(s, ws)
+
+
+def test_three_passes_stay_finite_where_decay_underflows():
+    """w = 0 inside a later chunk and on the last step of a chunk (its
+    decay product is 0 then): the mirror, which takes no log, stays
+    finite and matches the sequential forms, the port's and the
+    reference's."""
+    r, k, v, w, u = _inputs(1, 100, 2, 16, seed=9)
+    w[0, 70, 1, 3] = 0.0          # inside chunk 2 of 32-step chunks
+    w[0, 63, 0, 5] = 0.0          # the last step of chunk 1
+    y, s = _three_passes(*_t((r, k, v, w, u)), 32)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    seq_y, seq_s = ref.wkv_sequential(*_t((r, k, v, w, u)))
+    want_y, want_s = jax_ref.wkv_sequential(*map(jnp.asarray,
+                                                 (r, k, v, w, u)))
+    for wy, ws in ((seq_y, seq_s), (want_y, want_s)):
+        _close(y, wy)
+        _close(s, ws)
+
+
+def test_wkv_constants_match_the_kernel():
+    """The wrapper's WKV_STEP is the kernel's TS, its scratch of
+    B * H * (nc - 1) * (K * K + K) floats the kernel's layout (the
+    states, then the decays), and the kernel refuses a chunk that is no
+    multiple of TS."""
+    src = (Path(ops.__file__).parent / "csrc" / "wkv.cu").read_text()
+    ts = re.search(r"constexpr int TS = (\d+);", src)
+    assert ts and int(ts.group(1)) == ops.WKV_STEP
+    assert "B * H * (nc - 1) * (K * K + K) floats" in src
+    assert "part_d = part + (size_t)bh * (nc - 1) * K * K" in src
+    # slot 0 of each (b, h) holds S_1, which the walk of chunk 0 leaves
+    assert "part + (size_t)bh * (nc - 1) * K * K, rg, cg, S)" in src
+    assert "chunk < TS || chunk % TS" in src
+    assert ops.WKV_MIN_CHUNK % ops.WKV_STEP == 0
+
+
 def test_wrapper_checks_its_inputs():
     r, k, v, w, u = _t(_inputs(1, 8, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):
@@ -221,11 +356,18 @@ def _card_inputs(b, t, h, k, dtype, seed=0):
 @pytest.mark.parametrize("b,t,h,k,dtype", [
     (2, 64, 8, 32, torch.float32), (1, 100, 4, 16, torch.float32),
     (2, 128, 2, 128, torch.float32), (2, 64, 8, 32, torch.bfloat16),
-    (4, 2048, 64, 64, torch.bfloat16)])
+    (4, 2048, 64, 64, torch.bfloat16),
+    # the chunk-parallel kernel's edges: T 1, T 5 (one short chunk), T
+    # not a multiple of the chunk, K 128 over several chunks, a single
+    # (b, h)
+    (2, 1, 4, 64, torch.float32), (2, 5, 3, 32, torch.bfloat16),
+    (2, 300, 4, 64, torch.float32), (1, 700, 2, 128, torch.bfloat16),
+    (1, 777, 1, 64, torch.float32)])
 def test_kernel_matches_plain_chunked(cuda, b, t, h, k, dtype):
     """The kernel's y and final state against the plain chunked form on
-    the same inputs: the smoke shapes (K 16, 32, 128, ragged T) and the
-    full-width training shape (B 4, T 2048, H 64, K 64, bf16)."""
+    the same inputs: the smoke shapes (K 16, 32, 128, ragged T), the
+    full-width training shape (B 4, T 2048, H 64, K 64, bf16) and the
+    chunking's edges."""
     xs = _card_inputs(b, t, h, k, dtype)
     before = ops.wkv_fwd.launches
     y, s = ops.wkv_fwd(*xs)
@@ -248,6 +390,34 @@ def test_kernel_stays_finite_where_decay_underflows(cuda):
     assert torch.isfinite(y).all()
     torch.testing.assert_close(y, want_y, rtol=TOL, atol=TOL)
     torch.testing.assert_close(s, want_s, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_kernel_stays_finite_where_decay_underflows_at_a_boundary(cuda):
+    """w = 0 on the last step of a chunk and on the first of the next
+    (the chunk's decay product is 0 there): the kernel against the plain
+    sequential form."""
+    r, k, v, w, u = _card_inputs(1, 256, 2, 32, torch.float32, seed=4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk = ops.wkv_chunk(256, 2, sms)
+    assert chunk < 256
+    w[0, chunk - 1, 1, 5] = 0.0
+    w[0, chunk, 0, 3] = 0.0
+    y, s = ops.wkv_fwd(r, k, v, w, u)
+    want_y, want_s = ref.wkv_sequential(r, k, v, w, u)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y, want_y, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(s, want_s, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_wkv_is_deterministic(cuda):
+    """At the training shape the kernel's chunks meet through a carry
+    pass in chunk order, not atomics: two calls agree bit for bit."""
+    xs = _card_inputs(4, 2048, 64, 64, torch.bfloat16, seed=5)
+    first = ops.wkv_fwd(*xs)
+    second = ops.wkv_fwd(*xs)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
