@@ -21,7 +21,9 @@ rwkv6-7b), ``recurrence`` (``recurrence_phase``: the WKV and RG-LRU
 kernels' rows, then their Functions' grads), ``lm_serving``
 (``lm_serving_phase``), ``conv`` (the fused conv's rows at the serving
 batch, 8, of both AlexNets and the training batch, 128; a turn's sums of
-the rows by batch follow its rows as ``conv_sum`` lines), ``decode``
+the rows by config and batch follow its rows as ``conv_sum`` lines),
+``lrn`` (``lrn_phase``, the LRN rows at the same batches, summed the
+same way as ``lrn_sum`` lines), ``decode``
 (``decode_phase``, then every case's output digest; the last line says,
 per case, whether the two turns of each tree agree and whether the two
 trees do), ``alexnet_train`` (``train_timing``'s windows of the
@@ -64,6 +66,17 @@ cs.train_timing(cs.alexnet_loss(cfg), cs.init_state(cfg, seed),
     "rwkv_train": "cs.recurrent_train_phase('rwkv6-7b', seed)",
     "recurrence": "cs.recurrence_phase(gen)",
     "lm_serving": "cs.lm_serving_phase(seed)",
+    # a tree without lrn_phase runs its kernel phase with the conv and GEMM
+    # rows left out, which leaves its LRN rows
+    "lrn": """cases = [(ALEXNET_FAITHFUL, cs.SERVE_BATCH), (ALEXNET, cs.SERVE_BATCH),
+         (ALEXNET_FAITHFUL, cs.TRAIN_BATCH)]
+if hasattr(cs, "lrn_phase"):
+    cs.lrn_phase(gen, cases)
+else:
+    saved = cs.conv_phase, cs.gemm_phase
+    cs.conv_phase = cs.gemm_phase = lambda *args, **kw: None
+    cs.kernel_phase(gen, (ALEXNET_FAITHFUL.name, cs.TRAIN_BATCH), cases)
+    cs.conv_phase, cs.gemm_phase = saved""",
     # a tree without conv_phase runs its whole kernel phase (conv rows
     # first, then LRN and GEMM)
     "conv": """cases = [(ALEXNET_FAITHFUL, cs.SERVE_BATCH), (ALEXNET, cs.SERVE_BATCH),
@@ -96,7 +109,7 @@ pre = cs.pool_stream(pool, mean, cfg, seed)()
 prepped = [next(pre) for _ in pool]
 cs.train_timing(cs.alexnet_loss(cfg), cs.init_state(cfg, seed),
                 lambda: itertools.cycle(prepped), cfg.name,
-                "preprocessed pool", items)""",
+                "preprocessed pool", items, scopes=("lrn_bwd",))""",
     "lm_ticks": """from torch.profiler import ProfilerActivity, profile
 from repro_torch import models
 from repro_torch.configs import ARCHS
@@ -163,7 +176,7 @@ def main() -> int:
             proc = subprocess.run([sys.executable, "-c", code],
                                   cwd=trees[tree], stdout=out,
                                   stderr=subprocess.STDOUT, text=True)
-        conv = {}
+        sums = {}
         with open(log) as f:
             for line in f:
                 if line.startswith("{"):
@@ -172,15 +185,19 @@ def main() -> int:
                     if "digest" in row:
                         digests.setdefault(row["case"], {}).setdefault(
                             tree, set()).add(row["digest"])
-                    if row.get("kernel") == "conv2d_fused":
-                        tot = conv.setdefault(row["batch"], {
-                            "layers": 0, "kernel_ms": 0.0,
+                    if row.get("kernel") in ("conv2d_fused", "lrn"):
+                        key = ("conv" if row["kernel"] == "conv2d_fused"
+                               else "lrn", row["config"], row["batch"])
+                        tot = sums.setdefault(key, {
+                            "layers": 0, "kernel_ms": 0.0, "plain_ms": 0.0,
                             "library_ms": 0.0, "bound_ms": 0.0})
                         tot["layers"] += 1
-                        for k in ("kernel_ms", "library_ms", "bound_ms"):
+                        for k in ("kernel_ms", "plain_ms", "library_ms",
+                                  "bound_ms"):
                             tot[k] += row[k]
-        for batch, tot in sorted(conv.items()):
-            print(turn, json.dumps({"phase": "conv_sum", "batch": batch,
+        for (kind, config, batch), tot in sorted(sums.items()):
+            print(turn, json.dumps({"phase": f"{kind}_sum",
+                                    "config": config, "batch": batch,
                                     **tot}))
         if proc.returncode:
             print(f"ab_smoke: turn {turn} failed (exit {proc.returncode}); "

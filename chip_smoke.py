@@ -17,8 +17,8 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    ``addmm``; yardsticks only, never called by the port) and the card's
    bound, one JSON line per kernel and shape.  Conv and LRN run at the
    serving batch (8) and the training batch (128 per replica), the conv
-   rows with the kernel's tile, blocks and split and two calls agreeing
-   bit for bit; the GEMM runs the forward, dx and dw products of every
+   rows with the kernel's tile, blocks and split, two conv and two LRN
+   calls agreeing bit for bit; the GEMM runs the forward, dx and dw products of every
    conv of the im2col training phase (32 per replica), two calls agreeing
    bit for bit where the reduction is split over blocks;
 4. flash kernel phase: the flash-attention forward, dq and dk/dv kernels
@@ -48,14 +48,17 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    with ragged T 1000, fp32 inputs, and, against the plain sequential
    form, one input with a w = 0 entry, two calls agreeing bit for bit,
    each row with the kernel's chunk of steps; the RG-LRU kernel
-   ``rglru_fwd``, forward and reversed, against the plain loops (2e-4) at
-   the ``recurrentgemma-9b`` training shape (B 2, T 2048, D 4096), ragged
-   T and D, and strong decay; timed beside the plain versions and the
-   bound (no PyTorch call computes either, so no library yardstick).
+   ``rglru_fwd``, forward, reversed, and reversed with the backward's da
+   in the same launch, against the plain loops (2e-4) at the
+   ``recurrentgemma-9b`` training shape (B 2, T 2048, D 4096), ragged T
+   and D, and strong decay, two calls agreeing bit for bit, each row with
+   the kernel's chunk; timed beside the plain versions and the bounds
+   (12 bytes an element forward, 20 reversed with da; no PyTorch call
+   computes either recurrence, so no library yardstick).
    Then the WKV Function's grads against autograd through the plain
    chunked form, its plain chunk-recompute backward timed at the
    training shape, and the RG-LRU Function's grads (the reversed launch)
-   against its plain route;
+   against its plain route, its backward timed at the training shape;
 7. serving phase: serves 32 random 227x227x3 images through
    ``ServingEngine`` on ``ALEXNET_FAITHFUL`` at full width (8 slots,
    greedy) with the launch counts set to 0 just before and read just
@@ -72,7 +75,8 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    and step, no GEMM); losses and params are held against the same run
    under the plain policy on the card; the replicas' spread is 0 after
    every step.  Then three timed windows of 10 steps give images/s and
-   step p50/p99, and a traced window the device time by family and the
+   step p50/p99, and a traced window the device time by family (the
+   LRN backward's plain closed form booked apart, ``lrn_bwd``) and the
    idle share: once with the host preprocess (mean, crop, flip) in the
    loader thread for every batch, once over a pool preprocessed ahead;
 9. im2col training phase: 3 steps at 2 x 32 under
@@ -266,7 +270,7 @@ def kernel_family(name: str) -> str:
     """The family a device kernel's time is booked under."""
     n = name.lower()
     for fam, keys in (("conv2d_fused", ("conv2d_fused",)),
-                      ("lrn", ("lrn_kernel",)),
+                      ("lrn", ("lrn_vec_kernel", "lrn_generic_kernel")),
                       ("matmul_bias", ("matmul_bias",)),
                       ("max_pool", ("max_pool",)),
                       ("conv_grad", ("wgrad", "dgrad", "cudnn", "conv",
@@ -286,7 +290,7 @@ def lm_family(name: str) -> str:
     n = name.lower()
     for fam, keys in (("flash_fwd", ("flash_fwd_kernel",)),
                       ("wkv", ("wkv_chunk_kernel", "wkv_carry_kernel")),
-                      ("rglru", ("rglru_kernel",)),
+                      ("rglru", ("rglru_scan_kernel",)),
                       ("decode", ("decode_kernel", "decode_merge")),
                       ("flash_dq", ("flash_dq_kernel",)),
                       ("flash_dkv", ("flash_dkv_kernel",)),
@@ -502,12 +506,6 @@ def conv_phase(gen, cases, account=None):
 def kernel_phase(gen, main, cases):
     """Kernel rows at every shape of ``cases``; the totals sum the rows
     of ``main`` = (config name, batch), the training path's forward."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.lrn import ops as lrn_ops
-    from repro_torch.kernels.lrn.ref import lrn_ref
-
-    dev = torch.device("cuda")
     totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                      "library_ms": 0.0, "max_abs_err": 0.0, "flops": 0.0,
                      "bytes": 0.0}
@@ -524,7 +522,22 @@ def kernel_phase(gen, main, cases):
             tot["bytes"] += row["bytes"]
 
     conv_phase(gen, cases, account)
+    lrn_phase(gen, cases, account)
+    gemm_phase(gen, totals, account)
+    return totals
 
+
+def lrn_phase(gen, cases, account=None):
+    """``lrn`` against its plain version at every LRN of ``cases``
+    (2e-5), two calls bit-equal, timed beside the plain version,
+    ``F.local_response_norm`` (a yardstick only) and the bound; one row
+    per layer.  ``account(name, key, row)`` sees every row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.lrn import ops as lrn_ops
+    from repro_torch.kernels.lrn.ref import lrn_ref
+
+    dev = torch.device("cuda")
     for cfg_name, batch, layer, xs in lrn_cases(cases):
         cfg = next(c for c, _ in cases if c.name == cfg_name)
         n, alpha, beta, k = cfg.lrn_n, cfg.lrn_alpha, cfg.lrn_beta, cfg.lrn_k
@@ -536,6 +549,11 @@ def kernel_phase(gen, main, cases):
             want = lrn_ref(x, n=n, alpha=alpha, beta=beta, k=k)
             err = check_close(f"lrn {cfg_name} b{batch} {layer}", got, want,
                               LRN_TOL)
+            if not torch.equal(got, lrn_ops.lrn(x, n=n, alpha=alpha,
+                                                beta=beta, k=k,
+                                                backend="cuda")):
+                raise AssertionError(f"lrn {cfg_name} b{batch} {layer}: "
+                                     "two calls differ")
             # PyTorch's LRN divides alpha by the window size
             x_nchw = x.permute(0, 3, 1, 2).contiguous()
 
@@ -560,10 +578,8 @@ def kernel_phase(gen, main, cases):
                "gbps": nbytes / (k_ms * 1e-3) / 1e9, "max_err": err,
                "library_err": lib_err}
         emit(row)
-        account("lrn", (cfg_name, batch), row)
-
-    gemm_phase(gen, totals, account)
-    return totals
+        if account:
+            account("lrn", (cfg_name, batch), row)
 
 
 def gemm_phase(gen, totals, account):
@@ -982,14 +998,15 @@ def train_phase(model_cfg, seed):
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     del plain
     state = train_timing(alexnet_loss(cfg), res.state, make_stream,
-                         cfg.name, "preprocess per batch", items)
+                         cfg.name, "preprocess per batch", items,
+                         scopes=("lrn_bwd",))
     # the same windows with the pool preprocessed once: the loader thread
     # then only copies into pinned memory, so the step shows the trainer
     # and the card rather than the host's numpy
     pre = make_stream()
     prepped = [next(pre) for _ in pool]
     train_timing(alexnet_loss(cfg), state, lambda: itertools.cycle(prepped),
-                 cfg.name, "preprocessed pool", items)
+                 cfg.name, "preprocessed pool", items, scopes=("lrn_bwd",))
     return launches
 
 
@@ -1436,10 +1453,11 @@ def wkv_inputs(gen, b, t, h, k, dtype, w_zero):
 def recurrence_phase(gen):
     """The WKV kernel against the plain chunked form (the plain
     sequential form where one w underflowed to 0) at every case of
-    ``WKV_CASES``, and the RG-LRU kernel, forward and reversed, against
-    the plain loops at every case of ``RGLRU_CASES``, timed beside the
-    plain versions and the bound (no PyTorch call computes either
-    recurrence, so there is no library yardstick).  Then the backward:
+    ``WKV_CASES``, and the RG-LRU kernel, forward and reversed (alone
+    and with da), against the plain loops at every case of
+    ``RGLRU_CASES``, two calls bit-equal, timed beside the plain versions
+    and the bounds (no PyTorch call computes either recurrence, so there
+    is no library yardstick).  Then the backward:
     the WKV Function's grads (kernel forward, chunk-recompute backward)
     against autograd through the plain chunked form, its backward timed
     at the training shape, and the RG-LRU Function's grads (the reversed
@@ -1511,34 +1529,59 @@ def recurrence_phase(gen):
         x = torch.randn((b, t, d), generator=gen, device=dev)
         with torch.inference_mode():
             h = rg_ops.rglru_fwd(a, x, backend="cuda")
-            g = rg_ops.rglru_fwd(a, x, reverse=True, backend="cuda")
+            g, da = rg_ops.rglru_transpose_grads(a, x, h, backend="cuda")
+            g_only = rg_ops.rglru_fwd(a, x, reverse=True, backend="cuda")
             torch.cuda.synchronize()
+            want_g, want_da = rg_ref.rglru_transpose_grads(a, x, h)
             err = max(check_close(f"rglru_fwd {case}", h,
                                   rg_ref.rglru_sequential(a, x)[0],
                                   RGLRU_TOL),
-                      check_close(f"rglru_fwd reverse {case}", g,
-                                  rg_ref.rglru_transpose(a, x), RGLRU_TOL))
+                      check_close(f"rglru_fwd reverse {case}", g_only,
+                                  want_g, RGLRU_TOL),
+                      check_close(f"rglru_fwd reverse+da {case} g", g,
+                                  want_g, RGLRU_TOL),
+                      check_close(f"rglru_fwd reverse+da {case} da", da,
+                                  want_da, RGLRU_TOL))
+            again = rg_ops.rglru_transpose_grads(a, x, h, backend="cuda")
+            if not (torch.equal(h, rg_ops.rglru_fwd(a, x, backend="cuda"))
+                    and torch.equal(g, again[0])
+                    and torch.equal(da, again[1])):
+                raise AssertionError(f"rglru_fwd {case}: two calls differ")
             k_ms = time_ms(lambda: rg_ops.rglru_fwd(a, x, backend="cuda"),
                            reps=10)
-            rev_ms = time_ms(lambda: rg_ops.rglru_fwd(
-                a, x, reverse=True, backend="cuda"), reps=10)
+            rev_ms = time_ms(lambda: rg_ops.rglru_transpose_grads(
+                a, x, h, backend="cuda"), reps=10)
             p_ms = time_ms(lambda: rg_ref.rglru_sequential(a, x), reps=3,
                            warmup=1)
+            rev_p_ms = time_ms(lambda: rg_ref.rglru_transpose_grads(
+                a, x, h), reps=3, warmup=1)
         n = b * t * d
         bound, bound_by = _bound(2.0 * n, 12.0 * n)
+        # the reversed launch with da: a, dh, h read, g and da written
+        rev_bound, rev_bound_by = _bound(3.0 * n, 20.0 * n)
+        chunk = rg_ops.rglru_chunk(t, b * d, sms)
         row = {"phase": "recurrence_kernel", "kernel": "rglru_fwd",
-               "case": case, "shape": [b, t, d], "ms": k_ms,
-               "reverse_ms": rev_ms, "plain_ms": p_ms, "bound_ms": bound,
+               "case": case, "shape": [b, t, d], "chunk": chunk,
+               "n_chunks": rg_ops.rglru_grid(b, t, d, chunk)[1],
+               "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                "bound_by": bound_by, "flops": 2.0 * n, "bytes": 12.0 * n,
-               "gbps": 12.0 * n / (k_ms * 1e-3) / 1e9, "max_err": err,
-               "assumes": assumes}
+               "gbps": 12.0 * n / (k_ms * 1e-3) / 1e9,
+               "reverse_ms": rev_ms, "reverse": "g and da, one launch",
+               "reverse_plain_ms": rev_p_ms, "reverse_bytes": 20.0 * n,
+               "reverse_bound_ms": rev_bound,
+               "reverse_bound_by": rev_bound_by,
+               "reverse_gbps": 20.0 * n / (rev_ms * 1e-3) / 1e9,
+               "max_err": err, "assumes": assumes,
+               "finite": bool(torch.isfinite(h).all()
+                              and torch.isfinite(g).all()
+                              and torch.isfinite(da).all())}
         emit(row)
         tot = totals["rglru_fwd"]
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         if case == "train":
             tot.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                        bound_by=bound_by, library_ms=None,
-                       reverse_ms=rev_ms)
+                       reverse_ms=rev_ms, reverse_bound_ms=rev_bound)
     recurrence_backward(gen, totals)
     return totals
 
@@ -1548,7 +1591,7 @@ def recurrence_backward(gen, totals):
     chunk-recompute backward) against autograd through the plain chunked
     form at a small shape, and its backward's time at the training
     shape; RG-LRU (the reversed launch) against its plain route at the
-    training shape."""
+    training shape, and its backward's time there."""
     from repro_torch.kernels.rglru import ops as rg_ops
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.kernels.rwkv6 import ref as wkv_ref
@@ -1584,13 +1627,20 @@ def recurrence_backward(gen, totals):
             rg_ops.rglru_scan(ta, tx, backend=backend), (ta, tx), dh))
     rg_err = max(check_close(f"rglru grad d{n}", g, w_, RGLRU_TOL)
                  for n, g, w_ in zip("ab", *grads))
+    # the Function's whole backward (the reversed launch with da) alone
+    ta, tx = a.clone().requires_grad_(), x.clone().requires_grad_()
+    h = rg_ops.rglru_scan(ta, tx, backend="cuda")
+    rg_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        h, (ta, tx), dh, retain_graph=True), reps=10)
     totals["rglru_fwd"]["max_abs_err"] = max(
         totals["rglru_fwd"]["max_abs_err"], rg_err)
     emit({"phase": "recurrence_backward",
           "wkv_grad_shape": [1, 256, 4, 64], "wkv_grad_max_err": wkv_err,
           "wkv_bwd_shape": wkv_shape, "wkv_bwd_ms": bwd_ms,
           "wkv_bwd": "plain chunk-recompute (no kernel)",
-          "rglru_grad_shape": [b, t, d], "rglru_grad_max_err": rg_err})
+          "rglru_grad_shape": [b, t, d], "rglru_grad_max_err": rg_err,
+          "rglru_bwd_ms": rg_bwd_ms,
+          "rglru_bwd": "one reversed launch writing g and da"})
     return bwd_ms
 
 

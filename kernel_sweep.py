@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the split, chunk and tile choices of the GEMM, fused conv, decode
-and WKV kernels on one NVIDIA GPU.
+"""Time the split, chunk and tile choices of the GEMM, fused conv, decode,
+WKV and RG-LRU kernels on one NVIDIA GPU.
 
-    python3 kernel_sweep.py [--kernels decode wkv conv gemm]
+    python3 kernel_sweep.py [--kernels decode wkv rglru conv gemm]
 
 Run from the root of a checkout; it imports ``repro_torch`` from ``src/``
 and ``chip_smoke``'s helpers (never ``jax`` or ``repro``), builds the
@@ -26,6 +26,9 @@ kernel's ``chip_smoke`` tolerance of its plain version:
 * ``wkv_fwd`` at ``chip_smoke``'s ``train`` and ``ragged`` cases: the
   time at the chunk ``wkv_chunk`` picks and at every chunk of
   ``WKV_CHUNKS``;
+* ``rglru_fwd`` at every ``chip_smoke`` RG-LRU case, forward and reversed
+  with da: the time at the chunk ``rglru_chunk`` picks and at every chunk
+  the kernel is built for (``RGLRU_CHUNKS``);
 
 then, per kernel, the sums over its shapes of the rule's times and of
 each shape's fastest choice.  Exits non-zero without a CUDA device or
@@ -208,7 +211,49 @@ def wkv_sweep(cs, gen, sms):
     cs.emit({"wkv_fwd_rule_sum_ms": rule_sum, "wkv_fwd_best_sum_ms": best_sum})
 
 
-SWEEPS = ("decode", "wkv", "conv", "gemm")
+def rglru_sweep(cs, gen, sms):
+    from repro_torch.kernels.rglru import ops, ref
+
+    rule_sum = best_sum = 0.0
+    for case, b, t, d, strong in cs.RGLRU_CASES:
+        z = torch.randn((b, t, d), generator=gen, device="cuda")
+        a = torch.exp(-10.0 + 0.1 * z) if strong else torch.sigmoid(z + 2)
+        x = torch.randn((b, t, d), generator=gen, device="cuda")
+        with torch.inference_mode():
+            want_h = ref.rglru_sequential(a, x)[0]
+            want_g, want_da = ref.rglru_transpose_grads(a, x, want_h)
+        rule = ops.rglru_chunk(t, b * d, sms)
+        times = {}
+        for chunk in ops.RGLRU_CHUNKS:
+            def fwd(chunk=chunk):
+                return ops._launch(a, x, reverse=False, chunk=chunk)[0]
+
+            def rev(chunk=chunk):
+                return ops._launch(a, x, reverse=True, h=want_h, chunk=chunk)
+
+            with torch.inference_mode():
+                cs.check_close(f"rglru_fwd {case} chunk {chunk}", fwd(),
+                               want_h, cs.RGLRU_TOL)
+                g, da = rev()
+                cs.check_close(f"rglru_fwd reverse {case} chunk {chunk}", g,
+                               want_g, cs.RGLRU_TOL)
+                cs.check_close(f"rglru_fwd da {case} chunk {chunk}", da,
+                               want_da, cs.RGLRU_TOL)
+                times[chunk] = (cs.time_ms(fwd, reps=10),
+                                cs.time_ms(rev, reps=10))
+        best = min(times, key=lambda c: sum(times[c]))
+        rule_sum += sum(times[rule])
+        best_sum += sum(times[best])
+        cs.emit({"kernel": "rglru_fwd", "case": case, "shape": [b, t, d],
+                 "rule": rule, "rule_ms": list(times[rule]), "best": best,
+                 "best_ms": list(times[best]),
+                 "ms_by_chunk": {str(c): {"forward": f, "reverse_da": r}
+                                 for c, (f, r) in times.items()}})
+    cs.emit({"rglru_fwd_rule_sum_ms": rule_sum,
+             "rglru_fwd_best_sum_ms": best_sum})
+
+
+SWEEPS = ("decode", "wkv", "rglru", "conv", "gemm")
 
 
 def main() -> int:
@@ -235,6 +280,7 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     sweeps = {"decode": lambda: decode_sweep(cs, gen, sms),
               "wkv": lambda: wkv_sweep(cs, gen, sms),
+              "rglru": lambda: rglru_sweep(cs, gen, sms),
               "conv": lambda: conv_sweep(cs, gen, dev, sms),
               "gemm": lambda: gemm_sweep(cs, gen, dev, sms)}
     for name in args.kernels:

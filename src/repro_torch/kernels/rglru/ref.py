@@ -5,8 +5,9 @@ counterparts of ``repro/kernels/rglru/ref.py``):
 
 ``rglru_sequential`` walks the steps from ``h0`` (zero by default);
 ``rglru_transpose`` is its transpose, the recurrence the backward runs:
-``g_t = b_t + a_{t+1} g_{t+1}`` from ``g_{T-1} = b_{T-1}``.  Neither
-takes a log, so any ``a`` works.
+``g_t = b_t + a_{t+1} g_{t+1}`` from ``g_{T-1} = b_{T-1}``;
+``rglru_transpose_grads`` the whole backward, (g, da) with ``da_t = g_t
+h_{t-1}``.  None takes a log, so any ``a`` works.
 """
 from __future__ import annotations
 
@@ -36,3 +37,12 @@ def rglru_transpose(a, b):
             torch.addcmul(b[:, t], a[:, t + 1], g)
         out[:, t] = g
     return out
+
+
+def rglru_transpose_grads(a, dh, h):
+    """a, dh, h (B,T,D) -> (g, da) fp32: the cotangents of
+    ``rglru_sequential``'s b and a for the cotangent dh of its output h,
+    g = ``rglru_transpose(a, dh)`` and da_t = g_t h_{t-1} (h_{-1} = 0)."""
+    g = rglru_transpose(a, dh)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1).float()
+    return g, g * h_prev

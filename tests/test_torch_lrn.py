@@ -1,6 +1,9 @@
 """The port's LRN against the reference's Pallas kernel (interpret mode on
 the CPU), on the same numpy inputs.  Tests marked ``cuda`` hold the CUDA
 kernel against the plain version and skip on a host without a card."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -70,8 +73,37 @@ def test_cuda_backend_refuses_cpu_tensors():
         ops.lrn(torch.zeros(2, 3, 3, 8), backend="cuda")
 
 
+def test_lrn_constants_match_the_kernel():
+    """The wrapper's account of the vectorized path is the kernel's: 4
+    channels a thread, a row's MAX_GROUPS = BLOCK groups in one block,
+    windows up to MAX_N."""
+    src = (Path(ops.__file__).parent / "csrc" / "lrn.cu").read_text()
+    block = re.search(r"constexpr int BLOCK = (\d+);", src)
+    window = re.search(r"constexpr int MAX_N = (\d+);", src)
+    assert "constexpr int MAX_GROUPS = BLOCK;" in src
+    assert block and 4 * int(block.group(1)) == ops.VEC_MAX_CHANNELS
+    assert window and int(window.group(1)) == ops.VEC_MAX_WINDOW
+    assert "C % 4 == 0 && G <= MAX_GROUPS && n <= MAX_N" in src
+
+
+def test_backward_is_booked_apart():
+    """The plain backward runs inside a ``lrn_bwd`` profiler range (a
+    trace books its device time apart) and matches autograd through the
+    plain forward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.from_numpy(_x((2, 3, 3, 16), seed=4)).requires_grad_()
+    dy = torch.from_numpy(_x((2, 3, 3, 16), seed=5, scale=1.0))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got, = torch.autograd.grad(ops.lrn(x), x, dy)
+    assert any(e.name == "lrn_bwd" for e in prof.events())
+    want, = torch.autograd.grad(ref.lrn_ref(x), x, dy)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
 CUDA_SHAPES = [(2, 7, 7, 24), (8, 27, 27, 96), (8, 13, 13, 256),
-               (3, 4, 4, 5), (2, 3, 3, 3), (4, 130), (5, 3000)]
+               (3, 4, 4, 5), (2, 3, 3, 3), (4, 130), (5, 3000),
+               (128, 27, 27, 96), (128, 13, 13, 256), (3, 5000)]
 
 
 @pytest.mark.cuda
@@ -87,4 +119,15 @@ def test_cuda_kernel_matches_plain(cuda, shape, n, alpha, beta, k):
     assert ops.lrn.launches == before + 1
     torch.testing.assert_close(got, ref.lrn_ref(x, n=n, alpha=alpha,
                                                 beta=beta, k=k),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 9, 11])
+def test_cuda_kernel_windows(cuda, n):
+    """The vectorized path's narrowest and widest windows, and a window
+    past it (the one-element path), against the plain version."""
+    x = torch.from_numpy(_x((4, 9, 9, 96), seed=6, scale=10.0)).to(cuda)
+    got = ops.lrn(x, n=n, alpha=1e-3)
+    torch.testing.assert_close(got, ref.lrn_ref(x, n=n, alpha=1e-3),
                                rtol=TOL, atol=TOL)
