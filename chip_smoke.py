@@ -36,7 +36,8 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    2e-2; int8 against the plain int8) at the serving tick's shape (B 8,
    cap 2048, Hkv 16, G 1, hd 128, rows mid-fill and wrapped, bf16; ring
    and a block table of bs 16) and at GQA (Hkv 8, G 4), window-256,
-   hd-64, hd-256, G-16-at-hd-256, fp32-q, fp32 and int8 K/V shapes, two
+   hd-64, hd-256, G-16-at-hd-256 (bf16 and int8 K/V: the ring's
+   tensor-core body), fp32-q, fp32 and int8 K/V shapes, two
    calls agreeing bit for bit, timed beside the plain version,
    ``F.scaled_dot_product_attention`` over the same slots with a mask (a
    yardstick only; for the table cases also the gather through the table
@@ -108,6 +109,20 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    tick; then three timed windows of 32 requests from 8 closed-loop
    clients (generated tokens/s, TTFT and per-token latency p50/p99) and
    one more under ``torch.profiler`` (device ms by family, idle share);
+   then ``rwkv6-7b`` and ``recurrentgemma-9b`` the same way at their
+   published width and full depth (bf16, 8 slots, capacity 2048, 32 new
+   tokens each): first greedy streams of 8 requests under the kernels
+   and the plain policy equal in fp32 at 2 layers and at one ``rec, rec,
+   attn`` superblock with its window cut to 256 (a wrapped ring); then
+   the prefill's last logits under both policies and the first decode
+   tick's from one prefilled state, each no further from the same
+   weights' fp32 logits than 1.5x the plain policy's; one wave of 8
+   requests with per prefill one
+   ``wkv_fwd`` per rwkv layer (32), one ``rglru_fwd`` per rec layer (26)
+   and one ``flash_fwd`` per attn layer (12), and per tick one
+   ``decode_ring`` per attn layer (12); one timed window of 16 requests
+   from 8 clients and one traced of 8 (device ms per tick by family, the
+   ``decode_ring`` and state-update shares, booked by named ranges);
 12. recurrent LM training phases: ``rwkv6-7b`` (8 layers) and
    ``recurrentgemma-9b`` (5 layers: one ``rec, rec, attn`` superblock
    and two remainder ``rec`` layers) at the published width in bf16,
@@ -125,13 +140,15 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    ms by family, the WKV backward's plain recompute booked apart);
 13. CLI phase: ``repro_torch.launch.serve --arch alexnet --requests 8``
    and ``--arch olmo-1b --layers 2 --requests 8 --capacity 512`` (ring,
-   and ``--block-size 16``), then ``repro_torch.launch.train --faithful
-   --replicas 2 --batch 64``
+   and ``--block-size 16``), ``--arch rwkv6-7b --layers 2`` and ``--arch
+   recurrentgemma-9b --layers 3`` (the same requests), then
+   ``repro_torch.launch.train --faithful --replicas 2 --batch 64``
    and ``--arch olmo-1b --layers 2 --seq-len 256 --batch 4``, each for 4
    steps with checkpoints, resumed to 6, against an uninterrupted 6-step
    run (the LM's losses equal bit for bit); ``--arch rwkv6-7b --layers
-   1`` the same (one checkpoint at step 4), and ``--arch
-   recurrentgemma-9b --layers 3`` for 3 steps;
+   1`` for 4 steps with a checkpoint, resumed to 5, against 5
+   uninterrupted steps (bit for bit), and ``--arch recurrentgemma-9b
+   --layers 3`` for 3 steps;
 14. prints the card again, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -196,6 +213,23 @@ SERVE_PROMPT = (256, 1024)
 # (PERF.md), so the gate is norm-wise, and every row whose plain top-2
 # margin exceeds twice the largest |error| must pick the same next token.
 SERVE_LOGIT_TOL = 3e-2
+
+
+# serving the recurrent LMs at the published width and depth in bf16 (8
+# slots, capacity 2048, prompts of SERVE_PROMPT tokens): the phase's name,
+# and the fp32 kernel-vs-plain run's depth and window (the hybrid's cut to
+# 256 slots, so its prompts wrap the ring)
+RECURRENT_SERVE = {"rwkv6-7b": ("ssm_serving", 2, None),
+                   "recurrentgemma-9b": ("hybrid_serving", 3, 256)}
+RECURRENT_SERVE_NEW = 32       # new tokens per request
+RECURRENT_SERVE_REQUESTS = 16  # the timed window
+# the traced window: one wave of SERVE_SLOTS requests.  It records host
+# activity for the named ranges, and exporting and reading that trace took
+# ~65 s for 16 requests of rwkv6-7b on an H100 host
+RECURRENT_TRACE_REQUESTS = 8
+# bf16 at full depth, kernel against plain: how much further from the fp32
+# logits the kernel may be than the plain version (anchored_check)
+BF16_NOISE_RATIO = 1.5
 
 
 # the recurrent LMs: (depth, sequences per replica, parity depth, parity
@@ -291,7 +325,8 @@ def lm_family(name: str) -> str:
     for fam, keys in (("flash_fwd", ("flash_fwd_kernel",)),
                       ("wkv", ("wkv_chunk_kernel", "wkv_carry_kernel")),
                       ("rglru", ("rglru_scan_kernel",)),
-                      ("decode", ("decode_kernel", "decode_merge")),
+                      ("decode", ("decode_kernel", "decode_mma_kernel",
+                                  "decode_merge")),
                       ("flash_dq", ("flash_dq_kernel",)),
                       ("flash_dkv", ("flash_dkv_kernel",)),
                       ("gemm", ("gemm", "nvjet", "xmma", "cutlass",
@@ -1798,8 +1833,8 @@ def recurrent_train_phase(arch, seed):
 
 def recurrent_cli_phase():
     """The train CLI on the two recurrent archs at full width:
-    ``rwkv6-7b --layers 1`` for 4 steps with a checkpoint, resumed to 6,
-    against 6 uninterrupted steps (every loss equal bit for bit), and
+    ``rwkv6-7b --layers 1`` for 4 steps with a checkpoint, resumed to 5,
+    against 5 uninterrupted steps (every loss equal bit for bit), and
     ``recurrentgemma-9b --layers 3`` for 3 steps (its two replicas'
     state, 32 GB, is not checkpointed here)."""
     from repro_torch.train_loop.metrics import read_jsonl
@@ -1815,24 +1850,24 @@ def recurrent_cli_phase():
         for name, extra in (
                 ("first", ["--steps", "4", "--ckpt-dir", ck,
                            "--ckpt-every", "4", "--metrics-out", a]),
-                ("resumed", ["--steps", "6", "--ckpt-dir", ck, "--resume",
+                ("resumed", ["--steps", "5", "--ckpt-dir", ck, "--resume",
                              "--metrics-out", a]),
-                ("straight", ["--steps", "6", "--metrics-out", c])):
+                ("straight", ["--steps", "5", "--metrics-out", c])):
             lines, seconds[name] = _run_cli("repro_torch.launch.train",
                                             rwkv + extra)
             if not lines or not lines[-1].startswith("done:"):
                 raise AssertionError(f"rwkv6-7b train CLI ({name}) did not "
                                      "end in 'done:'")
             done[name] = lines[-1]
-        if not done["resumed"].startswith("done: steps 4 -> 6"):
+        if not done["resumed"].startswith("done: steps 4 -> 5"):
             raise AssertionError(f"the resumed rwkv6-7b run: "
                                  f"{done['resumed']}")
         resumed = {r["step"]: r["loss"] for r in read_jsonl(a, "train")}
         straight = {r["step"]: r["loss"] for r in read_jsonl(c, "train")}
-    if sorted(resumed) != list(range(1, 7)) or sorted(straight) != list(
-            range(1, 7)) or not all(map(math.isfinite, straight.values())):
+    if sorted(resumed) != list(range(1, 6)) or sorted(straight) != list(
+            range(1, 6)) or not all(map(math.isfinite, straight.values())):
         raise AssertionError(f"rwkv6-7b CLI losses {resumed} / {straight}")
-    if any(resumed[st] != straight[st] for st in range(1, 7)):
+    if any(resumed[st] != straight[st] for st in range(1, 6)):
         raise AssertionError(f"resumed vs uninterrupted rwkv6-7b losses "
                              f"differ: {resumed} / {straight}")
     lines, seconds["recurrentgemma"] = _run_cli(
@@ -1843,7 +1878,7 @@ def recurrent_cli_phase():
         raise AssertionError("recurrentgemma-9b train CLI did not end in "
                              "'done: steps 0 -> 3'")
     emit({"phase": "recurrent_cli", "seconds": seconds,
-          "rwkv_losses": [straight[st] for st in range(1, 7)],
+          "rwkv_losses": [straight[st] for st in range(1, 6)],
           "bit_exact_resume": True, "recurrentgemma_done": lines[-1]})
 
 
@@ -1858,7 +1893,9 @@ DECODE_CASES = [  # (case, B, cap, Hkv, G, hd, window, q dtype, kv dtype, bs)
     ("hd64", 8, 2048, 16, 1, 64, None, "bfloat16", "bfloat16", 0),
     ("hd256", 8, 2048, 16, 1, 256, None, "bfloat16", "bfloat16", 0),
     # the hybrid's attn layers: 16 query heads on one KV head, hd 256
+    # (the ring's tensor-core body), bf16 and int8 K/V
     ("g16_hd256", 8, 2048, 1, 16, 256, None, "bfloat16", "bfloat16", 0),
+    ("g16_hd256_int8", 8, 2048, 1, 16, 256, None, "bfloat16", "int8", 0),
     ("int8", 8, 2048, 16, 1, 128, None, "float32", "int8", 0),
     ("int8_bf16_q", 8, 2048, 16, 1, 128, None, "bfloat16", "int8", 0),
     ("int8_table", 8, 2048, 16, 1, 128, None, "float32", "int8", 16),
@@ -1971,9 +2008,12 @@ def decode_phase(gen):
                   * q.element_size() + (8 * n_vis * hkv if ks is not None
                                         else 0))
         flops = 4.0 * n_vis * hkv * g * hd
-        bound, bound_by = _bound(flops, nbytes)
+        tensor_cores = not bs and ops.tensor_core_ring(g, q_dtype, kv_dtype)
+        bound, bound_by = _bound(flops, nbytes,
+                                 BF16_PEAK if tensor_cores else FP32_PEAK)
         chunk = ops.kernel_chunk(q, k, table, sms)
         row = {"phase": "decode_kernel", "kernel": name, "case": case,
+               "body": "tensor cores" if tensor_cores else "simt",
                "shape": [b, cap, hkv, g, hd], "window": window,
                "block_size": bs, "q_dtype": qd, "kv_dtype": kvd,
                "pos": DECODE_POS[:b], "visible_slots": n_vis,
@@ -1988,14 +2028,21 @@ def decode_phase(gen):
                "flops": flops, "gbps": nbytes / (k_ms * 1e-3) / 1e9,
                "bound_share": bound / k_ms, "max_err": err,
                "library_err": lib_err,
-               "assumes": "3.35 TB/s, 67 TFLOP/s fp32 non-tensor; bytes "
-               "of the visible K/V (+ scales, q, o)"}
+               "assumes": ("3.35 TB/s, " + ("989 TFLOP/s dense bf16 "
+                                            "tensor-core" if tensor_cores
+                                            else "67 TFLOP/s fp32 "
+                                            "non-tensor")
+                           + "; bytes of the visible K/V (+ scales, q, o)")}
         emit(row)
         tot = totals[name]
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         if case in ("serve", "serve_table"):
             tot.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                        bound_by=bound_by, library_ms=l_ms)
+        if tensor_cores:   # the hybrid's attn layers (hybrid_serving)
+            tot.setdefault("tensor_core_cases", {})[case] = {
+                "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err}
     return totals
 
 
@@ -2008,8 +2055,9 @@ def serve_prompts(vocab: int, n: int, seed: int):
     return out + [out[0].copy()]
 
 
-def lm_closed_loop(engine, prompts, n_req: int, clients: int):
-    """Serve ``n_req`` requests of SERVE_NEW tokens from ``clients``
+def lm_closed_loop(engine, prompts, n_req: int, clients: int,
+                   new: int = SERVE_NEW):
+    """Serve ``n_req`` requests of ``new`` tokens from ``clients``
     closed-loop clients, each sending its next prompt (cycled from
     ``prompts``) when its answer comes back.  Returns (wall seconds,
     results)."""
@@ -2020,7 +2068,7 @@ def lm_closed_loop(engine, prompts, n_req: int, clients: int):
     def send():
         nonlocal sent
         engine.submit(Request(prompt=prompts[sent % len(prompts)],
-                              max_new_tokens=SERVE_NEW))
+                              max_new_tokens=new))
         sent += 1
 
     t0 = time.perf_counter()
@@ -2237,6 +2285,240 @@ def lm_serving_phase(seed, windows=3, n_req=32):
     return {"ring": counts[0]["launches"], "block": counts[1]["launches"]}
 
 
+def anchored_check(what, lk, lp, l32):
+    """bf16 logits under the kernels ``lk`` and the plain policy ``lp``
+    (B, V) against the fp32 logits ``l32`` of the same weights and
+    inputs: finite, and the kernel's relative L2 distance to ``l32`` at
+    most BF16_NOISE_RATIO times the plain version's.  Kernel and plain
+    differ only in where their fp32 sums round to bf16, so at full depth
+    their distance to each other is bf16 noise that the layers amplify;
+    their distances to fp32 measure that noise for each."""
+    if not torch.isfinite(lk).all():
+        raise AssertionError(f"{what}: non-finite logits")
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    out = {"kernel_vs_plain_rel_l2": rel(lk, lp),
+           "kernel_vs_plain_max_abs_err": max_err(lk, lp),
+           "kernel_vs_fp32_rel_l2": rel(lk, l32),
+           "plain_vs_fp32_rel_l2": rel(lp, l32),
+           "same_greedy_token_rows": int((lk.argmax(-1)
+                                          == lp.argmax(-1)).sum())}
+    if out["kernel_vs_fp32_rel_l2"] > \
+            BF16_NOISE_RATIO * out["plain_vs_fp32_rel_l2"]:
+        raise AssertionError(f"{what}: kernel further from fp32 than "
+                             f"{BF16_NOISE_RATIO} x plain: {out}")
+    return out
+
+
+def recurrent_serve_parity(arch, seed):
+    """The published width at a few layers in fp32 (``RECURRENT_SERVE``):
+    greedy streams of SERVE_SLOTS requests under the kernels equal those
+    under the plain policy.  The hybrid runs one ``rec, rec, attn``
+    superblock with its window cut to 256 slots, below every prompt, so
+    that prefill and decode run on a wrapped ring."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.serving import Request, ServingEngine
+
+    _, layers, window = RECURRENT_SERVE[arch]
+    base = dataclasses.replace(ARCHS[arch], n_layers=layers, dtype="float32")
+    if window:
+        base = dataclasses.replace(base, sliding_window=window)
+    params = models.init(base, torch.Generator().manual_seed(seed),
+                         device="cuda")
+    prompts = serve_prompts(base.vocab_size, SERVE_SLOTS, seed + 31)
+    streams = {}
+    for policy in ("auto", "plain"):
+        eng = ServingEngine(params, dataclasses.replace(
+            base, kernels=KernelPolicy(policy)), slots=SERVE_SLOTS,
+            capacity=SERVE_CAPACITY)
+        res = eng.run([Request(prompt=p, max_new_tokens=RECURRENT_SERVE_NEW)
+                       for p in prompts])
+        streams[policy] = {r.rid: r.tokens for r in res}
+    if streams["auto"] != streams["plain"]:
+        raise AssertionError(f"{arch} serving: kernel and plain greedy "
+                             "streams differ")
+    emit({"phase": "recurrent_serve_parity", "config": base.name,
+          "layers": layers, "layer_kinds": recurrent_kinds(base),
+          "window": window, "dtype": "float32", "requests": len(prompts),
+          "prompt_tokens": [len(p) for p in prompts],
+          "new_tokens": RECURRENT_SERVE_NEW, "streams_equal": True,
+          "tokens_compared": sum(len(t) for t in streams["auto"].values())})
+    del params
+
+
+def recurrent_serving_phase(arch, seed):
+    """``arch`` at its published width and depth in bf16, 8 slots,
+    capacity 2048, ring cache, greedy.  The fp32 stream parity runs first;
+    then, from one bf16 batch of SERVE_SLOTS prompts, the prefill's last
+    logits under the kernel and the plain policy (each prefilled under
+    its own) and the first decode tick's under both from the kernel
+    policy's state, each held to fp32 (``anchored_check``); one wave of
+    SERVE_SLOTS requests with the launch counts set to 0 just before and
+    read just after (per prefill one
+    ``wkv_fwd`` per rwkv layer, one ``rglru_fwd`` per rec layer and one
+    ``flash_fwd`` per attn layer; per tick one ``decode_ring`` per attn
+    layer); one timed window of RECURRENT_SERVE_REQUESTS requests from 8
+    closed-loop clients and one traced window of RECURRENT_TRACE_REQUESTS
+    (device ms per tick by family, ``decode_ring``'s and the state
+    update's shares)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import models
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.tree import tree_leaves, tree_map
+
+    phase = RECURRENT_SERVE[arch][0]
+    seconds, t_phase = {}, time.perf_counter()
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t_phase
+
+    recurrent_serve_parity(arch, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("fp32_parity")
+    cfg = dataclasses.replace(ARCHS[arch], kernels=KernelPolicy("auto"))
+    plain_cfg = dataclasses.replace(cfg, kernels=KernelPolicy("plain"))
+    t0 = time.perf_counter()
+    params = models.init(cfg, torch.Generator().manual_seed(seed),
+                         device="cuda")
+    prompts = serve_prompts(cfg.vocab_size, 2 * SERVE_SLOTS, seed + 37)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # bf16 kernel against plain, each anchored to fp32 (the same weights
+    # in fp32 under the plain policy): the prefill's last logits, each
+    # policy prefilling the batch itself (fp32: row by row at its length),
+    # and the first decode tick from the kernel policy's state (fp32: that
+    # state cast to fp32)
+    b = SERVE_SLOTS
+    cfg32 = dataclasses.replace(plain_cfg, dtype="float32")
+    with torch.inference_mode():
+        toks = torch.zeros((b, SERVE_PROMPT[1]), dtype=torch.long,
+                           device="cuda")
+        lengths = torch.tensor([len(p) for p in prompts[:b]], device="cuda")
+        for i, p in enumerate(prompts[:b]):
+            toks[i, :len(p)] = torch.as_tensor(p)
+        rows = torch.arange(b, device="cuda")
+        last, states = {}, {}
+        for name, c in (("kernel", cfg), ("plain", plain_cfg)):
+            logits, states[name] = models.prefill(params, c, toks,
+                                                  SERVE_CAPACITY,
+                                                  length=lengths)
+            last[name] = logits[rows, lengths - 1].float()
+            del logits
+            lap(f"{name}_prefill")
+        del states["plain"]
+        params32 = tree_map(lambda x: x.float(), params)
+        last["fp32"] = torch.cat([models.prefill(
+            params32, cfg32, toks[i:i + 1, :len(p)], SERVE_CAPACITY)[0][:, -1]
+            for i, p in enumerate(prompts[:b])])
+        lap("fp32_prefill")
+        prefill_check = anchored_check(f"{arch} bf16 prefill", last["kernel"],
+                                       last["plain"], last["fp32"])
+        nxt = last["kernel"].argmax(-1)[:, None]
+        tick = {}
+        for name, c, prm in (("kernel", cfg, params),
+                             ("plain", plain_cfg, params),
+                             ("fp32", cfg32, params32)):
+            st = models.read_slots(states["kernel"], range(b))
+            if name == "fp32":
+                st = models.DecodeState(cache=models.map_cache(
+                    lambda leaf, axis: leaf.float(), st.cache), pos=st.pos)
+            tick[name] = models.decode_step(prm, c, st, nxt)[0][:, 0].float()
+        del states, last, params32
+    tick_check = anchored_check(f"{arch} bf16 first decode tick",
+                                tick["kernel"], tick["plain"], tick["fp32"])
+    del tick
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("first_tick")
+
+    n = recurrent_kinds(cfg)
+    eng = ServingEngine(params, cfg, slots=SERVE_SLOTS,
+                        capacity=SERVE_CAPACITY)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = eng.run([Request(prompt=p, max_new_tokens=RECURRENT_SERVE_NEW)
+                   for p in prompts[:b]])
+    torch.cuda.synchronize()
+    wave_s = time.perf_counter() - t0
+    launches = read_counts()
+    want = {k: 0 for k in launches}
+    want.update(wkv_fwd=n["rwkv"] * b, rglru_fwd=n["rec"] * b,
+                flash_fwd=n["attn"] * b,
+                decode_ring=n["attn"] * eng.decode_steps)
+    if launches != want:
+        raise AssertionError(f"{arch} serving launches {launches} != {want}")
+    if any(len(r.tokens) != RECURRENT_SERVE_NEW for r in res):
+        raise AssertionError("every request must get its new tokens")
+    emit({"phase": phase, "config": cfg.name, "layers": cfg.n_layers,
+          "layer_kinds": n, "d_model": cfg.d_model, "dtype": cfg.dtype,
+          "params": sum(x.numel() for x in tree_leaves(params)),
+          "slots": SERVE_SLOTS, "capacity": SERVE_CAPACITY,
+          "prompt_tokens": list(SERVE_PROMPT),
+          "new_tokens": RECURRENT_SERVE_NEW,
+          "prefill_logits": prefill_check, "first_tick_logits": tick_check,
+          "logit_gate": f"kernel-to-fp32 relative L2 <= {BF16_NOISE_RATIO}"
+                        " x plain-to-fp32",
+          "launches": launches, "prefills": b,
+          "decode_ticks": eng.decode_steps,
+          "launches_per_prefill": {k: launches[k] // b for k in
+                                   ("wkv_fwd", "rglru_fwd", "flash_fwd")},
+          "launches_per_tick": launches["decode_ring"] // eng.decode_steps,
+          "wave": serve_metrics(wave_s, res), "setup_s": setup_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    lap("wave")
+    wall, res = lm_closed_loop(eng, prompts, RECURRENT_SERVE_REQUESTS,
+                               SERVE_SLOTS, RECURRENT_SERVE_NEW)
+    window = serve_metrics(wall, res)
+    ticks0 = eng.decode_steps
+    # CPU activity too: the named ranges are host-side events
+    with profile(activities=[ProfilerActivity.CUDA,
+                             ProfilerActivity.CPU]) as prof:
+        prof_wall, _ = lm_closed_loop(eng, prompts, RECURRENT_TRACE_REQUESTS,
+                                      SERVE_SLOTS, RECURRENT_SERVE_NEW)
+    ticks = eng.decode_steps - ticks0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{phase}_trace.json")
+        prof.export_chrome_trace(path)
+        busy = device_busy(path, lm_family,
+                           scopes=("prefill", "wkv_decode", "rglru_decode"))
+    by = busy["ms_by_family"]
+    tick_ms = sum(v for k, v in by.items() if k != "prefill")
+    update = by.get("wkv_decode", 0.0) + by.get("rglru_decode", 0.0)
+    emit({"phase": f"{phase}_timing", "config": cfg.name,
+          "slots": SERVE_SLOTS, "clients": SERVE_SLOTS,
+          "requests_per_window": RECURRENT_SERVE_REQUESTS,
+          "traced_requests": RECURRENT_TRACE_REQUESTS,
+          **window,
+          # the traced window's host also records the trace: an upper
+          # bound on the timed windows' idle share
+          "profiled_idle_share": 1.0 - busy["busy_ms"] / 1e3 / prof_wall,
+          "profiled_wall_s": prof_wall, "profiled_ticks": ticks,
+          "device_busy_ms": busy["busy_ms"],
+          "prefill_device_ms": by.get("prefill", 0.0),
+          "decode_device_ms_per_tick": tick_ms / ticks,
+          "decode_ring_share_of_tick": by.get("decode", 0.0) / tick_ms,
+          "state_update_share_of_tick": update / tick_ms,
+          "device_ms_by_family": by, "top_kernels_ms": busy["top_kernels"]})
+    lap("windows")
+    emit({"phase": f"{phase}_seconds", "seconds_at_end_of": seconds})
+    return launches
+
+
 def lm_cli_phase():
     """The LM train CLI at full width, 2 layers, 2 x 2 x 256, with
     checkpoints: 4 steps, resumed to 6, against 6 uninterrupted steps;
@@ -2295,8 +2577,10 @@ def _run_cli(module, args, timeout=900):
 
 
 def cli_phase():
-    """The serving CLI, then the training CLI with checkpoints: 4 steps,
-    resumed to 6, against an uninterrupted 6-step run."""
+    """The serving CLI (alexnet; olmo-1b on the ring and the block pool;
+    rwkv6-7b at 2 layers and recurrentgemma-9b at 3, full width), then the
+    training CLI with checkpoints: 4 steps, resumed to 6, against an
+    uninterrupted 6-step run."""
     from repro_torch.train_loop.metrics import read_jsonl
 
     lines, serve_s = _run_cli("repro_torch.launch.serve",
@@ -2312,6 +2596,14 @@ def cli_phase():
         if not lines or lines[-1] != "serve OK":
             raise AssertionError(f"the LM serve CLI ({mode}) did not end "
                                  "in 'serve OK'")
+    for arch, layers in (("rwkv6-7b", "2"), ("recurrentgemma-9b", "3")):
+        lines, lm_serve_s[arch] = _run_cli(
+            "repro_torch.launch.serve", ["--arch", arch, "--layers", layers,
+                                         "--requests", "8", "--capacity",
+                                         "512"])
+        if not lines or lines[-1] != "serve OK":
+            raise AssertionError(f"the {arch} serve CLI did not end in "
+                                 "'serve OK'")
     base = ["--arch", "alexnet", "--faithful", "--replicas", "2",
             "--batch", "64", "--log-every", "1"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -2411,6 +2703,9 @@ def main() -> int:
     by_path["lm_serving"] = serve_waves["ring"]
     by_path["lm_serving_block"] = serve_waves["block"]
     mark("lm_serving")
+    for arch, (phase, _, _) in RECURRENT_SERVE.items():
+        by_path[phase] = recurrent_serving_phase(arch, args.seed)
+        mark(phase)
     by_path["rwkv_train"] = recurrent_train_phase("rwkv6-7b", args.seed)
     mark("rwkv_train")
     by_path["rg_train"] = recurrent_train_phase("recurrentgemma-9b",
@@ -2462,7 +2757,9 @@ def main() -> int:
             "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": bound_by, "library_ms": tot["library_ms"],
-            **({"library": tot["library"]} if "library" in tot else {})})
+            **({"library": tot["library"]} if "library" in tot else {}),
+            **({"tensor_core_cases": tot["tensor_core_cases"]}
+               if "tensor_core_cases" in tot else {})})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "seconds_at_end_of": seconds})
     print(card(), flush=True)

@@ -64,6 +64,26 @@
 //    the block stages its chunk's block ids in shared memory first, so no
 //    load of K or V waits on a load of the table.  Retired rows point at
 //    block 0 (the trash block), which no live row reads.
+//  * Ring mode at G > 8 with bf16 q and bf16 or int8 K/V (RecurrentGemma's
+//    16 query heads on one KV head): decode_mma_kernel.  The SIMT body
+//    would take G in blocks of 8 heads, reading every K/V row once per
+//    block, and spend a five-shuffle reduction per (slot, head).  Here one
+//    block holds 16 query heads, one m16 tile of mma.sync.m16n8k16 (bf16
+//    in, fp32 accumulate), so each K/V row is read once.  Q sits in
+//    registers as the tile's A fragments; chunks of 32 slots of K and V
+//    are staged by cp.async in a ring of 3 stages (zero-filled where a
+//    slot is not valid, so P V never meets a stale non-finite value);
+//    each of the 4 warps computes S = Q K^T for 8 of the slots over hd in
+//    k16 steps, the warps agree on each head row's running max through
+//    shared memory, and P (bf16, with v_scale folded into its columns)
+//    goes back to shared memory for P V, where each warp accumulates O
+//    for hd / 4 of the columns: no warp holds all of O (16 x hd fp32), and
+//    since all warps share m, no merge of warps is needed.  int8 K/V are
+//    exact in bf16; k_scale multiplies S's column.  The split-KV, the arc
+//    cut, NEG and the fixed-order merge are those of the SIMT body.
+//  * decode_merge runs one thread per output element over a 2-D grid
+//    (row, element slice), so G * hd elements (4,096 at G 16, hd 256) do
+//    not queue behind one block per row.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -131,6 +151,49 @@ __device__ __forceinline__ int visible(int p, int cap) {
   return p < cap ? p + 1 : cap;
 }
 
+// Cut the chunk [lo, hi) of a row at position p to the arc of its valid
+// slots: [first, pm] when first >= 0, else [0, pm] and [first + cap, cap).
+// pm = p mod cap and nv = min(p + 1, cap, window) come back for the slot
+// test slot_ok.
+__device__ __forceinline__ void cut_to_arc(int p, int cap, int window,
+                                           int& lo, int& hi, int& pm,
+                                           int& nv) {
+  pm = p % cap;
+  nv = min(min(p + 1, cap), window > 0 ? window : cap);
+  const int first = pm - nv + 1;
+  if (nv <= 0) {
+    hi = lo;
+  } else if (first >= 0) {
+    lo = max(lo, first);
+    hi = min(hi, pm + 1);
+  } else {
+    if (lo > pm) lo = max(lo, first + cap);
+    if (hi <= first + cap) hi = min(hi, pm + 1);
+  }
+}
+
+// Slot c holds one of the nv positions ending at slot pm: (pm - c) mod
+// cap < nv, one compare and no division.
+__device__ __forceinline__ bool slot_ok(int c, int pm, int cap, int nv) {
+  return pm - c + (c > pm ? cap : 0) < nv;
+}
+
+// The partial of a split with no valid slot: m = NEG, l = 0, acc = 0 for
+// query heads g0 .. g0 + ng - 1.
+template <int HD, int THREADS>
+__device__ __forceinline__ void write_empty(float* __restrict__ part_acc,
+                                            float* __restrict__ part_ml,
+                                            size_t pg0, int ng) {
+  for (int i = threadIdx.x; i < ng * HD; i += THREADS) {
+    const size_t pg = pg0 + i / HD;
+    part_acc[pg * HD + i % HD] = 0.f;
+    if (i % HD == 0) {
+      part_ml[2 * pg] = NEG;
+      part_ml[2 * pg + 1] = 0.f;
+    }
+  }
+}
+
 struct Args {
   const void* q;
   const void* k;
@@ -183,29 +246,11 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   // decode_merge reads only the splits that hold visible slots
   if (n_split > 1 && lo >= visible(p, cap)) return;
   int hi = min(cap, lo + chunk);
-  // the arc of valid slots: [first, pm] when first >= 0, else
-  // [0, pm] and [first + cap, cap)
-  const int pm = p % cap;
-  const int nv = min(min(p + 1, cap), window > 0 ? window : cap);
-  const int first = pm - nv + 1;
-  if (nv <= 0) {
-    hi = lo;
-  } else if (first >= 0) {
-    lo = max(lo, first);
-    hi = min(hi, pm + 1);
-  } else {
-    if (lo > pm) lo = max(lo, first + cap);
-    if (hi <= first + cap) hi = min(hi, pm + 1);
-  }
+  int pm, nv;
+  cut_to_arc(p, cap, window, lo, hi, pm, nv);
   if (n_split > 1 && lo >= hi) {   // no valid slot: the empty partial
-    for (int i = threadIdx.x; i < ng * HD; i += THREADS) {
-      const size_t pg = ((size_t)bh * n_split + z) * G + g0 + i / HD;
-      part_acc[pg * HD + i % HD] = 0.f;
-      if (i % HD == 0) {
-        part_ml[2 * pg] = NEG;
-        part_ml[2 * pg + 1] = 0.f;
-      }
-    }
+    write_empty<HD, THREADS>(part_acc, part_ml,
+                             ((size_t)bh * n_split + z) * G + g0, ng);
     return;
   }
   int t0 = 0;
@@ -243,7 +288,7 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int c = c0 + u;
-      ok[u] = c < hi && pm - c + (c > pm ? cap : 0) < nv;
+      ok[u] = c < hi && slot_ok(c, pm, cap, nv);
       ksc[u] = vsc[u] = 1.f;
       if (ok[u]) {
         size_t row;
@@ -336,8 +381,8 @@ decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 }
 
-// o of row b, KV head h (block bh) from the partials of the splits that
-// hold visible slots, folded in split order.
+// o of row b, KV head h (blocks (bh, ..)) from the partials of the splits
+// that hold visible slots, folded in split order.
 template <typename TQ>
 __global__ void __launch_bounds__(MERGE_THREADS)
 decode_merge(const float* __restrict__ part_acc,
@@ -346,7 +391,8 @@ decode_merge(const float* __restrict__ part_acc,
              int chunk, int n_split) {
   const int bh = blockIdx.x;
   const int n_used = (visible(pos[bh / n_kv_heads], cap) + chunk - 1) / chunk;
-  for (int i = threadIdx.x; i < G * hd; i += MERGE_THREADS) {
+  for (int i = blockIdx.y * MERGE_THREADS + threadIdx.x; i < G * hd;
+       i += gridDim.y * MERGE_THREADS) {
     const int g = i / hd, d = i % hd;
     const size_t p0 = (size_t)bh * n_split * G + g;   // split 0's (row, g)
     float mx = NEG;
@@ -361,6 +407,351 @@ decode_merge(const float* __restrict__ part_acc,
     }
     o[((size_t)bh * G + g) * hd + d] = from_f<TQ>(osum / fmaxf(lsum, 1e-30f));
   }
+}
+
+// ---- The ring body at G > 8 on the tensor cores (decode_mma_kernel) ----
+
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_M = 16;                // query heads a block holds
+constexpr int MMA_TILE = 8 * MMA_WARPS;  // slots a stage holds: n8 a warp
+constexpr int MMA_STAGES = 3;
+
+// Shared memory of decode_mma_kernel: MMA_STAGES stages of K then V
+// (MMA_TILE rows each, padded by 16 bytes so the fragments' loads hit 32
+// distinct banks), P (MMA_M x p_row bf16) and the warps' row maxima and
+// sums (MMA_WARPS x MMA_M floats).
+template <typename TKV, int HD>
+struct MmaShape {
+  static constexpr int row = HD * (int)sizeof(TKV) + 16;    // bytes
+  static constexpr int pieces = HD * (int)sizeof(TKV) / 16;  // 16-B copies
+  static constexpr int stage = 2 * MMA_TILE * row;
+  static constexpr int p_row = MMA_TILE + 8;                 // bf16s
+  static constexpr size_t smem = (size_t)MMA_STAGES * stage +
+                                 2 * MMA_M * p_row +
+                                 sizeof(float) * MMA_WARPS * MMA_M;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (lo, hi) as one bf16 pair, lo in the low half: an mma operand register.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return as_u32(__floats2bfloat162_rn(lo, hi));
+}
+
+// Elements d and d + 1 of a row (bf16 or int8, which bf16 holds exactly).
+__device__ __forceinline__ uint32_t row_pair(const __nv_bfloat16* r, int d) {
+  return *reinterpret_cast<const uint32_t*>(r + d);
+}
+__device__ __forceinline__ uint32_t row_pair(const int8_t* r, int d) {
+  const char2 x = *reinterpret_cast<const char2*>(r + d);
+  return pack_bf16((float)x.x, (float)x.y);
+}
+
+// Element c of rows r and r + 1 (stride elements apart).
+__device__ __forceinline__ uint32_t col_pair(const __nv_bfloat16* c,
+                                             int stride) {
+  return as_u32(__halves2bfloat162(c[0], c[stride]));
+}
+__device__ __forceinline__ uint32_t col_pair(const int8_t* c, int stride) {
+  return pack_bf16((float)c[0], (float)c[stride]);
+}
+
+// acc += A (16 x 16, row-major fragments) B (16 x 8, column fragments),
+// bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&acc)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Block (bh * n_split + z, y): row b, KV head h, query heads y * MMA_M ..,
+// the valid slots of [z * chunk, (z + 1) * chunk), as decode_kernel (the
+// same outputs and partials).  Fragment layout of m16n8k16 (PTX ISA): lane
+// = 4 * gid + tig; A holds rows gid and gid + 8, B and C column gid and
+// columns 2 tig, 2 tig + 1.
+template <typename TKV, int HD>
+__global__ void __launch_bounds__(32 * MMA_WARPS)
+decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                  const TKV* __restrict__ k, const TKV* __restrict__ v,
+                  const float* __restrict__ ks, const float* __restrict__ vs,
+                  const int* __restrict__ pos, __nv_bfloat16* __restrict__ o,
+                  float* __restrict__ part_acc, float* __restrict__ part_ml,
+                  int G, int n_kv_heads, int cap, int window, float scale,
+                  int chunk, int n_split) {
+  using S = MmaShape<TKV, HD>;
+  constexpr int THREADS = 32 * MMA_WARPS;
+  constexpr int KSTEPS = HD / 16;                // k16 steps of Q K^T
+  constexpr int OCOLS = HD / MMA_WARPS;          // O's columns per warp
+  constexpr int OT = OCOLS / 8;                  // their n8 tiles
+  constexpr int RS = S::row / (int)sizeof(TKV);  // stage row, elements
+  constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
+  extern __shared__ float smem[];
+  unsigned char* stages = reinterpret_cast<unsigned char*>(smem);
+  __nv_bfloat16* sm_p = reinterpret_cast<__nv_bfloat16*>(
+      stages + MMA_STAGES * S::stage);                 // MMA_M x p_row
+  float* sm_red = reinterpret_cast<float*>(sm_p + MMA_M * S::p_row);
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int bh = blockIdx.x / n_split;   // b * Hkv + h
+  const int z = blockIdx.x % n_split;
+  const int b = bh / n_kv_heads, h = bh % n_kv_heads;
+  const int g0 = blockIdx.y * MMA_M;
+  const int ng = min(MMA_M, G - g0);
+  const int p = pos[b];
+  int lo = z * chunk;
+  // decode_merge reads only the splits that hold visible slots
+  if (n_split > 1 && lo >= visible(p, cap)) return;
+  int hi = min(cap, lo + chunk);
+  int pm, nv;
+  cut_to_arc(p, cap, window, lo, hi, pm, nv);
+  if (n_split > 1 && lo >= hi) {   // no valid slot: the empty partial
+    write_empty<HD, THREADS>(part_acc, part_ml,
+                             ((size_t)bh * n_split + z) * G + g0, ng);
+    return;
+  }
+  const int n_tiles = lo < hi ? (hi - lo + MMA_TILE - 1) / MMA_TILE : 0;
+
+  // stage tile t: its valid slots' K and V rows, zeros for the others
+  auto issue = [&](int t) {
+    unsigned char* st = stages + (t % MMA_STAGES) * S::stage;
+    for (int i = threadIdx.x; i < MMA_TILE * S::pieces; i += THREADS) {
+      const int r = i / S::pieces, e = i % S::pieces;
+      const int c = lo + t * MMA_TILE + r;
+      const bool ok = c < hi && slot_ok(c, pm, cap, nv);
+      const size_t off =
+          (((size_t)b * cap + (ok ? c : 0)) * n_kv_heads + h) * HD *
+              sizeof(TKV) +
+          16 * e;
+      cp_async16(smem_u32(st + r * S::row + 16 * e),
+                 reinterpret_cast<const char*>(k) + off, ok ? 16 : 0);
+      cp_async16(smem_u32(st + (MMA_TILE + r) * S::row + 16 * e),
+                 reinterpret_cast<const char*>(v) + off, ok ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < MMA_STAGES - 1; ++t) {
+    if (t < n_tiles) issue(t);
+    cp_commit();
+  }
+
+  // Q's A fragments over hd (zero rows past the group)
+  uint32_t qa[KSTEPS][4];
+  {
+    const __nv_bfloat16* q0 = q + ((size_t)bh * G + g0) * HD;
+    const bool r0 = gid < ng, r1 = gid + 8 < ng;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const int d = 16 * kk + 2 * tig;
+      qa[kk][0] = r0 ? row_pair(q0 + gid * HD, d) : 0u;
+      qa[kk][1] = r1 ? row_pair(q0 + (gid + 8) * HD, d) : 0u;
+      qa[kk][2] = r0 ? row_pair(q0 + gid * HD, d + 8) : 0u;
+      qa[kk][3] = r1 ? row_pair(q0 + (gid + 8) * HD, d + 8) : 0u;
+    }
+  }
+
+  // the online softmax of rows gid and gid + 8 (every warp keeps the same
+  // m; l sums this thread's slots), and O's columns of this warp
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float acc[OT][4];
+#pragma unroll
+  for (int j = 0; j < OT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_wait<MMA_STAGES - 2>();
+    __syncthreads();   // tile t is in; tile t - 1's stage is free
+    if (t + MMA_STAGES - 1 < n_tiles) issue(t + MMA_STAGES - 1);
+    cp_commit();
+    const TKV* sk = reinterpret_cast<const TKV*>(
+        stages + (t % MMA_STAGES) * S::stage);
+    const TKV* sv = sk + MMA_TILE * RS;
+
+    // S = Q K^T for this warp's 8 slots
+    float sc[4] = {0.f, 0.f, 0.f, 0.f};
+    const TKV* krow = sk + (8 * warp + gid) * RS;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk)
+      mma_bf16(sc, qa[kk], row_pair(krow, 16 * kk + 2 * tig),
+               row_pair(krow, 16 * kk + 2 * tig + 8));
+    const int c0 = lo + t * MMA_TILE + 8 * warp + 2 * tig;
+    bool ok[2];
+    float vsc[2] = {1.f, 1.f};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = c0 + j;
+      ok[j] = c < hi && slot_ok(c, pm, cap, nv);
+      float ksc = 1.f;
+      if (QUANT && ok[j]) {
+        const size_t at = ((size_t)b * cap + c) * n_kv_heads + h;
+        ksc = ks[at];
+        vsc[j] = vs[at];
+      }
+      sc[j] = ok[j] ? sc[j] * scale * ksc : NEG;
+      sc[2 + j] = ok[j] ? sc[2 + j] * scale * ksc : NEG;
+    }
+    float mx[2] = {fmaxf(sc[0], sc[1]), fmaxf(sc[2], sc[3])};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    if (tig == 0) {
+      sm_red[warp * MMA_M + gid] = mx[0];
+      sm_red[warp * MMA_M + gid + 8] = mx[1];
+    }
+    __syncthreads();   // the warps' row maxima
+
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mn = m[r];
+#pragma unroll
+      for (int w = 0; w < MMA_WARPS; ++w)
+        mn = fmaxf(mn, sm_red[w * MMA_M + gid + 8 * r]);
+      alpha[r] = expf(m[r] - mn);
+      m[r] = mn;
+    }
+    float pe[4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      pe[j] = ok[j] ? expf(sc[j] - m[0]) : 0.f;
+      pe[2 + j] = ok[j] ? expf(sc[2 + j] - m[1]) : 0.f;
+    }
+    l[0] = l[0] * alpha[0] + pe[0] + pe[1];
+    l[1] = l[1] * alpha[1] + pe[2] + pe[3];
+    const int pc = 8 * warp + 2 * tig;
+    *reinterpret_cast<uint32_t*>(sm_p + gid * S::p_row + pc) =
+        pack_bf16(pe[0] * vsc[0], pe[1] * vsc[1]);
+    *reinterpret_cast<uint32_t*>(sm_p + (gid + 8) * S::p_row + pc) =
+        pack_bf16(pe[2] * vsc[0], pe[3] * vsc[1]);
+#pragma unroll
+    for (int j = 0; j < OT; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+    __syncthreads();   // P of all the tile's slots
+
+    // O += P V over this warp's columns
+#pragma unroll
+    for (int kq = 0; kq < MMA_TILE / 16; ++kq) {
+      const int pk = 16 * kq + 2 * tig;
+      const uint32_t pa[4] = {
+          row_pair(sm_p + gid * S::p_row, pk),
+          row_pair(sm_p + (gid + 8) * S::p_row, pk),
+          row_pair(sm_p + gid * S::p_row, pk + 8),
+          row_pair(sm_p + (gid + 8) * S::p_row, pk + 8)};
+#pragma unroll
+      for (int j = 0; j < OT; ++j) {
+        const TKV* vc = sv + pk * RS + warp * OCOLS + 8 * j + gid;
+        mma_bf16(acc[j], pa, col_pair(vc, RS), col_pair(vc + 8 * RS, RS));
+      }
+    }
+  }
+
+  // each row's l: over the group's four lanes, then over the warps in
+  // warp order (every warp has passed its last read of sm_red)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if (tig == 0) {
+    sm_red[warp * MMA_M + gid] = l[0];
+    sm_red[warp * MMA_M + gid + 8] = l[1];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int g = gid + 8 * r;
+    if (g >= ng) continue;
+    float lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < MMA_WARPS; ++w) lsum += sm_red[w * MMA_M + g];
+    const size_t pg = ((size_t)bh * n_split + z) * G + g0 + g;
+#pragma unroll
+    for (int j = 0; j < OT; ++j) {
+      const int d = warp * OCOLS + 8 * j + 2 * tig;
+      if (n_split == 1) {
+        const size_t at = ((size_t)bh * G + g0 + g) * HD + d;
+        o[at] = __float2bfloat16_rn(acc[j][2 * r] / fmaxf(lsum, 1e-30f));
+        o[at + 1] =
+            __float2bfloat16_rn(acc[j][2 * r + 1] / fmaxf(lsum, 1e-30f));
+      } else {
+        part_acc[pg * HD + d] = acc[j][2 * r];
+        part_acc[pg * HD + d + 1] = acc[j][2 * r + 1];
+      }
+    }
+    if (n_split > 1 && warp == 0 && tig == 0) {
+      part_ml[2 * pg] = m[r];
+      part_ml[2 * pg + 1] = lsum;
+    }
+  }
+}
+
+// The merge of a launch's partials (above one split): one block per
+// (row, KV head) and MERGE_THREADS of its G * hd elements.
+template <typename TQ>
+int launch_merge(const Args& a, int hd, const float* part_acc,
+                 const float* part_ml) {
+  const int rows = a.B * a.n_kv_heads;
+  const dim3 grid(rows, (a.G * hd + MERGE_THREADS - 1) / MERGE_THREADS);
+  decode_merge<TQ><<<grid, MERGE_THREADS, 0, a.stream>>>(
+      part_acc, part_ml, a.pos, (TQ*)a.o, a.n_kv_heads, a.G, hd, a.cap,
+      a.chunk, a.n_split);
+  return (int)cudaGetLastError();
+}
+
+template <typename TKV, int HD>
+int run_mma(const Args& a) {
+  using S = MmaShape<TKV, HD>;
+  auto kernel = decode_mma_kernel<TKV, HD>;
+  if (S::smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int rows = a.B * a.n_kv_heads;
+  float* part_acc = a.part;
+  float* part_ml =
+      a.part ? a.part + (size_t)rows * a.n_split * a.G * HD : nullptr;
+  const dim3 grid(rows * a.n_split, (a.G + MMA_M - 1) / MMA_M);
+  kernel<<<grid, 32 * MMA_WARPS, S::smem, a.stream>>>(
+      (const __nv_bfloat16*)a.q, (const TKV*)a.k, (const TKV*)a.v, a.ks,
+      a.vs, a.pos, (__nv_bfloat16*)a.o, part_acc, part_ml, a.G,
+      a.n_kv_heads, a.cap, a.window, a.scale, a.chunk, a.n_split);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || a.n_split == 1) return (int)e;
+  return launch_merge<__nv_bfloat16>(a, HD, part_acc, part_ml);
 }
 
 template <typename TQ, typename TKV, int HD, int GT, bool TABLE>
@@ -386,16 +777,19 @@ int run(const Args& a) {
       a.n_k, a.window, a.scale, a.chunk, a.n_split);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.n_split == 1) return (int)e;
-  decode_merge<TQ><<<rows, MERGE_THREADS, 0, a.stream>>>(
-      part_acc, part_ml, a.pos, (TQ*)a.o, a.n_kv_heads, a.G, HD, a.cap,
-      a.chunk, a.n_split);
-  return (int)cudaGetLastError();
+  return launch_merge<TQ>(a, HD, part_acc, part_ml);
 }
 
 // GT = the query heads a block holds: the group size rounded up to 1, 2, 4
-// or 8; larger groups take several blocks of 8.
+// or 8; larger groups take several blocks of 8, except on the ring with
+// bf16 q and bf16 or int8 K/V, where blocks of MMA_M heads run the
+// tensor-core body.
 template <typename TQ, typename TKV, int HD, bool TABLE>
 int by_group(const Args& a) {
+  if constexpr (!TABLE && std::is_same<TQ, __nv_bfloat16>::value &&
+                !std::is_same<TKV, float>::value) {
+    if (a.G > 8) return run_mma<TKV, HD>(a);
+  }
   if (a.G <= 1) return run<TQ, TKV, HD, 1, TABLE>(a);
   if (a.G <= 2) return run<TQ, TKV, HD, 2, TABLE>(a);
   if (a.G <= 4) return run<TQ, TKV, HD, 4, TABLE>(a);

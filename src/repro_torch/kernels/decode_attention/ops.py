@@ -17,7 +17,9 @@ differentiable.
 its launches in ``.launches``.  Both kernels deal each row's slots out
 over several blocks (split-KV) in chunks of ``decode_chunk`` slots, whose
 fp32 partials a second kernel folds in split order (one launch all the
-same).
+same).  On the ring, a group of more than 8 query heads with bf16 q and
+bf16 or int8 K/V runs the kernel's tensor-core body (``tensor_core_ring``):
+blocks of MMA_HEADS heads that stage MMA_TILE slots at a time.
 """
 from __future__ import annotations
 
@@ -38,6 +40,12 @@ DECODE_MIN_CHUNK = 64
 # and the fewest steps of its warps a split takes: a block's fixed cost (q,
 # the warps' merge, the partial) outweighs fewer
 DECODE_MIN_STEPS = 4
+# the ring kernel's tensor-core body (decode_mma_kernel): query heads a
+# block holds (MMA_M), slots a stage holds (MMA_TILE), and the fewest
+# stages a split takes
+MMA_HEADS = 16
+MMA_TILE = 32
+DECODE_MMA_MIN_TILES = 2
 Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P = ctypes.c_void_p
@@ -118,6 +126,14 @@ def _window(window):
     return -1 if window is None else int(window)
 
 
+def tensor_core_ring(g: int, q_dtype, kv_dtype) -> bool:
+    """Whether the ring kernel runs its tensor-core body for a group of
+    ``g`` query heads, q of ``q_dtype`` and K/V of ``kv_dtype`` (``by_group``
+    in the kernel source): G > 8, bf16 q, bf16 or int8 K/V."""
+    return g > 8 and q_dtype == torch.bfloat16 and \
+        kv_dtype in (torch.bfloat16, torch.int8)
+
+
 def group_tile(g: int) -> int:
     """Query heads a block of the decode kernels holds for a group of
     ``g``: 1, 2, 4 or 8 (``by_group`` in the kernel source)."""
@@ -166,8 +182,15 @@ def decode_chunk(cap: int, unit: int, rows: int, sms: int,
 def kernel_chunk(q, k, table, sms: int) -> int:
     """``decode_chunk`` for the kernel that takes q (B,Hkv,G,hd) and the
     cache ``k``: the table's (``table`` given, k a pool) or the ring's,
-    at least DECODE_MIN_STEPS steps of the kernel's warps."""
+    at least DECODE_MIN_STEPS steps of the kernel's warps; for the ring's
+    tensor-core body whole stages of MMA_TILE slots, at least
+    DECODE_MMA_MIN_TILES of them."""
     b, hkv, g, hd = q.shape
+    if table is None and tensor_core_ring(g, q.dtype, k.dtype):
+        rows = b * hkv * -(-g // MMA_HEADS)
+        return decode_chunk(k.shape[1], MMA_TILE, rows, sms,
+                            max(DECODE_MIN_CHUNK,
+                                DECODE_MMA_MIN_TILES * MMA_TILE))
     rows = b * hkv * -(-g // group_tile(g))
     step = warp_step(hd, k.element_size(), g)
     least = max(DECODE_MIN_CHUNK, DECODE_MIN_STEPS * step)

@@ -13,7 +13,8 @@ overflow) and the state is carried from chunk to chunk.  It takes
 ``log(w)``, so a ``w`` that underflowed to 0 makes it NaN where the
 sequential form stays finite (ROADMAP.md section C).  ``chunk_step``
 is one chunk of it, which the WKV backward rebuilds chunk by chunk
-(``ops.WKV``).
+(``ops.WKV``).  ``wkv_decode`` is one step from a given state (the
+serving path's decode).
 """
 from __future__ import annotations
 
@@ -100,3 +101,13 @@ def wkv_chunked(r, k, v, w, u, s0=None, chunk: int = 64):
     y = torch.stack(ys, 1)                               # (B,nc,H,C,K)
     y = y.permute(0, 1, 3, 2, 4).reshape(b, -1, h, kk)
     return y[:, :t], s
+
+
+def wkv_decode(r, k, v, w, u, s):
+    """One token: r, k, v, w (B,H,K); u (H,K); s (B,H,K,K) the state
+    before it.  Returns (y (B,H,K), the state after it), fp32."""
+    r, k, v, w = (x.float() for x in (r, k, v, w))
+    kv = k[..., :, None] * v[..., None, :]
+    y = torch.einsum("bhk,bhkv->bhv", r,
+                     s.float() + u.float()[None, :, :, None] * kv)
+    return y, w[..., :, None] * s.float() + kv

@@ -1,6 +1,6 @@
 """Serving CLI of the port: image classification with AlexNet, or token
-generation with a dense LM of the zoo, on one GPU (or, when asked, on
-the CPU).
+generation with a dense, ssm or hybrid LM of the zoo, on one GPU (or,
+when asked, on the CPU).
 
 Builds the model with random weights from ``--seed``, starts
 ``repro_torch.serving.ServingEngine`` with ``--slots`` slots, feeds it
@@ -13,23 +13,29 @@ ending in ``serve OK``:
         --smoke --device cpu --block-size 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch alexnet \\
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+        --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-9b --smoke --layers 4 --device cpu
 
 ``--arch alexnet`` is the reference CLI's legacy net (``ALEXNET``:
 ungrouped, LRN before the pool) at full width, 227x227x3 images and 1000
-classes; ``--smoke`` serves the reduced ``ALEXNET_SMOKE``.  A dense LM
-(``olmo-1b``, ``gemma-7b``, ...) serves at its published width in its
-config's dtype (bf16); ``--layers`` cuts its depth, and ``--smoke``
-takes the reference's reduced fp32 config (``--layers`` / ``--d-model``
-size it).  Prompts are random tokens, their lengths drawn around
+classes; ``--smoke`` serves the reduced ``ALEXNET_SMOKE``.  An LM (a
+dense one such as ``olmo-1b`` or ``gemma-7b``, ``rwkv6-7b`` or
+``recurrentgemma-9b``) serves at its published width in its config's
+dtype (bf16); ``--layers`` cuts its depth, and ``--smoke`` takes the
+reference's reduced fp32 config (``--layers`` / ``--d-model`` size
+it).  Prompts are random tokens, their lengths drawn around
 ``--prompt-len``; the run reports generated tokens/s, TTFT p50/p99 and
 the per-token latency of each request's decode (p50/p99).
-``--block-size`` serves from the shared-prefix block pool,
+``--block-size`` serves from the shared-prefix block pool (the dense
+family only: the engine refuses it for the recurrent state),
 ``--ticks-per-dispatch`` runs K decode ticks per host read, and
 ``--kv-cache-dtype`` stores the KV cache in another type (int8 with
 fp32 scales).  It runs on ``cuda`` unless ``--device cpu`` is given, and
 exits non-zero when CUDA is asked for and absent.  The other LM
-families, the replica mesh, the tier, speculative decoding and numerics
-presets are not ported yet.
+families (moe, vlm, encdec), the replica mesh, the tier, speculative
+decoding and numerics presets are not ported yet.
 """
 from __future__ import annotations
 
@@ -47,14 +53,15 @@ from repro_torch.launch import not_ported
 from repro_torch.numerics import KV_CACHE_DTYPES
 from repro_torch.serving import Request, ServingEngine
 
-LM_ARCHS = sorted(a for a, c in ARCHS.items() if c.family == "dense")
+LM_ARCHS = sorted(a for a, c in ARCHS.items()
+                  if c.family in ("dense", "ssm", "hybrid"))
 
 
 def build_parser():
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="olmo-1b",
                     choices=["alexnet"] + sorted(ARCHS),
-                    help="alexnet or a dense LM of the zoo ("
+                    help="alexnet or an LM of the zoo ("
                     + ", ".join(LM_ARCHS) + "); the other families do not "
                     "serve yet")
     ap.add_argument("--images", action="store_true",
@@ -91,7 +98,8 @@ def build_parser():
                     help="draft tokens per verify round (not ported)")
     ap.add_argument("--block-size", type=int, default=0,
                     help="> 0: shared-prefix block-pool KV cache with this "
-                    "many ring positions per block (full-attention archs)")
+                    "many ring positions per block (full-attention dense "
+                    "archs)")
     ap.add_argument("--num-blocks", type=int, default=0,
                     help="pool size for --block-size (default: full "
                     "private provisioning, slots*capacity/bs + trash)")

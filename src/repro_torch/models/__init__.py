@@ -16,15 +16,16 @@ The **DecodeState contract** (the reference's docs/serving.md):
 
 plus the slot surgery of the serving engine (``read_slots`` /
 ``write_slots``).  Image classification is one forward pass, so its
-``DecodeState`` carries an empty cache and ``pos``; the dense family's
-cache is the stacked ring KV cache of ``transformer.init_decode_cache``;
-the recurrent families train but do not decode yet.
+``DecodeState`` carries an empty cache and ``pos``; an LM's cache is
+``transformer.init_decode_cache``'s stacked tree: ring KV caches for the
+attention layers (dense, and the hybrid's local attention) and the
+constant-size recurrent state of the ``rwkv`` and ``rec`` layers.
 ``DecodeState.pos`` is per row.  Unlike the reference, the cache is
 written in place: ``decode_step`` and ``write_slots`` return a state
 that shares (and has updated) the cache of the state passed in.  The
-other LM families (moe, vlm, encdec), decoding ssm and hybrid, and
-speculative decoding (``decode_seq_pending`` / ``commit_pending``) come
-with later slices (ROADMAP queue A); asking for them raises.
+other LM families (moe, vlm, encdec) and speculative decoding
+(``decode_seq_pending`` / ``commit_pending``) come with later slices
+(ROADMAP queue A); asking for them raises.
 """
 from __future__ import annotations
 
@@ -41,15 +42,13 @@ from repro_torch.models.layers import softmax_xent
 _NOT_PORTED = ("family {family!r} ({name}) is not ported to PyTorch yet: "
                "see ROADMAP.md queue A ({what})")
 FAMILIES = ("conv", "dense", "ssm", "hybrid")
-DECODE_FAMILIES = ("conv", "dense")
-_DECODE_LATER = "item 8, decoding the LM families other than dense"
 
 
-def _check_family(cfg, families=FAMILIES, what="item 8, the remaining "
-                  "LM families") -> None:
-    if cfg.family not in families:
+def _check_family(cfg) -> None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(_NOT_PORTED.format(
-            family=cfg.family, name=cfg.name, what=what))
+            family=cfg.family, name=cfg.name,
+            what="item 8, the remaining LM families"))
 
 
 def init(cfg, generator: torch.Generator, *, device=None):
@@ -91,7 +90,7 @@ class DecodeState:
 
 def init_decode_cache(cfg, batch: int, seq_len: int, *, device=None):
     """The DecodeState's ``cache`` tree (``{}`` for conv)."""
-    _check_family(cfg, DECODE_FAMILIES, _DECODE_LATER)
+    _check_family(cfg)
     if cfg.family == "conv":
         # classification is one forward: there is no state to carry
         return {}
@@ -107,8 +106,8 @@ def init_decode_state(cfg, batch: int, capacity: int, *,
 
 
 def _check_lm(cfg):
-    if cfg.family != "dense":
-        _check_family(cfg, DECODE_FAMILIES, _DECODE_LATER)
+    _check_family(cfg)
+    if cfg.family == "conv":
         raise ValueError(f"{cfg.name} ({cfg.family}) has no token decode "
                          "path: the conv family classifies in one forward")
 

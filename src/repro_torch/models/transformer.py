@@ -19,12 +19,16 @@ reference's superblock-major order (``blocks[0][i]``, ``blocks[1][i]``,
 superblocks), unbinding the stacked leaves; unbind's backward stacks the
 layers' grads in one pass.
 
-Decode (``dense`` only): ``init_decode_cache`` stacks one ring KV cache
-per layer in the same tree, ``prefill`` / ``forward(..., cache=)`` fill
-it and ``decode_step`` advances it one token.  Each layer writes its
-view (``unbind``) of the stacked leaves, so every write lands in place
-in the stacked tensors.  Decoding the recurrent families and the other
-families (moe, vlm) are not ported (ROADMAP queue A item 8).
+Decode: ``init_decode_cache`` stacks one cache per layer in the same
+tree (a ring KV cache for ``dense`` and ``attn``, the recurrent state for
+``rwkv`` and ``rec``), ``prefill`` / ``forward(..., cache=)`` fill it and
+``decode_step`` advances it one token.  Each layer writes its view
+(``unbind``) of the stacked leaves, so every write lands in place in the
+stacked tensors.  A prefill starts from the fresh cache's zero state, so
+its ``rwkv`` layers run the WKV kernel (``rwkv.time_mix_seq``); a
+``forward`` from a carried cache takes the plain chunked WKV with the
+state.  The other families (moe, vlm) are not ported (ROADMAP queue A
+item 8).
 """
 from __future__ import annotations
 
@@ -67,14 +71,6 @@ def layer_kinds(cfg) -> list:
     return list(pattern) * n_super + list(pattern[:rem])
 
 
-def _check_decode(cfg) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"decoding the {cfg.family!r} family ({cfg.name}) is not "
-            "ported yet: see ROADMAP.md queue A item 8 (serving the "
-            "recurrent families)")
-
-
 def block_init(cfg, generator, kind: str, device):
     dt = param_dtype(cfg)
     p = {"norm1": norm_init(cfg, dt, device),
@@ -115,21 +111,44 @@ def init(cfg, generator: torch.Generator, *, device=None) -> dict:
     return params
 
 
-def block_apply_seq(p, cfg, kind, h, *, cache=None, length=None):
-    """One full-sequence block: h (B,S,d) -> h (B,S,d).  ``cache`` (a
-    ``dense`` layer's ring) is filled in place with the prefix's K/V, per
-    row up to ``length`` when given."""
+def _write(cache, new) -> None:
+    """Copy a block's new state into its cache views, in place."""
+    for key, value in new.items():
+        if isinstance(value, dict):
+            _write(cache[key], value)
+        else:
+            cache[key].copy_(value)
+
+
+def block_apply_seq(p, cfg, kind, h, *, cache=None, length=None,
+                    zero_state=False):
+    """One full-sequence block: h (B,S,d) -> h (B,S,d).  With ``cache``
+    (this layer's views of the decode cache) the block resumes from it
+    and writes its state after the prefix back in place, per row up to
+    ``length`` when given: the ``rwkv`` / ``rec`` state, or the ring's K/V
+    for ``dense`` / ``attn``.  ``zero_state`` says the cache holds the
+    zero state (a fresh prefill), so the WKV runs from zero."""
     if kind == "rwkv":
-        y, _ = rwkv_mod.time_mix_seq(p, cfg, norm_apply(p["norm1"], cfg, h),
-                                     length=length)
+        carried = cache is not None and not zero_state
+        y, (tm_shift, wkv) = rwkv_mod.time_mix_seq(
+            p, cfg, norm_apply(p["norm1"], cfg, h),
+            cache["tm_shift"] if carried else None,
+            cache["wkv"] if carried else None, length=length)
         h = h + y
-        y, _ = rwkv_mod.channel_mix_seq(p, cfg,
-                                        norm_apply(p["norm2"], cfg, h),
-                                        length=length)
+        y, cm_shift = rwkv_mod.channel_mix_seq(
+            p, cfg, norm_apply(p["norm2"], cfg, h),
+            cache["cm_shift"] if carried else None, length=length)
+        if cache is not None:
+            _write(cache, {"tm_shift": tm_shift, "wkv": wkv,
+                           "cm_shift": cm_shift})
         return h + y
     x = norm_apply(p["norm1"], cfg, h)
     if kind == "rec":
-        y, _ = rglru_mod.rglru_seq(p["mix"], cfg, x, cache, length)
+        y, new = rglru_mod.rglru_seq(
+            p["mix"], cfg, x, None if cache is None else cache["mix"],
+            length)
+        if cache is not None:
+            _write(cache["mix"], new)
     else:
         # dense layers are windowed when the config says so; hybrid attn
         # layers are local by construction (the reference's _window)
@@ -143,11 +162,28 @@ def block_apply_seq(p, cfg, kind, h, *, cache=None, length=None):
 
 def block_apply_decode(p, cfg, kind, h, cache, pos, table=None):
     """One single-token block: h (B,1,d) -> h (B,1,d); writes this
-    layer's cache in place.  ``table`` switches the cache to the block
-    pool (``attention.decode_attention``)."""
+    layer's cache in place.  ``table`` switches an attention cache to the
+    block pool (``attention.decode_attention``); the recurrent kinds hold
+    a constant-size state and take none."""
+    if kind == "rwkv":
+        x = norm_apply(p["norm1"], cfg, h)[:, 0]
+        y, (tm_shift, wkv) = rwkv_mod.time_mix_decode(
+            p, cfg, x, cache["tm_shift"], cache["wkv"])
+        h = h + y[:, None]
+        x = norm_apply(p["norm2"], cfg, h)[:, 0]
+        y, cm_shift = rwkv_mod.channel_mix_decode(p, cfg, x,
+                                                  cache["cm_shift"])
+        _write(cache, {"tm_shift": tm_shift, "wkv": wkv,
+                       "cm_shift": cm_shift})
+        return h + y[:, None]
     x = norm_apply(p["norm1"], cfg, h)
-    h = h + attn.decode_attention(p["attn"], cfg, x, cache, pos,
-                                  window=cfg.sliding_window, table=table)
+    if kind == "rec":
+        y, new = rglru_mod.rglru_decode(p["mix"], cfg, x[:, 0], cache["mix"])
+        _write(cache["mix"], new)
+        h = h + y[:, None]
+    else:
+        h = h + attn.decode_attention(p["attn"], cfg, x, cache, pos,
+                                      window=cfg.sliding_window, table=table)
     x = norm_apply(p["norm2"], cfg, h)
     return h + mlp_apply(p["ffn"], cfg, x)
 
@@ -175,19 +211,21 @@ def _all_layers(tree, cfg) -> list:
         list(tree["rem_blocks"])
 
 
-def forward(params, cfg, tokens, *, cache=None, length=None):
+def forward(params, cfg, tokens, *, cache=None, length=None,
+            zero_state=False):
     """tokens (B,S) -> fp32 logits (B,S,V).  With ``cache`` (an
-    ``init_decode_cache`` tree) the prefix's K/V fill it in place (per
-    row up to ``length``) and the result is (logits, cache)."""
-    if cache is not None:
-        _check_decode(cfg)
+    ``init_decode_cache`` tree) the layers resume from it and write their
+    state after the prefix in place (per row up to ``length``), and the
+    result is (logits, cache); ``zero_state`` says the cache is fresh
+    (``block_apply_seq``)."""
     h = embed_apply(params["embed"], cfg, tokens)
     layers = _all_layers(params, cfg)
     caches = [None] * len(layers) if cache is None \
         else _all_layers(cache, cfg)
     for kind, layer, c in zip(layer_kinds(cfg), layers, caches,
                               strict=True):
-        h = block_apply_seq(layer, cfg, kind, h, cache=c, length=length)
+        h = block_apply_seq(layer, cfg, kind, h, cache=c, length=length,
+                            zero_state=zero_state)
     h = norm_apply(params["final_norm"], cfg, h)
     logits = unembed_apply(params["embed"], cfg, h)
     return logits if cache is None else (logits, cache)
@@ -200,26 +238,41 @@ def prefill(params, cfg, tokens, capacity: int, *, length=None):
     prefilled unpadded at its own length."""
     cache = init_decode_cache(cfg, tokens.shape[0], capacity,
                               device=tokens.device)
-    return forward(params, cfg, tokens, cache=cache, length=length)
+    return forward(params, cfg, tokens, cache=cache, length=length,
+                   zero_state=True)
+
+
+def _block_cache_init(cfg, kind, batch, capacity, device, lead=()):
+    """One pattern position's zero cache, with the stacked-layer axis
+    ``lead`` before batch: the recurrent state of ``rwkv`` / ``rec``, a
+    ring of ``attention.cache_capacity`` slots for the attention kinds."""
+    dt = param_dtype(cfg)
+    if kind == "rwkv":
+        return rwkv_mod.init_rwkv_cache(cfg, batch, dt, device, lead)
+    if kind == "rec":
+        return {"mix": rglru_mod.init_rglru_cache(cfg, batch, dt, device,
+                                                  lead)}
+    return attn.init_cache(cfg, batch, attn.cache_capacity(cfg, capacity),
+                           dt, device, lead=lead)
 
 
 def init_decode_cache(cfg, batch: int, seq_len: int, *, device=None):
-    """The stacked per-layer ring caches, in the params' tree: ``{"blocks":
-    ({k, v[, k_scale, v_scale]: (n_layers, batch, cap, ...)},),
-    "rem_blocks": ()}`` with ``cap = cache_capacity(cfg, seq_len)``, in
-    the params' dtype (or the numerics policy's ``kv_cache_dtype``)."""
-    _check_decode(cfg)
+    """The stacked per-layer caches, in the params' tree: ``{"blocks":
+    (one per pattern position, leaves (n_super, batch, ...)),
+    "rem_blocks": (one per remainder layer)}``.  An attention layer's is a
+    ring {k, v[, k_scale, v_scale]: (.., batch, cap, Hkv, hd)} with ``cap
+    = cache_capacity(cfg, seq_len)`` in the params' dtype (or the
+    numerics policy's ``kv_cache_dtype``); a ``rwkv`` layer's {tm_shift,
+    wkv, cm_shift}, a ``rec`` layer's {mix: {conv, h}}, their fp32 parts
+    fp32."""
     dev = device_of(device)
     pattern, n_super, rem = _split(cfg)
-    cap = attn.cache_capacity(cfg, seq_len)
-
-    def ring(lead=()):
-        return attn.init_cache(cfg, batch, cap, param_dtype(cfg), dev,
-                               lead=lead)
-
-    return {"blocks": tuple(ring((n_super,)) for _ in pattern)
-            if n_super else (),
-            "rem_blocks": tuple(ring() for _ in range(rem))}
+    return {"blocks": tuple(_block_cache_init(cfg, kind, batch, seq_len,
+                                              dev, (n_super,))
+                            for kind in pattern) if n_super else (),
+            "rem_blocks": tuple(_block_cache_init(cfg, pattern[i], batch,
+                                                  seq_len, dev)
+                                for i in range(rem))}
 
 
 def decode_step(params, cfg, cache, tokens, pos, table=None):
@@ -227,7 +280,6 @@ def decode_step(params, cfg, cache, tokens, pos, table=None):
     absolute position.  Writes ``cache`` in place and returns fp32
     logits (B,1,V).  ``table`` (B, cap/bs) int32: the block-pool layout
     (``attention.decode_attention``)."""
-    _check_decode(cfg)
     h = embed_apply(params["embed"], cfg, tokens)
     for kind, layer, c in zip(layer_kinds(cfg), _all_layers(params, cfg),
                               _all_layers(cache, cfg), strict=True):

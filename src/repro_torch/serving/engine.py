@@ -1,6 +1,7 @@
 """Slot-based continuous-batching serving engine (the counterpart of
 ``repro/serving/engine.py``), for image classification (the conv family)
-and for the dense LMs.
+and for the dense, ssm (RWKV6) and hybrid (RG-LRU + local attention)
+LMs.
 
 The engine keeps ``slots`` rows and runs the reference's admission
 fixpoint on every ``step``:
@@ -19,18 +20,21 @@ fixpoint on every ``step``:
            position (``DecodeState.pos`` is per row) and samples the
            next.  The sampled tokens stay on the device between ticks;
            the host reads them once per dispatch (``_to_host``).
-           Inactive slots decode garbage into their own rows.
+           Inactive slots decode garbage into their own rows; the next
+           admission's ``write_slots`` overwrites every leaf of its row,
+           the recurrent state as well as the ring.
 
 With ``block_size > 0`` the KV cache is a shared, ref-counted pool of
 blocks read through per-slot block tables (``serving/blocks.py``):
 requests with a common prompt prefix share its blocks, and an exact
-repeat of a prompt (greedy engines) admits with no forward at all.
+repeat of a prompt (greedy engines) admits with no forward at all.  The
+pool holds attention K/V only, so it serves the dense family alone.
 
 Everything runs under ``torch.inference_mode()``, and the decode state
 is written in place.  Speculative decoding (``draft_*``), the replica
 mesh, and the tier's ``export_slot`` / ``import_snapshot`` / ``drain``
 are not ported yet (ROADMAP queue A items 10-11) and raise; so do the LM
-families other than dense (item 8).
+families the port has not got (item 8).
 """
 from __future__ import annotations
 
@@ -94,8 +98,7 @@ class Result:
 
 class ServingEngine:
     """Serves ``params`` for ``cfg`` on their device: an ``AlexNet``
-    module (NHWC images) for the conv family, a params tree for a dense
-    LM."""
+    module (NHWC images) for the conv family, a params tree for an LM."""
 
     def __init__(self, params, cfg, *, slots: int = 4, capacity: int = 256,
                  temperature: float = 0.0, top_k: int = 0,
@@ -103,7 +106,7 @@ class ServingEngine:
                  ticks_per_dispatch: int = 1, block_size: int = 0,
                  num_blocks: int = 0, draft_params=None, draft_cfg=None,
                  mesh=None):
-        if cfg.family not in ("conv", "dense"):
+        if cfg.family not in models.FAMILIES:
             raise _not_ported(f"serving the {cfg.family!r} family "
                               f"({cfg.name})", "item 8")
         if draft_params is not None or draft_cfg is not None:
@@ -145,6 +148,11 @@ class ServingEngine:
     def _init_lm_state(self, num_blocks: int) -> None:
         cfg, slots, dev = self.cfg, self.slots, self.device
         if self.block_size > 0:
+            if cfg.family != "dense":
+                raise ValueError(
+                    f"block-table caches need a pure-attention family "
+                    f"(dense), got {cfg.family!r} ({cfg.name}): the pool "
+                    "holds K/V blocks, not recurrent state")
             if cfg.sliding_window is not None:
                 raise NotImplementedError(
                     "block-table caches need full attention: a windowed "
@@ -229,8 +237,10 @@ class ServingEngine:
         toks = toks.to(self.device)
         length = torch.full((1,), len(prompt), dtype=torch.int32,
                             device=self.device)
-        logits, sub = models.prefill(self.params, self.cfg, toks,
-                                     self.capacity, length=length)
+        # a named range, so a profiler trace can book prefills apart
+        with torch.profiler.record_function("prefill"):
+            logits, sub = models.prefill(self.params, self.cfg, toks,
+                                         self.capacity, length=length)
         first = sampling.sample_slots(
             self.seed, torch.full((1,), rid, device=self.device), length,
             logits[:, len(prompt) - 1], self.temperature, self.top_k)

@@ -217,7 +217,7 @@ RING_RULE_CASES = [  # (cap, hd, K/V bytes, G, rows, sms)
     (2048, 128, 2, 1, 128, 132),     # the serving tick: B 8 x Hkv 16
     (2048, 128, 1, 1, 128, 132),     # int8 K/V
     (2048, 128, 4, 1, 128, 132),     # fp32 K/V
-    (2048, 256, 2, 16, 16, 132),     # the hybrid's attn layers: 2 tiles
+    (2048, 256, 2, 16, 16, 132),     # G 16 on the SIMT body: 2 tiles
     (2048, 128, 2, 4, 64, 132),      # GQA 4
     (300, 128, 2, 1, 4, 132),        # cap not a multiple of the chunk
     (200, 64, 2, 4, 2, 16),
@@ -263,6 +263,23 @@ def test_ring_split_at_the_serving_tick():
     pool = torch.zeros((8 * 128 + 1, 16, 16, 128), dtype=torch.bfloat16)
     table = torch.zeros((8, 128), dtype=torch.int32)
     assert ops.kernel_chunk(q, pool, table, 132) == 256
+
+
+def test_ring_split_at_the_hybrid_tick():
+    """recurrentgemma-9b's attn layers (B 8, one KV head, G 16, hd 256,
+    bf16 q, a bf16 or int8 ring of 2048 slots) on 132 SMs take the
+    tensor-core body: one block per row and split, chunks of two 32-slot
+    stages, 32 splits; fp32 q keeps the SIMT body's two head tiles."""
+    k = torch.zeros((8, 2048, 1, 256), dtype=torch.bfloat16)
+    for kv in (torch.bfloat16, torch.int8):
+        q = torch.zeros((8, 1, 16, 256), dtype=torch.bfloat16)
+        assert ops.tensor_core_ring(16, q.dtype, kv)
+        chunk = ops.kernel_chunk(q, k.to(kv), None, 132)
+        assert chunk == ops.DECODE_MMA_MIN_TILES * ops.MMA_TILE == 64
+        assert len(ops.decode_chunks(2048, chunk)) == 32
+    q = torch.zeros((8, 1, 16, 256), dtype=torch.float32)
+    assert not ops.tensor_core_ring(16, q.dtype, k.dtype)
+    assert ops.kernel_chunk(q, k, None, 132) % ops.warp_step(256, 2, 16) == 0
 
 
 def _arc_cut(lo, hi, p, cap, window):
@@ -720,9 +737,12 @@ def test_xla_policy_runs_the_plain_version():
     torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
 
 
-def test_other_families_have_no_decode_yet():
-    cfg = reduced(ARCHS["rwkv6-7b"])
-    with pytest.raises(NotImplementedError, match="item 8"):
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi-3-vision-4.2b",
+                                  "seamless-m4t-medium"])
+def test_other_families_have_no_decode_yet(arch):
+    """moe, vlm and encdec still raise, naming their queue-A item."""
+    cfg = reduced(ARCHS[arch])
+    with pytest.raises(NotImplementedError, match=r"queue A \(item 8"):
         models.init_decode_state(cfg, 2, 16, device="cpu")
 
 
@@ -751,14 +771,21 @@ CARD_CASES = [  # (b, cap, hkv, g, hd, window, pos, bs): bs 0 = ring
     (2, 272, 1, 4, 128, None, [271, 500], 16),
     (2, 256, 2, 12, 128, None, [255, 100], 16),
     # the ring kernel's split (kernel_chunk; several chunks per row here):
-    # the same five, and G 16 at hd 256 (two query-head tiles per row, the
-    # hybrid's attn layers) on a wrapped, windowed ring
+    # the same five, and G 16 at hd 256 (the hybrid's attn layers: two
+    # query-head tiles per row on the SIMT body, one on the tensor-core
+    # body) on a wrapped, windowed ring
     (2, 1024, 2, 1, 128, None, [1023, 3000], 0),
     (3, 512, 2, 1, 64, None, [10, 511, 40], 0),
     (2, 1024, 2, 2, 128, 100, [1023, 2000], 0),
     (2, 272, 1, 4, 128, None, [271, 500], 0),
     (2, 256, 2, 12, 128, None, [255, 100], 0),
     (2, 512, 1, 16, 256, 300, [511, 1500], 0),
+    # the ring's tensor-core body (bf16 q, bf16 or int8 K/V, G > 8): rows
+    # of many stages, cap not a multiple of a stage, and G 24 (a second
+    # block of 8 heads in a 16-head tile) on a windowed, wrapped ring
+    (2, 2048, 1, 16, 256, None, [100, 5000], 0),
+    (3, 100, 1, 16, 128, None, [10, 99, 250], 0),
+    (2, 300, 2, 24, 64, 50, [299, 1000], 0),
 ]
 
 
@@ -832,6 +859,25 @@ def test_decode_ring_is_deterministic(cuda):
     q, k, v, pos, kw = _card(case, torch.bfloat16, torch.bfloat16)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert ops.kernel_chunk(q, k, None, sms) < 2048
+    first = ops.decode_attention(q, k, v, pos, **kw)
+    second = ops.decode_attention(q, k, v, pos, **kw)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8], ids=str)
+def test_decode_ring_tensor_cores_are_deterministic(cuda, kv_dtype):
+    """The hybrid's attn layers at the serving tick (B 8, one KV head,
+    G 16, hd 256, a ring of 2048): the tensor-core body, split in chunks
+    of whole stages, merged in split order: two calls agree bit for
+    bit."""
+    case = (8, 2048, 1, 16, 256, None,
+            [100, 517, 1023, 1500, 2047, 2048, 3000, 5000], 0)
+    q, k, v, pos, kw = _card(case, torch.bfloat16, kv_dtype)
+    assert ops.tensor_core_ring(16, q.dtype, k.dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk = ops.kernel_chunk(q, k, None, sms)
+    assert chunk < 2048 and chunk % ops.MMA_TILE == 0
     first = ops.decode_attention(q, k, v, pos, **kw)
     second = ops.decode_attention(q, k, v, pos, **kw)
     assert torch.equal(first, second)

@@ -349,24 +349,22 @@ def test_train_cli_needs_cuda_unless_asked_for_the_cpu():
 
 @pytest.mark.parametrize("name", RECURRENT)
 def test_serving_still_refuses(name):
-    """The serve CLI, the engine and the decode surface name the ROADMAP
-    item that brings serving these families."""
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        serve_cli.main(["--arch", name, "--smoke", "--device", "cpu"])
+    """These families serve (``tests/test_torch_recurrent_decode.py``);
+    what their serving still refuses names its ROADMAP item or says why:
+    speculative decoding (queue A item 10) in the serve CLI and the
+    engine, and the block pool, which holds no recurrent state."""
+    with pytest.raises(NotImplementedError, match="queue A item 10"):
+        serve_cli.main(["--arch", name, "--smoke", "--device", "cpu",
+                        "--draft-layers", "1"])
     cfg = reduced(ARCHS[name], 3, 64)
     params = models.init(cfg, torch.Generator().manual_seed(0),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        ServingEngine(params, cfg)
-    for call in (lambda: models.init_decode_state(cfg, 2, 16,
-                                                  device="cpu"),
-                 lambda: models.prefill(params, cfg,
-                                        torch.zeros((1, 4), dtype=torch.long),
-                                        16),
-                 lambda: transformer.init_decode_cache(cfg, 1, 16,
-                                                       device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+    with pytest.raises(NotImplementedError, match="queue A item 10"):
+        ServingEngine(params, cfg, draft_params=params, draft_cfg=cfg)
+    with pytest.raises(ValueError, match="pure-attention family"):
+        ServingEngine(params, cfg, block_size=8)
+    cache = transformer.init_decode_cache(cfg, 1, 16, device="cpu")
+    assert len(cache["blocks"]) == len(transformer.block_kinds(cfg))
 
 
 # ------------------------------------------------------------ on the card --

@@ -21,6 +21,8 @@ from repro.serving import Request as JaxRequest
 from repro.serving import ServingEngine as JaxEngine
 from repro_torch import models, weights
 from repro_torch.configs import ALEXNET_FAITHFUL_SMOKE as CFG
+from repro_torch.configs import ARCHS, reduced
+from repro_torch.launch import serve as serve_cli
 from repro_torch.serving import Request, ServingEngine, sample
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -127,14 +129,43 @@ def test_sample_top_k_support_and_generator():
         sample(logits, 1.0)
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "vlm",
-                                    "encdec"])
+@pytest.mark.parametrize("family", ["moe", "vlm", "encdec"])
 def test_engine_serves_the_conv_family_only(family):
-    """conv and dense serve; a family not ported yet still raises, naming
-    its ROADMAP item."""
+    """conv and the dense, ssm and hybrid LMs serve; a family not ported
+    yet still raises, naming its ROADMAP item."""
     cfg = types.SimpleNamespace(family=family, name=f"a-{family}-arch")
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         ServingEngine(_model(), cfg)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b"])
+def test_block_pool_refuses_recurrent_state(arch):
+    """The block pool holds attention K/V only: the engine and the serve
+    CLI refuse ``block_size > 0`` for ssm and hybrid with a ValueError, as
+    the reference's engine refuses it (dense and moe only)."""
+    cfg = reduced(ARCHS[arch], 3, 64)
+    params = models.init(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    with pytest.raises(ValueError, match="pure-attention family"):
+        ServingEngine(params, cfg, capacity=32, block_size=8)
+    with pytest.raises(ValueError, match="pure-attention family"):
+        serve_cli.main(["--arch", arch, "--smoke", "--layers", "3",
+                        "--device", "cpu", "--block-size", "8"])
+
+
+@pytest.mark.parametrize("arch,layers", [("rwkv6-7b", 2),
+                                         ("recurrentgemma-9b", 4)])
+def test_cli_serves_the_recurrent_lms_on_the_cpu(arch, layers, capsys):
+    """``--arch rwkv6-7b`` / ``recurrentgemma-9b --smoke --device cpu``
+    serve every request and end in ``serve OK``, at 4 decode ticks per
+    dispatch."""
+    serve_cli.main(["--arch", arch, "--smoke", "--layers", str(layers),
+                    "--device", "cpu", "--requests", "5", "--slots", "2",
+                    "--max-new", "6", "--ticks-per-dispatch", "4"])
+    out = capsys.readouterr().out
+    assert f"family={ARCHS[arch].family}" in out
+    assert "served 5 requests / 30 tokens" in out
+    assert out.strip().splitlines()[-1] == "serve OK"
 
 
 def _cli(*args):
