@@ -123,6 +123,23 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    ``decode_ring`` per attn layer (12); one timed window of 16 requests
    from 8 clients and one traced of 8 (device ms per tick by family, the
    ``decode_ring`` and state-update shares, booked by named ranges);
+   then speculative serving of ``olmo-1b`` (16 layers), ``recurrentgemma-
+   9b`` (38) and ``rwkv6-7b`` (32), each drafting 4 tokens a round with
+   its own first 2, 3 (one ``rec, rec, attn`` superblock) and 2 layers,
+   bf16, 8 slots, capacity 2048, 32 new tokens: first greedy streams of 8
+   requests in fp32 at 4, 4 (``rec, rec, attn, rec``, window 256, a
+   3-layer draft) and 2 layers, the spec engine's under the kernels equal
+   to the plain engine's under the kernels and the spec engine's under
+   the plain policy; one wave of 8 requests with per admission one
+   ``flash_fwd`` per attention layer, ``wkv_fwd`` per rwkv layer and
+   ``rglru_fwd`` per rec layer of target and draft, and per dispatch 4
+   ``decode_ring`` per draft attention layer and 2 ``rglru_fwd`` per rec
+   layer of either (56 for the hybrid); the verify logits of one round
+   and 5 sequential decode ticks' from one prefilled state, each no
+   further from the fp32 ticks' than 1.5x the other's; for ``olmo-1b``
+   and the hybrid a timed window of 16 requests from 8 clients, spec and
+   then plain (tokens/s, TTFT, per-token p50/p99, dispatches,
+   acceptance);
 12. recurrent LM training phases: ``rwkv6-7b`` (8 layers) and
    ``recurrentgemma-9b`` (5 layers: one ``rec, rec, attn`` superblock
    and two remainder ``rec`` layers) at the published width in bf16,
@@ -141,14 +158,15 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
 13. CLI phase: ``repro_torch.launch.serve --arch alexnet --requests 8``
    and ``--arch olmo-1b --layers 2 --requests 8 --capacity 512`` (ring,
    and ``--block-size 16``), ``--arch rwkv6-7b --layers 2`` and ``--arch
-   recurrentgemma-9b --layers 3`` (the same requests), then
+   recurrentgemma-9b --layers 3`` (the same requests, speculative with
+   ``--draft-layers 1 --spec-tokens 4``: a ``spec:`` line), then
    ``repro_torch.launch.train --faithful --replicas 2 --batch 64``
-   and ``--arch olmo-1b --layers 2 --seq-len 256 --batch 4``, each for 4
-   steps with checkpoints, resumed to 6, against an uninterrupted 6-step
-   run (the LM's losses equal bit for bit); ``--arch rwkv6-7b --layers
-   1`` for 4 steps with a checkpoint, resumed to 5, against 5
-   uninterrupted steps (bit for bit), and ``--arch recurrentgemma-9b
-   --layers 3`` for 3 steps;
+   and ``--arch olmo-1b --layers 2 --seq-len 256 --batch 4``, each for 6
+   steps with a checkpoint after step 4, resumed from it to 6 (steps 5
+   and 6 against the uninterrupted run; the LM's losses equal bit for
+   bit); ``--arch rwkv6-7b --layers 1`` for 5 steps with a checkpoint
+   after step 4, resumed to 5 (bit for bit), and ``--arch
+   recurrentgemma-9b --layers 3`` for 3 steps;
 14. prints the card again, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -230,6 +248,18 @@ RECURRENT_TRACE_REQUESTS = 8
 # bf16 at full depth, kernel against plain: how much further from the fp32
 # logits the kernel may be than the plain version (anchored_check)
 BF16_NOISE_RATIO = 1.5
+
+# speculative serving at the published width and full depth in bf16 (8
+# slots, capacity 2048, prompts of SERVE_PROMPT tokens), each target
+# drafting with its own first layers: the phase's name, the draft's
+# depth, the fp32 stream parity's target and draft depths and window,
+# and whether the phase times a window of spec against plain serving
+SPEC_SERVE = {"olmo-1b": ("spec_dense", 2, 4, 1, None, True),
+              "recurrentgemma-9b": ("spec_hybrid", 3, 4, 3, 256, True),
+              "rwkv6-7b": ("spec_ssm", 2, 2, 1, None, False)}
+SPEC_TOKENS = 4                # gamma: draft tokens a round
+SPEC_NEW = 32                  # new tokens per request
+SPEC_REQUESTS = 16             # the timed windows
 
 
 # the recurrent LMs: (depth, sequences per replica, parity depth, parity
@@ -1833,41 +1863,15 @@ def recurrent_train_phase(arch, seed):
 
 def recurrent_cli_phase():
     """The train CLI on the two recurrent archs at full width:
-    ``rwkv6-7b --layers 1`` for 4 steps with a checkpoint, resumed to 5,
-    against 5 uninterrupted steps (every loss equal bit for bit), and
+    ``rwkv6-7b --layers 1`` for 5 steps with a checkpoint after step 4,
+    resumed from it to 5 (step 5's loss equal bit for bit), and
     ``recurrentgemma-9b --layers 3`` for 3 steps (its two replicas'
     state, 32 GB, is not checkpointed here)."""
-    from repro_torch.train_loop.metrics import read_jsonl
-
     base = ["--seq-len", "256", "--batch", "4", "--replicas", "2",
             "--log-every", "1"]
-    rwkv = ["--arch", "rwkv6-7b", "--layers", "1"] + base
-    seconds = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        ck, a, c = (os.path.join(tmp, n) for n in ("ck", "a.jsonl",
-                                                   "c.jsonl"))
-        done = {}
-        for name, extra in (
-                ("first", ["--steps", "4", "--ckpt-dir", ck,
-                           "--ckpt-every", "4", "--metrics-out", a]),
-                ("resumed", ["--steps", "5", "--ckpt-dir", ck, "--resume",
-                             "--metrics-out", a]),
-                ("straight", ["--steps", "5", "--metrics-out", c])):
-            lines, seconds[name] = _run_cli("repro_torch.launch.train",
-                                            rwkv + extra)
-            if not lines or not lines[-1].startswith("done:"):
-                raise AssertionError(f"rwkv6-7b train CLI ({name}) did not "
-                                     "end in 'done:'")
-            done[name] = lines[-1]
-        if not done["resumed"].startswith("done: steps 4 -> 5"):
-            raise AssertionError(f"the resumed rwkv6-7b run: "
-                                 f"{done['resumed']}")
-        resumed = {r["step"]: r["loss"] for r in read_jsonl(a, "train")}
-        straight = {r["step"]: r["loss"] for r in read_jsonl(c, "train")}
-    if sorted(resumed) != list(range(1, 6)) or sorted(straight) != list(
-            range(1, 6)) or not all(map(math.isfinite, straight.values())):
-        raise AssertionError(f"rwkv6-7b CLI losses {resumed} / {straight}")
-    if any(resumed[st] != straight[st] for st in range(1, 6)):
+    straight, resumed, seconds = resume_runs(
+        ["--arch", "rwkv6-7b", "--layers", "1"] + base, 4, 5, "rwkv6-7b")
+    if resumed[5] != straight[5]:
         raise AssertionError(f"resumed vs uninterrupted rwkv6-7b losses "
                              f"differ: {resumed} / {straight}")
     lines, seconds["recurrentgemma"] = _run_cli(
@@ -2519,46 +2523,298 @@ def recurrent_serving_phase(arch, seed):
     return launches
 
 
-def lm_cli_phase():
-    """The LM train CLI at full width, 2 layers, 2 x 2 x 256, with
-    checkpoints: 4 steps, resumed to 6, against 6 uninterrupted steps;
-    every step's loss must be equal bit for bit."""
-    from repro_torch.train_loop.metrics import read_jsonl
+def attn_layers(cfg) -> int:
+    from repro_torch.models import transformer
+    kinds = transformer.layer_kinds(cfg)
+    return kinds.count("dense") + kinds.count("attn")
 
+
+def first_difference(params, cfg, prompts, got, want):
+    """Where two greedy stream sets part first: the rid, the token's
+    index and the top-2 margin of ``cfg``'s logits there (a prefill of
+    the prompt and the tokens both streams agree on)."""
+    from repro_torch import models
+
+    for rid in sorted(want):
+        a, b = got.get(rid, []), want[rid]
+        k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 None if len(a) == len(b) else min(len(a), len(b)))
+        if k is None:
+            continue
+        seq = torch.as_tensor(np.concatenate([prompts[rid], b[:k]]),
+                              device="cuda")[None]
+        with torch.inference_mode():
+            top = models.prefill(params, cfg, seq, SERVE_CAPACITY)[0][
+                0, -1].topk(2).values
+        return {"rid": rid, "token": k,
+                "top2_margin": (top[0] - top[1]).item()}
+    return None
+
+
+def spec_serve_parity(arch, seed):
+    """The published width at a few layers in fp32 (``SPEC_SERVE``),
+    drafting with the target's first layers: the spec engine's greedy
+    streams of SERVE_SLOTS requests under the kernels must equal, per
+    rid, the plain engine's under the kernels and the spec engine's under
+    the plain policy."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.spec_decode import truncated_draft
+
+    _, _, layers, dlayers, window, _ = SPEC_SERVE[arch]
+    base = dataclasses.replace(ARCHS[arch], n_layers=layers, dtype="float32")
+    if window:
+        base = dataclasses.replace(base, sliding_window=window)
+    params = models.init(base, torch.Generator().manual_seed(seed),
+                         device="cuda")
+    prompts = serve_prompts(base.vocab_size, SERVE_SLOTS, seed + 41)
+    streams, accepted = {}, {}
+    for policy, spec in (("auto", True), ("auto", False), ("plain", True)):
+        cfg = dataclasses.replace(base, kernels=KernelPolicy(policy))
+        dcfg, dparams = truncated_draft(cfg, params, dlayers)
+        kw = {"draft_params": dparams, "draft_cfg": dcfg,
+              "spec_tokens": SPEC_TOKENS} if spec else {}
+        eng = ServingEngine(params, cfg, slots=SERVE_SLOTS,
+                            capacity=SERVE_CAPACITY, **kw)
+        res = eng.run([Request(prompt=p, max_new_tokens=SPEC_NEW)
+                       for p in prompts])
+        streams[policy, spec] = {r.rid: r.tokens for r in res}
+        accepted[f"{policy}_{'spec' if spec else 'plain'}"] = (
+            eng.spec_accepted, eng.spec_proposed, eng.dispatches)
+    for other in (("auto", False), ("plain", True)):
+        if streams[other] != streams["auto", True]:
+            where = first_difference(params, dataclasses.replace(
+                base, kernels=KernelPolicy("plain")), prompts,
+                streams["auto", True], streams[other])
+            raise AssertionError(f"{arch} spec serving: the kernels' spec "
+                                 f"streams differ from {other}: {where}")
+    emit({"phase": "spec_serve_parity", "config": base.name,
+          "layers": layers, "draft_layers": dlayers,
+          "layer_kinds": recurrent_kinds(base), "window": window,
+          "dtype": "float32", "requests": len(prompts),
+          "prompt_tokens": [len(p) for p in prompts],
+          "new_tokens": SPEC_NEW, "spec_tokens": SPEC_TOKENS,
+          "streams_equal": True,
+          "accepted_proposed_dispatches": accepted,
+          "tokens_compared": sum(len(t) for t in
+                                 streams["auto", True].values())})
+    del params
+
+
+def spec_serving_phase(arch, seed):
+    """Speculative serving: ``arch`` at its published width and depth in
+    bf16, 8 slots, capacity 2048, greedy, drafting SPEC_TOKENS tokens a
+    round with its own first layers.  The fp32 stream parity runs first;
+    then one wave of SERVE_SLOTS requests with the launch counts set to 0
+    just before and read just after: per admission one ``flash_fwd`` per
+    attention layer, one ``wkv_fwd`` per rwkv layer and one ``rglru_fwd``
+    per rec layer, target and draft; per dispatch SPEC_TOKENS
+    ``decode_ring`` per draft attention layer (the target's verify has
+    no kernel) and two ``rglru_fwd`` per rec layer of either (verify or
+    the draft's chunk, then the commit).  From one prefilled state the
+    verify logits of one round (``decode_seq_pending``) and SPEC_TOKENS
+    + 1 sequential ``decode_step`` logits, both bf16, are each held to
+    the same weights' fp32 sequential logits (``anchored_check``, both
+    ways).  Then, for the targets that time it, a window of SPEC_REQUESTS
+    requests from 8 closed-loop clients, spec and then plain serving."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.spec_decode import truncated_draft
+    from repro_torch.tree import tree_map
+
+    phase, dlayers, _, _, _, timed = SPEC_SERVE[arch]
+    seconds, t_phase = {}, time.perf_counter()
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t_phase
+
+    spec_serve_parity(arch, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("fp32_parity")
+    cfg = dataclasses.replace(ARCHS[arch], kernels=KernelPolicy("auto"))
+    params = models.init(cfg, torch.Generator().manual_seed(seed),
+                         device="cuda")
+    dcfg, dparams = truncated_draft(cfg, params, dlayers)
+    prompts = serve_prompts(cfg.vocab_size, 2 * SERVE_SLOTS, seed + 43)
+    b = SERVE_SLOTS
+    eng = ServingEngine(params, cfg, slots=b, capacity=SERVE_CAPACITY,
+                        draft_params=dparams, draft_cfg=dcfg,
+                        spec_tokens=SPEC_TOKENS)
+    torch.cuda.synchronize()
+    lap("setup")
+    zero_counts()
+    t0 = time.perf_counter()
+    res = eng.run([Request(prompt=p, max_new_tokens=SPEC_NEW)
+                   for p in prompts[:b]])
+    torch.cuda.synchronize()
+    wave_s = time.perf_counter() - t0
+    launches = read_counts()
+    tk, dk = recurrent_kinds(cfg), recurrent_kinds(dcfg)
+    n_attn = attn_layers(cfg) + attn_layers(dcfg)
+    n_rec = tk["rec"] + dk["rec"]
+    want = {k: 0 for k in launches}
+    want.update(flash_fwd=n_attn * b, wkv_fwd=(tk["rwkv"] + dk["rwkv"]) * b,
+                rglru_fwd=n_rec * b + 2 * n_rec * eng.dispatches,
+                decode_ring=SPEC_TOKENS * attn_layers(dcfg) * eng.dispatches)
+    if launches != want:
+        raise AssertionError(f"{arch} spec serving launches {launches} != "
+                             f"{want}")
+    if any(len(r.tokens) != SPEC_NEW for r in res):
+        raise AssertionError("every request must get its new tokens")
+    wave = serve_metrics(wave_s, res)
+    wave.update(dispatches=eng.dispatches,
+                accepted=eng.spec_accepted, proposed=eng.spec_proposed)
+    lap("wave")
+
+    # the verify logits of one round against SPEC_TOKENS + 1 sequential
+    # decode steps, both bf16 from one prefilled state, each anchored to
+    # the fp32 sequential logits of the same weights from that state
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                kernels=KernelPolicy("plain"))
+    with torch.inference_mode():
+        toks = torch.zeros((b, SERVE_PROMPT[1]), dtype=torch.long,
+                           device="cuda")
+        lengths = torch.tensor([len(p) for p in prompts[:b]], device="cuda")
+        for i, p in enumerate(prompts[:b]):
+            toks[i, :len(p)] = torch.as_tensor(p)
+        _, state = models.prefill(params, cfg, toks, SERVE_CAPACITY,
+                                  length=lengths)
+        x = torch.randint(0, cfg.vocab_size, (b, SPEC_TOKENS + 1),
+                          device="cuda", generator=torch.Generator(
+                              "cuda").manual_seed(seed + 47))
+        verify = models.decode_seq_pending(params, cfg, state, x)[0]
+        del toks
+
+        def sequential(prm, c, st):
+            out = []
+            for j in range(SPEC_TOKENS + 1):
+                logits, st = models.decode_step(prm, c, st, x[:, j:j + 1])
+                out.append(logits[:, 0])
+            return torch.stack(out, 1)
+
+        seq = sequential(params, cfg, models.read_slots(state, range(b)))
+        params32 = tree_map(lambda t: t.float(), params)
+        seq32 = sequential(params32, cfg32, models.DecodeState(
+            cache=models.map_cache(lambda leaf, _: leaf.float(),
+                                   state.cache), pos=state.pos.clone()))
+        del params32, state
+    flat = [t.reshape(-1, t.shape[-1]).float() for t in (verify, seq, seq32)]
+    verify_check = anchored_check(f"{arch} bf16 spec verify", *flat)
+    sequential_check = anchored_check(f"{arch} bf16 sequential ticks",
+                                      flat[1], flat[0], flat[2])
+    del verify, seq, seq32, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("verify_logits")
+    emit({"phase": phase, "config": cfg.name, "layers": cfg.n_layers,
+          "draft": dcfg.name, "draft_layers": dlayers,
+          "layer_kinds": tk, "draft_layer_kinds": dk,
+          "attention_layers": [attn_layers(cfg), attn_layers(dcfg)],
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "slots": b,
+          "capacity": SERVE_CAPACITY, "prompt_tokens": list(SERVE_PROMPT),
+          "new_tokens": SPEC_NEW, "spec_tokens": SPEC_TOKENS,
+          "launches": launches, "admissions": b,
+          "dispatches": eng.dispatches,
+          "launches_per_admission": {
+              "flash_fwd": n_attn, "wkv_fwd": tk["rwkv"] + dk["rwkv"],
+              "rglru_fwd": n_rec},
+          "launches_per_dispatch": {
+              "decode_ring": SPEC_TOKENS * attn_layers(dcfg),
+              "rglru_fwd": 2 * n_rec},
+          "wave": wave, "verify_logits": verify_check,
+          "sequential_logits": sequential_check,
+          "logit_gate": f"each one's relative L2 to fp32 <= "
+                        f"{BF16_NOISE_RATIO} x the other's",
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    if timed:
+        windows = {}
+        for name, engine in (
+                ("spec", eng),
+                ("plain", ServingEngine(params, cfg, slots=b,
+                                        capacity=SERVE_CAPACITY))):
+            d0, a0, p0 = (engine.dispatches, engine.spec_accepted,
+                          engine.spec_proposed)
+            wall, res = lm_closed_loop(engine, prompts, SPEC_REQUESTS, b,
+                                       SPEC_NEW)
+            windows[name] = serve_metrics(wall, res)
+            proposed = engine.spec_proposed - p0
+            windows[name].update(
+                dispatches=engine.dispatches - d0,
+                accepted=engine.spec_accepted - a0, proposed=proposed,
+                acceptance=(engine.spec_accepted - a0) / proposed
+                if proposed else None)
+            lap(f"{name}_window")
+        emit({"phase": f"{phase}_timing", "config": cfg.name,
+              "draft": dcfg.name, "slots": b, "clients": b,
+              "requests_per_window": SPEC_REQUESTS, "new_tokens": SPEC_NEW,
+              "spec_tokens": SPEC_TOKENS, **windows})
+    del eng, params, dparams
+    gc.collect()
+    emit({"phase": f"{phase}_seconds", "seconds_at_end_of": seconds})
+    return launches
+
+
+def lm_cli_phase():
+    """The LM train CLI at full width, 2 layers, 2 x 2 x 256: 6 steps
+    with a checkpoint after step 4, resumed from it to 6; steps 5 and 6
+    must give the same losses bit for bit."""
     base = ["--arch", LM_ARCH, "--layers", "2", "--seq-len", "256",
             "--batch", "4", "--replicas", "2", "--log-every", "1"]
-    with tempfile.TemporaryDirectory() as tmp:
-        ck, a, c = (os.path.join(tmp, n) for n in ("ck", "a.jsonl",
-                                                   "c.jsonl"))
-        seconds, done = {}, {}
-        for name, extra in (
-                ("first", ["--steps", "4", "--ckpt-dir", ck,
-                           "--ckpt-every", "2", "--metrics-out", a]),
-                ("resumed", ["--steps", "6", "--ckpt-dir", ck, "--resume",
-                             "--metrics-out", a]),
-                ("straight", ["--steps", "6", "--metrics-out", c])):
-            lines, seconds[name] = _run_cli("repro_torch.launch.train",
-                                            base + extra)
-            if not lines or not lines[-1].startswith("done:"):
-                raise AssertionError(f"LM train CLI ({name}) did not end "
-                                     "in 'done:'")
-            done[name] = lines[-1]
-        if not done["resumed"].startswith("done: steps 4 -> 6"):
-            raise AssertionError(f"the resumed LM run: {done['resumed']}")
-        resumed = {r["step"]: r["loss"] for r in read_jsonl(a, "train")}
-        straight = {r["step"]: r["loss"] for r in read_jsonl(c, "train")}
-    if sorted(resumed) != list(range(1, 7)) or sorted(straight) != list(
-            range(1, 7)):
-        raise AssertionError(f"steps {sorted(resumed)} / {sorted(straight)}")
-    if not all(math.isfinite(v) for v in straight.values()):
-        raise AssertionError("non-finite loss in the LM CLI runs")
-    diffs = {st: resumed[st] - straight[st] for st in range(1, 7)}
+    straight, resumed, seconds = resume_runs(base, 4, 6, "LM")
+    diffs = {st: resumed[st] - straight[st] for st in resumed}
     if any(diffs.values()):
         raise AssertionError(f"resumed vs uninterrupted LM losses differ: "
                              f"{diffs}")
     emit({"phase": "lm_cli", "seconds": seconds,
           "losses": [straight[st] for st in range(1, 7)],
           "bit_exact_resume": True})
+
+
+def resume_runs(base, ckpt_at: int, steps: int, what: str):
+    """The train CLI with ``base`` for ``steps`` uninterrupted steps,
+    writing one checkpoint after step ``ckpt_at`` (``steps`` < 2 x
+    ``ckpt_at``), then resumed from it to ``steps``.  Returns (the
+    uninterrupted run's loss per step, the resumed run's for the steps
+    after ``ckpt_at``, each run's seconds); every loss finite."""
+    from repro_torch.train_loop.metrics import read_jsonl
+
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, a, b = (os.path.join(tmp, n) for n in ("ck", "a.jsonl",
+                                                   "b.jsonl"))
+        for name, extra in (
+                ("straight", ["--steps", str(steps), "--ckpt-dir", ck,
+                              "--ckpt-every", str(ckpt_at),
+                              "--metrics-out", a]),
+                ("resumed", ["--steps", str(steps), "--ckpt-dir", ck,
+                             "--resume", "--metrics-out", b])):
+            lines, seconds[name] = _run_cli("repro_torch.launch.train",
+                                            base + extra)
+            if not lines or not lines[-1].startswith("done:"):
+                raise AssertionError(f"{what} train CLI ({name}) did not "
+                                     "end in 'done:'")
+        if not lines[-1].startswith(f"done: steps {ckpt_at} -> {steps}"):
+            raise AssertionError(f"the resumed {what} run: {lines[-1]}")
+        straight = {r["step"]: r["loss"] for r in read_jsonl(a, "train")}
+        resumed = {r["step"]: r["loss"] for r in read_jsonl(b, "train")}
+    if sorted(straight) != list(range(1, steps + 1)) or \
+            sorted(resumed) != list(range(ckpt_at + 1, steps + 1)):
+        raise AssertionError(f"{what} CLI steps {sorted(straight)} / "
+                             f"{sorted(resumed)}")
+    if not all(map(math.isfinite, list(straight.values())
+                   + list(resumed.values()))):
+        raise AssertionError(f"non-finite loss in the {what} CLI runs")
+    return straight, resumed, seconds
 
 
 def _run_cli(module, args, timeout=900):
@@ -2578,11 +2834,10 @@ def _run_cli(module, args, timeout=900):
 
 def cli_phase():
     """The serving CLI (alexnet; olmo-1b on the ring and the block pool;
-    rwkv6-7b at 2 layers and recurrentgemma-9b at 3, full width), then the
-    training CLI with checkpoints: 4 steps, resumed to 6, against an
-    uninterrupted 6-step run."""
-    from repro_torch.train_loop.metrics import read_jsonl
-
+    rwkv6-7b at 2 layers and recurrentgemma-9b at 3, full width, each
+    drafting speculatively with its first layer), then the
+    training CLI: 6 steps with a checkpoint after step 4, resumed from it
+    to 6."""
     lines, serve_s = _run_cli("repro_torch.launch.serve",
                               ["--arch", "alexnet", "--requests", "8"])
     if not lines or lines[-1] != "serve OK":
@@ -2596,43 +2851,26 @@ def cli_phase():
         if not lines or lines[-1] != "serve OK":
             raise AssertionError(f"the LM serve CLI ({mode}) did not end "
                                  "in 'serve OK'")
+    # the recurrent archs serve speculatively, drafting with their first
+    # layer
     for arch, layers in (("rwkv6-7b", "2"), ("recurrentgemma-9b", "3")):
         lines, lm_serve_s[arch] = _run_cli(
             "repro_torch.launch.serve", ["--arch", arch, "--layers", layers,
                                          "--requests", "8", "--capacity",
-                                         "512"])
+                                         "512", "--draft-layers", "1",
+                                         "--spec-tokens", "4"])
         if not lines or lines[-1] != "serve OK":
             raise AssertionError(f"the {arch} serve CLI did not end in "
                                  "'serve OK'")
+        if not any(line.startswith("spec: ") and "draft tokens accepted"
+                   in line for line in lines):
+            raise AssertionError(f"the {arch} serve CLI printed no 'spec:' "
+                                 "line")
     base = ["--arch", "alexnet", "--faithful", "--replicas", "2",
             "--batch", "64", "--log-every", "1"]
-    with tempfile.TemporaryDirectory() as tmp:
-        ck, a, c = (os.path.join(tmp, n) for n in ("ck", "a.jsonl",
-                                                   "c.jsonl"))
-        seconds, done = {"serve": serve_s, "serve_lm": lm_serve_s}, {}
-        for name, extra in (
-                ("first", ["--steps", "4", "--ckpt-dir", ck,
-                           "--ckpt-every", "2", "--metrics-out", a]),
-                ("resumed", ["--steps", "6", "--ckpt-dir", ck, "--resume",
-                             "--metrics-out", a]),
-                ("straight", ["--steps", "6", "--metrics-out", c])):
-            lines, seconds[name] = _run_cli("repro_torch.launch.train",
-                                            base + extra)
-            if not lines or not lines[-1].startswith("done:"):
-                raise AssertionError(f"train CLI ({name}) did not end in "
-                                     "'done:'")
-            done[name] = lines[-1]
-        if not done["resumed"].startswith("done: steps 4 -> 6"):
-            raise AssertionError(f"the resumed run: {done['resumed']}")
-        resumed = {r["step"]: r["loss"] for r in read_jsonl(a, "train")}
-        straight = {r["step"]: r["loss"] for r in read_jsonl(c, "train")}
-    if sorted(resumed) != list(range(1, 7)) or sorted(straight) != list(
-            range(1, 7)):
-        raise AssertionError(f"steps {sorted(resumed)} / {sorted(straight)}")
-    diffs = {s: abs(resumed[s] - straight[s]) for s in range(1, 7)}
-    if not all(math.isfinite(v) for v in list(resumed.values())
-               + list(straight.values())):
-        raise AssertionError("non-finite training loss in the CLI runs")
+    straight, resumed, seconds = resume_runs(base, 4, 6, "AlexNet")
+    seconds.update(serve=serve_s, serve_lm=lm_serve_s)
+    diffs = {s: abs(resumed[s] - straight[s]) for s in resumed}
     if max(diffs.values()) > LOSS_TOL:
         raise AssertionError(f"resumed vs uninterrupted losses {diffs}")
     emit({"phase": "cli", "seconds": seconds,
@@ -2705,6 +2943,9 @@ def main() -> int:
     mark("lm_serving")
     for arch, (phase, _, _) in RECURRENT_SERVE.items():
         by_path[phase] = recurrent_serving_phase(arch, args.seed)
+        mark(phase)
+    for arch, (phase, *_) in SPEC_SERVE.items():
+        by_path[phase] = spec_serving_phase(arch, args.seed)
         mark(phase)
     by_path["rwkv_train"] = recurrent_train_phase("rwkv6-7b", args.seed)
     mark("rwkv_train")

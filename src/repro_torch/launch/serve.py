@@ -17,6 +17,8 @@ ending in ``serve OK``:
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-9b --smoke --layers 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
+        --smoke --device cpu --draft-layers 1 --spec-tokens 4
 
 ``--arch alexnet`` is the reference CLI's legacy net (``ALEXNET``:
 ungrouped, LRN before the pool) at full width, 227x227x3 images and 1000
@@ -32,10 +34,15 @@ the per-token latency of each request's decode (p50/p99).
 family only: the engine refuses it for the recurrent state),
 ``--ticks-per-dispatch`` runs K decode ticks per host read, and
 ``--kv-cache-dtype`` stores the KV cache in another type (int8 with
-fp32 scales).  It runs on ``cuda`` unless ``--device cpu`` is given, and
-exits non-zero when CUDA is asked for and absent.  The other LM
-families (moe, vlm, encdec), the replica mesh, the tier, speculative
-decoding and numerics presets are not ported yet.
+fp32 scales).  ``--draft-layers k`` decodes speculatively (greedy)
+with a draft of the target's own first k layers, ``--draft-arch A``
+with an independent draft of arch A (reduced under ``--smoke``, the
+target's vocabulary, weights from ``--seed`` + 1); ``--spec-tokens``
+draft tokens a round, and the report adds the accepted share.  It runs
+on ``cuda`` unless ``--device cpu`` is given, and exits non-zero when
+CUDA is asked for and absent.  The other LM families (moe, vlm,
+encdec), the replica mesh, the tier and numerics presets are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -52,6 +59,7 @@ from repro_torch.kernels.common import BACKENDS, KernelPolicy, device_of
 from repro_torch.launch import not_ported
 from repro_torch.numerics import KV_CACHE_DTYPES
 from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving.spec_decode import truncated_draft
 
 LM_ARCHS = sorted(a for a, c in ARCHS.items()
                   if c.family in ("dense", "ssm", "hybrid"))
@@ -89,13 +97,13 @@ def build_parser():
     ap.add_argument("--ticks-per-dispatch", type=int, default=1,
                     help="decode ticks per host read of the sampled tokens")
     ap.add_argument("--draft-arch", default=None,
-                    help="speculative decoding with this draft arch (not "
-                    "ported)")
+                    help="speculative decoding (greedy) with this arch as "
+                    "the draft model (reduced under --smoke)")
     ap.add_argument("--draft-layers", type=int, default=0,
-                    help="> 0: a draft of the target's first k layers (not "
-                    "ported)")
+                    help="> 0: speculative decoding with a draft of the "
+                    "target's own first k layers")
     ap.add_argument("--spec-tokens", type=int, default=4,
-                    help="draft tokens per verify round (not ported)")
+                    help="draft tokens proposed per verify round (gamma)")
     ap.add_argument("--block-size", type=int, default=0,
                     help="> 0: shared-prefix block-pool KV cache with this "
                     "many ring positions per block (full-attention dense "
@@ -144,11 +152,6 @@ def check_ported(args) -> None:
                          "(the bf16 NumericsPolicy)")
     if args.images:
         raise not_ported("--images", "queue A item 8 (A8b, the vlm family)")
-    if (args.draft_arch is not None or args.draft_layers
-            or args.spec_tokens != 4):
-        raise not_ported("speculative decoding (--draft-arch, "
-                         "--draft-layers, --spec-tokens)",
-                         "queue A item 10")
     if (args.tier or args.disagg or args.role != "driver" or args.port
             or args.max_queue):
         raise not_ported("the multi-process tier (--tier, --disagg, "
@@ -173,6 +176,35 @@ def build_cfg(args, error):
     return dataclasses.replace(
         cfg, kernels=pol, numerics=dataclasses.replace(
             cfg.numerics, kv_cache_dtype=args.kv_cache_dtype))
+
+
+def build_spec(args, cfg, params, device, error) -> dict:
+    """The engine's speculative-decoding arguments: none without
+    ``--draft-layers`` or ``--draft-arch``; a draft of the target's own
+    first k layers sharing its leaves (``truncated_draft``), or an
+    independent arch with the target's kernel policy, numerics and
+    vocabulary and weights drawn from ``--seed`` + 1."""
+    if not args.draft_arch and not args.draft_layers:
+        return {}
+    if cfg.family == "conv":
+        error(f"speculative decoding needs an LM target, not {cfg.name}")
+    if args.draft_layers:
+        dcfg, dparams = truncated_draft(cfg, params, args.draft_layers)
+    else:
+        if args.draft_arch not in ARCHS:
+            error(f"--draft-arch {args.draft_arch}: not an LM of the zoo "
+                  f"({', '.join(LM_ARCHS)})")
+        dcfg = ARCHS[args.draft_arch]
+        if args.smoke:
+            dcfg = reduced(dcfg, n_layers=args.layers or 2,
+                           d_model=args.d_model or 256)
+        dcfg = dataclasses.replace(dcfg, kernels=cfg.kernels,
+                                   numerics=cfg.numerics,
+                                   vocab_size=cfg.vocab_size)
+        dparams = models.init(dcfg, torch.Generator().manual_seed(
+            args.seed + 1), device=device)
+    return {"draft_params": dparams, "draft_cfg": dcfg,
+            "spec_tokens": args.spec_tokens}
 
 
 def make_requests(args, cfg):
@@ -216,6 +248,10 @@ def report(engine, results, wall: float, family: str) -> None:
           f"({toks / wall:.1f} generated tok/s, {engine.decode_steps} "
           f"decode ticks / {engine.dispatches} dispatches, "
           f"{engine.prefill_compiles} prefill buckets)")
+    if engine.spec_proposed:
+        print(f"spec: {engine.spec_accepted}/{engine.spec_proposed} draft "
+              f"tokens accepted "
+              f"({engine.spec_accepted / engine.spec_proposed:.2f})")
     if engine.block_mgr is not None:
         print(f"blocks: peak {engine.block_mgr.peak}/{engine.block_mgr.nb} "
               f"in use, {engine.block_mgr.prefills_skipped} prefills "
@@ -243,13 +279,14 @@ def main(argv=None):
                  "prompt included")
     gen = torch.Generator().manual_seed(args.seed)
     params = models.init(cfg, gen, device=device)
+    spec = build_spec(args, cfg, params, device, ap.error)
     engine = ServingEngine(params, cfg, slots=args.slots,
                            capacity=args.capacity,
                            temperature=args.temperature, top_k=args.top_k,
                            seed=args.seed,
                            ticks_per_dispatch=args.ticks_per_dispatch,
                            block_size=args.block_size,
-                           num_blocks=args.num_blocks)
+                           num_blocks=args.num_blocks, **spec)
     reqs = make_requests(args, cfg)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
@@ -260,6 +297,8 @@ def main(argv=None):
              f"d_model={cfg.d_model} dtype={cfg.dtype} "
              f"kv={args.kv_cache_dtype} block_size={args.block_size} "
              f"ticks_per_dispatch={args.ticks_per_dispatch} ")
+          + (f"draft={spec['draft_cfg'].name} "
+             f"spec_tokens={args.spec_tokens} " if spec else "")
           + f"kernels={cfg.kernels.describe()}", flush=True)
     t0 = time.perf_counter()
     results = engine.run(reqs)

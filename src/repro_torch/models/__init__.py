@@ -22,10 +22,15 @@ attention layers (dense, and the hybrid's local attention) and the
 constant-size recurrent state of the ``rwkv`` and ``rec`` layers.
 ``DecodeState.pos`` is per row.  Unlike the reference, the cache is
 written in place: ``decode_step`` and ``write_slots`` return a state
-that shares (and has updated) the cache of the state passed in.  The
-other LM families (moe, vlm, encdec) and speculative decoding
-(``decode_seq_pending`` / ``commit_pending``) come with later slices
-(ROADMAP queue A); asking for them raises.
+that shares (and has updated) the cache of the state passed in.  
+
+Speculative decoding's primitives: ``decode_seq(params, cfg, state,
+tokens, commit_len)`` runs T tokens per row in one call and commits each
+row's first ``commit_len[b]``; ``decode_seq_pending`` is its forward,
+which writes nothing, and ``commit_pending`` its commit, in place, with
+``pos`` advanced by ``commit_len``.  The other LM families (moe, vlm,
+encdec) come with later slices (ROADMAP queue A); asking for them
+raises.
 """
 from __future__ import annotations
 
@@ -140,6 +145,52 @@ def decode_step(params, cfg, state: DecodeState, tokens, table=None):
     logits = transformer.decode_step(params, cfg, state.cache, tokens,
                                      state.pos, table)
     return logits, DecodeState(cache=state.cache, pos=state.pos + 1)
+
+
+@torch.no_grad()
+def decode_seq(params, cfg, state: DecodeState, tokens, commit_len):
+    """Chunked decode: tokens (B,T) ints at positions ``state.pos ..
+    state.pos+T-1``; commit_len (an int or (B,) ints in [0, T]).  Returns
+    (logits (B,T,V) fp32, each what sequential ``decode_step`` calls
+    would give, and the DecodeState with ``pos += commit_len``, whose
+    cache is the one passed in, advanced in place by each row's first
+    ``commit_len[b]`` tokens).  ``commit_len = 0`` is speculative
+    decoding's verify, ``commit_len = accepted`` its commit."""
+    _check_lm(cfg)
+    cl = _commit_len(commit_len, state.pos)
+    logits = transformer.decode_seq(params, cfg, state.cache, tokens,
+                                    state.pos, cl)
+    return logits, DecodeState(cache=state.cache, pos=state.pos + cl)
+
+
+@torch.no_grad()
+def decode_seq_pending(params, cfg, state: DecodeState, tokens):
+    """The commit-independent half of ``decode_seq``: the T-token forward
+    from ``state``, which it leaves untouched.  Returns (logits (B,T,V)
+    fp32, pending) for ``commit_pending``, so that a verify and its
+    commit cost one forward."""
+    _check_lm(cfg)
+    return transformer.decode_seq_pending(params, cfg, state.cache, tokens,
+                                          state.pos)
+
+
+@torch.no_grad()
+def commit_pending(params, cfg, state: DecodeState, pending,
+                   commit_len) -> DecodeState:
+    """Commit each row's first ``commit_len[b]`` tokens of a
+    ``decode_seq_pending`` chunk into ``state.cache`` in place; returns
+    the DecodeState with ``pos`` advanced by ``commit_len``."""
+    cl = _commit_len(commit_len, state.pos)
+    transformer.decode_seq_commit(params, cfg, state.cache, pending,
+                                  state.pos, cl)
+    return DecodeState(cache=state.cache, pos=state.pos + cl)
+
+
+def _commit_len(commit_len, pos):
+    """``commit_len`` (an int or (B,) ints) as a (B,) tensor like
+    ``pos``."""
+    return torch.as_tensor(commit_len, dtype=pos.dtype,
+                           device=pos.device).expand(pos.shape[0])
 
 
 # slot surgery: the continuous-batching engine swaps one request's state in

@@ -24,9 +24,15 @@ attends over the valid slots through the flash-decode kernels
 (``kernels.decode_attention``), on a ring or, with ``table``, on the
 block pool.  Unlike the reference's functional ``.at[].set`` (whose
 state is donated), every cache write here lands IN PLACE in the tensors
-passed in: a copy of the cache per token would swamp the step.  The
-speculative-decoding chunk (``decode_attention_seq``) and cross-attention
-decode are not ported (ROADMAP queue A items 9-10).
+passed in: a copy of the cache per token would swamp the step.
+
+Speculative decoding's chunk: ``decode_attention_seq_pending`` runs T
+tokens per row against the UNMUTATED ring (the ring slots a sequential
+step would still see, plus the causal in-flight tokens) in plain
+PyTorch, as the reference's verify is plain XLA, and returns the
+write-ready K/V; ``commit_attention_seq`` writes each row's first
+``commit_len`` of them into the ring in place.  Cross-attention decode
+belongs to the encdec family (ROADMAP queue A item 8, A8b).
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch
 
 from repro_torch.kernels.common import policy_of
 from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention.ref import NEG
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import apply_rope, dense_init, matmul, \
     rope_freqs
@@ -249,3 +256,108 @@ def decode_attention(params, cfg, x, cache, pos, *, window=None, rope=True,
         v_scale=cache.get("v_scale"), table=table,
         backend=policy_of(cfg).decode_backend())
     return _out(params, cfg, o.reshape(b, 1, cfg.n_heads, cfg.head_dim))
+
+
+def decode_attention_seq(params, cfg, x, cache, pos, commit_len, *,
+                         window=None, rope=True):
+    """Chunked decode: x (B,T,d) at positions ``pos .. pos+T-1`` against
+    the ring as it is, then each row's first ``commit_len[b]`` tokens
+    written into it in place.  Returns out (B,T,d)."""
+    out, pending = decode_attention_seq_pending(params, cfg, x, cache, pos,
+                                                window=window, rope=rope)
+    commit_attention_seq(cache, pending, pos, commit_len)
+    return out
+
+
+def decode_attention_seq_pending(params, cfg, x, cache, pos, *,
+                                 window=None, rope=True):
+    """The commit-independent half of ``decode_attention_seq``; writes
+    nothing.  x (B,T,d) holds the tokens at positions ``pos .. pos+T-1``
+    (pos (B,): the tokens each row has consumed).  Token j attends over
+    the ring slots a sequential step j would still see (written, not yet
+    overwritten by steps <= j, inside the window) and the in-flight
+    tokens 0..j.  Returns (out (B,T,d), pending: the K/V chunk in the
+    cache's storage type, quantized with its scales for an int8 cache).
+    Under int8 the in-flight K/V enter the scores dequantized, as
+    sequential steps read back what they wrote."""
+    b, t, _ = x.shape
+    cap = cache["k"].shape[1]
+    if t > cap:
+        raise ValueError(f"decode_seq over {t} tokens needs ring capacity "
+                         f">= {t} (distinct slots mod cap); got {cap}")
+    dev = x.device
+    q, k_new, v_new = _qkv(params, cfg, x)
+    pv = torch.as_tensor(pos, device=dev).long().expand(b)
+    positions = pv[:, None] + torch.arange(t, device=dev)        # (B, T)
+    if rope:
+        inv = rope_freqs(cfg, dev)
+        q = apply_rope(q, positions, inv)
+        k_new = apply_rope(k_new, positions, inv)
+    quant = "k_scale" in cache
+    kw, vw = k_new, v_new
+    if quant:
+        kw, ks = _kv_quant(k_new)                   # scales (B, T, Hkv)
+        vw, vs = _kv_quant(v_new)
+        k_new = _kv_dequant(kw, ks).to(x.dtype)
+        v_new = _kv_dequant(vw, vs).to(x.dtype)
+
+    # slot i holds position (pos-1) - ((pos-1-i) mod cap); query j sees it
+    # iff it exists, no step <= j has overwritten it (slot_pos > p_j -
+    # cap), and it lies inside the window
+    base = pv - 1
+    idx = torch.arange(cap, device=dev)
+    slot_pos = base[:, None] - torch.remainder(base[:, None] - idx, cap)
+    sp, pj = slot_pos[:, None, :], positions[:, :, None]
+    valid_r = (sp >= 0) & (sp > pj - cap)                        # (B,T,cap)
+    if window is not None:
+        valid_r &= sp > pj - window
+    ka, va = cache["k"], cache["v"]
+    if quant:
+        ka = _kv_dequant(ka, cache["k_scale"])
+        va = _kv_dequant(va, cache["v_scale"])
+    qg = _group(q, cfg.n_kv_heads).float()               # (B,T,Hkv,G,hd)
+    scale = cfg.head_dim ** -0.5
+    s_r = torch.einsum("bqhgk,bshk->bhgqs", qg, ka.float()) * scale
+    s_r = s_r.masked_fill(~valid_r[:, None, None], NEG)
+
+    # in-flight scores: causal over the T tokens themselves
+    j = torch.arange(t, device=dev)
+    diff = j[:, None] - j[None, :]
+    valid_f = (diff >= 0) & (diff < cap)
+    if window is not None:
+        valid_f &= diff < window
+    s_f = torch.einsum("bqhgk,bshk->bhgqs", qg, k_new.float()) * scale
+    s_f = s_f.masked_fill(~valid_f, NEG)
+
+    # P rounds to the activations' type, as the reference's does
+    p = torch.softmax(torch.cat([s_r, s_f], -1), -1).to(x.dtype).float()
+    v_all = torch.cat([va.float(), v_new.float()], 1)
+    o = torch.einsum("bhgqs,bshk->bqhgk", p, v_all).to(x.dtype)
+    pending = {"k": kw, "v": vw}
+    if quant:
+        pending["k_scale"], pending["v_scale"] = ks, vs
+    return _out(params, cfg, o.reshape(b, t, cfg.n_heads, cfg.head_dim)), \
+        pending
+
+
+def commit_attention_seq(cache, pending, pos, commit_len) -> None:
+    """Write each row's first ``commit_len[b]`` tokens of a
+    ``decode_attention_seq_pending`` chunk into the ring at slot
+    ``position % cap``, in place; the slots of the others keep their
+    value.  T consecutive positions stay distinct mod cap, so no row
+    writes a slot twice.  No attention math runs here."""
+    b, t = pending["k"].shape[:2]
+    cap = cache["k"].shape[1]
+    dev = cache["k"].device
+    pv = torch.as_tensor(pos, device=dev).long().expand(b)
+    cl = torch.as_tensor(commit_len, device=dev).long().expand(b)
+    rows = torch.arange(b, device=dev)[:, None]
+    slots = torch.remainder(pv[:, None] + torch.arange(t, device=dev), cap)
+    keep = torch.arange(t, device=dev)[None, :] < cl[:, None]     # (B, T)
+    for key, new in pending.items():
+        leaf = cache[key]
+        m = keep.reshape(keep.shape + (1,) * (new.ndim - 2))
+        # a select, not a boolean index: the commit never waits for the
+        # card to count the committed tokens
+        leaf[rows, slots] = torch.where(m, new.to(leaf.dtype),
+                                        leaf[rows, slots])

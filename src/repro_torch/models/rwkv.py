@@ -22,8 +22,8 @@ WKV routes by its start:
                 (``kernels.rwkv6.ref.wkv_chunked``): the kernel starts
                 from zero, as the TPU kernel does, and the reference
                 takes its chunked XLA form here too
-                (``resolve_wkv_impl(has_state=True)``).  Serving never
-                passes one; speculative decoding will
+                (``resolve_wkv_impl(has_state=True)``): speculative
+                decoding's chunks (``transformer.decode_seq``) run here
   one token     ``kernels.rwkv6.ref.wkv_decode``, plain fp32 (the
                 reference's decode has no kernel either)
 """

@@ -24,11 +24,17 @@ tree (a ring KV cache for ``dense`` and ``attn``, the recurrent state for
 ``rwkv`` and ``rec``), ``prefill`` / ``forward(..., cache=)`` fill it and
 ``decode_step`` advances it one token.  Each layer writes its view
 (``unbind``) of the stacked leaves, so every write lands in place in the
-stacked tensors.  A prefill starts from the fresh cache's zero state, so
-its ``rwkv`` layers run the WKV kernel (``rwkv.time_mix_seq``); a
-``forward`` from a carried cache takes the plain chunked WKV with the
-state.  The other families (moe, vlm) are not ported (ROADMAP queue A
-item 8).
+stacked tensors.  Speculative decoding's chunk splits in two:
+``decode_seq_pending`` runs T tokens per row from the cache and writes
+nothing (the attention kinds against the ring as it is, the recurrent
+kinds from their carried state), and ``decode_seq_commit`` then advances
+the cache in place by each row's first ``commit_len`` tokens: a masked
+ring write for the attention kinds, a re-run of the length-masked carry
+from the stored sublayer inputs for the recurrent kinds.  A prefill
+starts from the fresh cache's zero state, so its ``rwkv`` layers run the
+WKV kernel (``rwkv.time_mix_seq``); a ``forward`` from a carried cache,
+and a chunk, take the plain chunked WKV with the state.  The other
+families (moe, vlm) are not ported (ROADMAP queue A item 8).
 """
 from __future__ import annotations
 
@@ -188,6 +194,74 @@ def block_apply_decode(p, cfg, kind, h, cache, pos, table=None):
     return h + mlp_apply(p["ffn"], cfg, x)
 
 
+def block_apply_decode_seq(p, cfg, kind, h, cache, pos, commit_len):
+    """A T-token chunk through one block: h (B,T,d) -> h (B,T,d), the
+    outputs T sequential ``block_apply_decode`` steps would give; the
+    cache advances in place by each row's first ``commit_len[b]``
+    tokens only."""
+    h, pending = block_decode_seq_pending(p, cfg, kind, h, cache, pos)
+    block_commit_seq(p, cfg, kind, cache, pending, pos, commit_len)
+    return h
+
+
+def block_decode_seq_pending(p, cfg, kind, h, cache, pos):
+    """The forward half: (h (B,T,d), pending), the cache untouched.
+    ``pending`` holds what ``block_commit_seq`` needs to commit any
+    per-row prefix: the write-ready K/V chunk of the attention kinds, the
+    normed sublayer inputs of the recurrent kinds."""
+    if kind == "rwkv":
+        x1 = norm_apply(p["norm1"], cfg, h)
+        y, _ = rwkv_mod.time_mix_seq(p, cfg, x1, cache["tm_shift"],
+                                     cache["wkv"])
+        h = h + y
+        x2 = norm_apply(p["norm2"], cfg, h)
+        y, _ = rwkv_mod.channel_mix_seq(p, cfg, x2, cache["cm_shift"])
+        return h + y, {"x1": x1, "x2": x2}
+    x = norm_apply(p["norm1"], cfg, h)
+    if kind == "rec":
+        y, _ = rglru_mod.rglru_seq(p["mix"], cfg, x, cache["mix"])
+        pending = {"x1": x}
+    else:
+        y, pending = attn.decode_attention_seq_pending(
+            p["attn"], cfg, x, cache, pos, window=cfg.sliding_window)
+    h = h + y
+    x = norm_apply(p["norm2"], cfg, h)
+    return h + mlp_apply(p["ffn"], cfg, x), pending
+
+
+def _commit_state(cache, new, cl) -> None:
+    """Write a recurrent state re-run over each row's first ``cl[b]``
+    tokens into its cache views, in place.  A row committing 0 keeps its
+    old state: there the length-masked carries would take position 0's
+    values, not the state before the chunk."""
+    for key, value in new.items():
+        old = cache[key]
+        m = (cl > 0).reshape((-1,) + (1,) * (old.ndim - 1))
+        old.copy_(torch.where(m, value.to(old.dtype), old))
+
+
+def block_commit_seq(p, cfg, kind, cache, pending, pos, commit_len):
+    """The commit half: advance this layer's cache in place by each row's
+    first ``commit_len[b]`` tokens of a ``block_decode_seq_pending``
+    chunk."""
+    cl = torch.as_tensor(commit_len, device=pos.device).long().expand(
+        pos.shape[0])
+    if kind == "rwkv":
+        _, (tm_shift, wkv) = rwkv_mod.time_mix_seq(
+            p, cfg, pending["x1"], cache["tm_shift"], cache["wkv"],
+            length=cl)
+        _, cm_shift = rwkv_mod.channel_mix_seq(
+            p, cfg, pending["x2"], cache["cm_shift"], length=cl)
+        _commit_state(cache, {"tm_shift": tm_shift, "wkv": wkv,
+                              "cm_shift": cm_shift}, cl)
+    elif kind == "rec":
+        _, new = rglru_mod.rglru_seq(p["mix"], cfg, pending["x1"],
+                                     cache["mix"], length=cl)
+        _commit_state(cache["mix"], new, cl)
+    else:
+        attn.commit_attention_seq(cache, pending, pos, cl)
+
+
 def _layers(stacked, n: int) -> list:
     """The ``n`` per-layer trees of a stacked block tree (``unbind``
     views: one stack of the layers' grads in the backward)."""
@@ -286,6 +360,42 @@ def decode_step(params, cfg, cache, tokens, pos, table=None):
         h = block_apply_decode(layer, cfg, kind, h, c, pos, table)
     h = norm_apply(params["final_norm"], cfg, h)
     return unembed_apply(params["embed"], cfg, h)
+
+
+def decode_seq(params, cfg, cache, tokens, pos, commit_len):
+    """Chunked decode: tokens (B,T) at positions ``pos .. pos+T-1``;
+    returns fp32 logits (B,T,V), each what sequential ``decode_step``
+    calls would give, and advances ``cache`` in place by each row's first
+    ``commit_len[b]`` tokens."""
+    logits, pending = decode_seq_pending(params, cfg, cache, tokens, pos)
+    decode_seq_commit(params, cfg, cache, pending, pos, commit_len)
+    return logits
+
+
+def decode_seq_pending(params, cfg, cache, tokens, pos):
+    """The commit-independent half of ``decode_seq``: the whole T-token
+    forward from ``cache``, which it leaves untouched.  Returns (fp32
+    logits (B,T,V), pending: one entry per layer, in ``layer_kinds``
+    order) for ``decode_seq_commit``."""
+    h = embed_apply(params["embed"], cfg, tokens)
+    pending = []
+    for kind, layer, c in zip(layer_kinds(cfg), _all_layers(params, cfg),
+                              _all_layers(cache, cfg), strict=True):
+        h, pd = block_decode_seq_pending(layer, cfg, kind, h, c, pos)
+        pending.append(pd)
+    h = norm_apply(params["final_norm"], cfg, h)
+    return unembed_apply(params["embed"], cfg, h), pending
+
+
+def decode_seq_commit(params, cfg, cache, pending, pos, commit_len) -> None:
+    """Advance ``cache`` in place by each row's first ``commit_len[b]``
+    tokens of a ``decode_seq_pending`` chunk; no attention math re-runs."""
+    commit_len = torch.as_tensor(commit_len, device=pos.device).long() \
+        .expand(pos.shape[0])
+    for kind, layer, c, pd in zip(layer_kinds(cfg), _all_layers(params, cfg),
+                                  _all_layers(cache, cfg), pending,
+                                  strict=True):
+        block_commit_seq(layer, cfg, kind, c, pd, pos, commit_len)
 
 
 def param_shapes(cfg) -> dict:

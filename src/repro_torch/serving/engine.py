@@ -24,6 +24,13 @@ fixpoint on every ``step``:
            admission's ``write_slots`` overwrites every leaf of its row,
            the recurrent state as well as the ring.
 
+With ``draft_params`` / ``draft_cfg`` the engine decodes speculatively
+(``serving/spec_decode.py``, greedy only): admission prefills the draft
+too, into its own DecodeState, and each dispatch is one round in which
+the draft proposes ``spec_tokens`` tokens and the target verifies them in
+one chunked forward; a row emits 1 to ``spec_tokens + 1`` tokens a
+dispatch, the plain engine's stream.
+
 With ``block_size > 0`` the KV cache is a shared, ref-counted pool of
 blocks read through per-slot block tables (``serving/blocks.py``):
 requests with a common prompt prefix share its blocks, and an exact
@@ -31,10 +38,9 @@ repeat of a prompt (greedy engines) admits with no forward at all.  The
 pool holds attention K/V only, so it serves the dense family alone.
 
 Everything runs under ``torch.inference_mode()``, and the decode state
-is written in place.  Speculative decoding (``draft_*``), the replica
-mesh, and the tier's ``export_slot`` / ``import_snapshot`` / ``drain``
-are not ported yet (ROADMAP queue A items 10-11) and raise; so do the LM
-families the port has not got (item 8).
+is written in place.  The replica mesh, and the tier's ``export_slot`` /
+``import_snapshot`` / ``drain``, are not ported yet (ROADMAP queue A item
+11) and raise; so do the LM families the port has not got (item 8).
 """
 from __future__ import annotations
 
@@ -48,15 +54,16 @@ import torch
 
 from repro_torch import models
 from repro_torch.serving import blocks as blk
-from repro_torch.serving import sampling
+from repro_torch.serving import sampling, spec_decode
 
 DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512)
 
 
 def _to_host(x):
     """THE device-to-host read of the decode loop: ``step()`` calls it
-    exactly once per dispatch, on one packed (2, slots, K) tensor, the
-    token block and the retire flags together (the tests count calls to
+    exactly once per dispatch, on one packed tensor, the token block and
+    the retire flags together: (2, slots, K), or a speculative round's
+    (slots, 2(γ+1)+1) with the accept counts (the tests count calls to
     this hook)."""
     return x.cpu().numpy()
 
@@ -86,6 +93,8 @@ class Result:
     t_submit: float
     t_first: float                     # first token emitted
     t_done: float
+    draft_proposed: int = 0            # spec decode: draft tokens offered
+    draft_accepted: int = 0            # ... of which the target kept
 
     @property
     def ttft(self) -> float:
@@ -95,23 +104,27 @@ class Result:
     def latency(self) -> float:
         return self.t_done - self.t_submit
 
+    @property
+    def acceptance(self) -> float:
+        return self.draft_accepted / max(self.draft_proposed, 1)
+
 
 class ServingEngine:
     """Serves ``params`` for ``cfg`` on their device: an ``AlexNet``
-    module (NHWC images) for the conv family, a params tree for an LM."""
+    module (NHWC images) for the conv family, a params tree for an LM;
+    with ``draft_params`` / ``draft_cfg`` (an LM params tree and its
+    config, on the same device) it decodes speculatively, ``spec_tokens``
+    draft tokens a round."""
 
     def __init__(self, params, cfg, *, slots: int = 4, capacity: int = 256,
                  temperature: float = 0.0, top_k: int = 0,
                  eos_id: Optional[int] = None, seed: int = 0,
                  ticks_per_dispatch: int = 1, block_size: int = 0,
                  num_blocks: int = 0, draft_params=None, draft_cfg=None,
-                 mesh=None):
+                 spec_tokens: int = 4, mesh=None):
         if cfg.family not in models.FAMILIES:
             raise _not_ported(f"serving the {cfg.family!r} family "
                               f"({cfg.name})", "item 8")
-        if draft_params is not None or draft_cfg is not None:
-            raise _not_ported("speculative decoding (draft_params / "
-                              "draft_cfg)", "item 10")
         if mesh is not None:
             raise _not_ported("the replica mesh", "item 11")
         if slots < 1:
@@ -119,6 +132,20 @@ class ServingEngine:
         if ticks_per_dispatch < 1:
             raise ValueError(f"ticks_per_dispatch must be >= 1, "
                              f"got {ticks_per_dispatch}")
+        if (draft_params is None) != (draft_cfg is None):
+            raise ValueError("speculative decoding needs BOTH draft_params "
+                             "and draft_cfg (or neither)")
+        self.draft_params, self.draft_cfg = draft_params, draft_cfg
+        self.spec_tokens = int(spec_tokens)
+        self.spec_proposed = 0         # draft tokens offered, engine-wide
+        self.spec_accepted = 0         # ... kept by the target
+        if draft_cfg is not None:
+            if self.spec_tokens < 0:
+                raise ValueError(
+                    f"spec_tokens must be >= 0, got {spec_tokens}")
+            spec_decode.check_spec_pair(cfg, draft_cfg,
+                                        temperature=temperature,
+                                        ticks=ticks_per_dispatch)
         self.params, self.cfg, self.slots = params, cfg, slots
         self.capacity, self.ticks = capacity, ticks_per_dispatch
         self.temperature, self.top_k, self.eos_id = temperature, top_k, eos_id
@@ -158,10 +185,11 @@ class ServingEngine:
                     "block-table caches need full attention: a windowed "
                     "ring (cap < seq) wraps and would overwrite shared "
                     "blocks")
-            if self.ticks != 1:
-                raise ValueError("block-table serving does not compose "
-                                 "with multi-tick dispatch (rows must "
-                                 "retire before the ring wraps)")
+            if self.ticks != 1 or self.draft_cfg is not None:
+                raise ValueError("block-table serving composes with "
+                                 "neither multi-tick dispatch (rows must "
+                                 "retire before the ring wraps) nor "
+                                 "speculative decoding")
             if self.capacity % self.block_size:
                 raise ValueError(f"capacity {self.capacity} not a multiple "
                                  f"of block_size {self.block_size}")
@@ -178,6 +206,9 @@ class ServingEngine:
         else:
             self.state = models.init_decode_state(cfg, slots, self.capacity,
                                                   device=dev)
+        self.draft_state = None if self.draft_cfg is None else \
+            models.init_decode_state(self.draft_cfg, slots, self.capacity,
+                                     device=dev)
         self.last_tok = torch.zeros((slots, 1), dtype=torch.long, device=dev)
         self.slot_rids = torch.zeros((slots,), dtype=torch.long, device=dev)
 
@@ -229,7 +260,8 @@ class ServingEngine:
     def _prefill(self, prompt, rid: int):
         """The prompt right-padded to its bucket through ``models.prefill``
         (batch 1): (first token, a device (1,) tensor sampled at position
-        ``len(prompt)``; the prefilled sub-state)."""
+        ``len(prompt)``; the prefilled sub-state; the draft's, or None
+        without a draft)."""
         bucket = self._bucket(len(prompt))
         self._buckets_used.add(bucket)
         toks = torch.zeros((1, bucket), dtype=torch.long)
@@ -241,10 +273,17 @@ class ServingEngine:
         with torch.profiler.record_function("prefill"):
             logits, sub = models.prefill(self.params, self.cfg, toks,
                                          self.capacity, length=length)
+            dsub = None
+            if self.draft_cfg is not None:
+                # the draft consumes the same prompt, so its state sits at
+                # the same position; its first token is discarded: the
+                # stream's first token is the target's
+                _, dsub = models.prefill(self.draft_params, self.draft_cfg,
+                                         toks, self.capacity, length=length)
         first = sampling.sample_slots(
             self.seed, torch.full((1,), rid, device=self.device), length,
             logits[:, len(prompt) - 1], self.temperature, self.top_k)
-        return first, sub
+        return first, sub, dsub
 
     def _admit(self, req: Request, slot: int) -> bool:
         """Prefill ``req`` into ``slot``.  Returns False (the request is
@@ -256,8 +295,11 @@ class ServingEngine:
             if tok is None:
                 return False
         else:
-            first, sub = self._prefill(prompt, req.rid)
+            first, sub, dsub = self._prefill(prompt, req.rid)
             self.state = models.write_slots(self.state, sub, [slot])
+            if dsub is not None:
+                self.draft_state = models.write_slots(self.draft_state, dsub,
+                                                      [slot])
             tok = int(first[0])
         self.last_tok[slot, 0] = tok
         self.slot_rids[slot] = req.rid
@@ -282,7 +324,7 @@ class ServingEngine:
                 blk.copy_block(self.state, dst, src)
             self.state.pos[slot] = len(prompt)
             return adm.first_token
-        first, sub = self._prefill(prompt, rid)
+        first, sub, _ = self._prefill(prompt, rid)
         blk.write_prefill(self.state, sub, adm.table, slot, self.block_size)
         if adm.snapshot is not None:
             # snapshot the tail block NOW, before any decode write dirties
@@ -426,6 +468,9 @@ class ServingEngine:
             raise RuntimeError(
                 f"block pool ({self.block_mgr.nb} x {self.block_size}) "
                 f"cannot host one request of {self.n_k} blocks")
+        if self.draft_cfg is not None:
+            self._spec_dispatch(finished)
+            return finished
         host = _to_host(self._decode())    # the one read per dispatch
         self.decode_steps += self.ticks
         self.dispatches += 1
@@ -440,6 +485,36 @@ class ServingEngine:
                 if self._hit_limits(req) or flags[slot, j]:
                     finished.append(self._retire(slot, now))
         return finished
+
+    def _spec_dispatch(self, finished: List[Result]) -> None:
+        """One speculative round (``spec_decode.spec_round``); then, per
+        row, its emitted tokens under the same retirement rules as a
+        plain tick's, the accept counts read from the one packed block."""
+        packed, self.last_tok, self.state, self.draft_state = \
+            spec_decode.spec_round(self.params, self.cfg, self.draft_params,
+                                   self.draft_cfg, self.state,
+                                   self.draft_state, self.last_tok,
+                                   self.spec_tokens, self.eos_id)
+        host = _to_host(packed)            # the one read per dispatch
+        self.decode_steps += 1             # one target pass per dispatch
+        self.dispatches += 1
+        g1 = self.spec_tokens + 1
+        emit, flags, acc = host[:, :g1], host[:, g1:2 * g1], host[:, -1]
+        now = time.perf_counter()
+        for slot, req in enumerate(self._active):
+            if req is None:
+                continue
+            res = self._results[req.rid]
+            a = int(acc[slot])
+            res.draft_proposed += self.spec_tokens
+            res.draft_accepted += a - 1
+            self.spec_proposed += self.spec_tokens
+            self.spec_accepted += a - 1
+            for j in range(a):
+                res.tokens.append(int(emit[slot, j]))
+                if self._hit_limits(req) or flags[slot, j]:
+                    finished.append(self._retire(slot, now))
+                    break
 
     def run(self, requests=None) -> List[Result]:
         """Submit ``requests`` (if given) and step until everything is

@@ -263,8 +263,14 @@ def test_block_mode_gates(pair):
 
 def test_what_is_not_ported_raises(pair):
     _, _, cfg, port = pair
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ServingEngine(port, cfg, draft_params=port, draft_cfg=cfg)
+    # speculative decoding is ported; the reference's gates hold: greedy
+    # only, and not on the block pool
+    with pytest.raises(ValueError, match="greedy"):
+        ServingEngine(port, cfg, temperature=1.0, draft_params=port,
+                      draft_cfg=cfg)
+    with pytest.raises(ValueError, match="speculative decoding"):
+        ServingEngine(port, cfg, capacity=CAPACITY, block_size=8,
+                      draft_params=port, draft_cfg=cfg)
     with pytest.raises(NotImplementedError, match="item 11"):
         ServingEngine(port, cfg, mesh=object())
     eng = ServingEngine(port, cfg, capacity=CAPACITY)

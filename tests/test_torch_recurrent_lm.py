@@ -349,20 +349,28 @@ def test_train_cli_needs_cuda_unless_asked_for_the_cpu():
 
 @pytest.mark.parametrize("name", RECURRENT)
 def test_serving_still_refuses(name):
-    """These families serve (``tests/test_torch_recurrent_decode.py``);
-    what their serving still refuses names its ROADMAP item or says why:
-    speculative decoding (queue A item 10) in the serve CLI and the
-    engine, and the block pool, which holds no recurrent state."""
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
+    """These families serve (``tests/test_torch_recurrent_decode.py``),
+    speculatively too (``tests/test_torch_spec_decode.py``); what their
+    serving still refuses names its ROADMAP item or says why: the replica
+    mesh (queue A item 11), spec decode under sampling, in the serve CLI
+    and the engine, as the reference refuses it, and the block pool,
+    which holds no recurrent state."""
+    with pytest.raises(ValueError, match="greedy"):
         serve_cli.main(["--arch", name, "--smoke", "--device", "cpu",
-                        "--draft-layers", "1"])
+                        "--draft-layers", "1", "--temperature", "1.0"])
     cfg = reduced(ARCHS[name], 3, 64)
     params = models.init(cfg, torch.Generator().manual_seed(0),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        ServingEngine(params, cfg, draft_params=params, draft_cfg=cfg)
+    with pytest.raises(ValueError, match="greedy"):
+        ServingEngine(params, cfg, temperature=0.5, draft_params=params,
+                      draft_cfg=cfg)
+    with pytest.raises(NotImplementedError, match="queue A item 11"):
+        ServingEngine(params, cfg, mesh=object())
     with pytest.raises(ValueError, match="pure-attention family"):
         ServingEngine(params, cfg, block_size=8)
+    with pytest.raises(ValueError, match="pure-attention family"):
+        ServingEngine(params, cfg, block_size=8, draft_params=params,
+                      draft_cfg=cfg)
     cache = transformer.init_decode_cache(cfg, 1, 16, device="cpu")
     assert len(cache["blocks"]) == len(transformer.block_kinds(cfg))
 
