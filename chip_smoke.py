@@ -155,19 +155,46 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    each flash kernel per attn layer), spread 0 after every step, the
    peak memory, three timed windows of 3 steps and a traced one (device
    ms by family, the WKV backward's plain recompute booked apart);
-13. CLI phase: ``repro_torch.launch.serve --arch alexnet --requests 8``
+13. tier phase: ``olmo-1b`` as a multi-process tier on the card, 2 engine
+   workers of 8 slots (capacity 2048) and a prefill worker, each a
+   ``python -m repro_torch.launch.serve --role ...`` process on the
+   kernels, behind ``serving.Router``, 16 prompts of 256-1024 tokens and
+   32 new tokens each: (a) full width at 4 layers in fp32, colocated
+   (256 new tokens, an instance drained mid-stream once it holds 3 live
+   rows; the drain must move at least 2) and disaggregated (an instance
+   drained at its first row): every greedy stream equal, bit for bit, to
+   one engine's in this process;
+   (b) in this process, ``rwkv6-7b`` at 2 layers and
+   ``recurrentgemma-9b`` at one superblock (window 256) in fp32: every
+   live row drained mid-stream, packed, unpacked and imported into a
+   second engine gives the uninterrupted streams; (c) full depth in
+   bf16: a warm-up, a timed run through the prefill worker and one
+   without it, the workers' launch counts read just before and just
+   after each (16 ``flash_fwd`` per prompt in the prefill worker or,
+   colocated, in the instance that admits it; 16 ``decode_ring`` per
+   tick in each instance; nothing else; colocated, every instance must
+   have prefilled and ticked), a colocated run with an instance drained
+   mid-stream (at 3 live rows, at least 2 moved), every stream equal to
+   one engine's in this process, which is timed too (generated tokens/s
+   and latency p50/p99 beside the tier's router latency); a worker that
+   dies or fails to build fails the phase;
+14. CLI phase: ``repro_torch.launch.serve --arch alexnet --requests 8``
    and ``--arch olmo-1b --layers 2 --requests 8 --capacity 512`` (ring,
-   and ``--block-size 16``), ``--arch rwkv6-7b --layers 2`` and ``--arch
-   recurrentgemma-9b --layers 3`` (the same requests, speculative with
-   ``--draft-layers 1 --spec-tokens 4``: a ``spec:`` line), then
+   and ``--block-size 16``, and ``--tier 2 --disagg``, whose workers must
+   launch ``flash_fwd`` and ``decode_ring``), ``--arch rwkv6-7b --layers
+   2`` and ``--arch recurrentgemma-9b --layers 3`` (the same requests,
+   speculative with ``--draft-layers 1 --spec-tokens 4``: a ``spec:``
+   line), then
    ``repro_torch.launch.train --faithful --replicas 2 --batch 64``
    and ``--arch olmo-1b --layers 2 --seq-len 256 --batch 4``, each for 6
    steps with a checkpoint after step 4, resumed from it to 6 (steps 5
    and 6 against the uninterrupted run; the LM's losses equal bit for
    bit); ``--arch rwkv6-7b --layers 1`` for 5 steps with a checkpoint
    after step 4, resumed to 5 (bit for bit), and ``--arch
-   recurrentgemma-9b --layers 3`` for 3 steps;
-14. prints the card again, the ``{"kernels": [...]}`` line and, last,
+   recurrentgemma-9b --layers 3`` for 3 steps; the chains of child
+   processes (serve, speculative serve, tier, each train CLI's pair of
+   runs) run side by side, sharing the card;
+15. prints the card again, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -2764,6 +2791,415 @@ def spec_serving_phase(arch, seed):
     return launches
 
 
+# the multi-process tier (queue A item 11): olmo-1b behind the router,
+# TIER_INSTANCES engine workers of SERVE_SLOTS slots each (capacity
+# SERVE_CAPACITY) plus a prefill worker, TIER_REQUESTS prompts of
+# SERVE_PROMPT tokens and TIER_NEW new tokens each; the fp32 streams at
+# LM_PARITY_LAYERS layers, the bf16 ones at full depth; the in-process
+# handoffs of the recurrent LMs at their RECURRENT_SERVE parity depth.
+# A colocated drain waits until the instance holds TIER_DRAIN_ROWS + 1
+# live rows (one may retire before the drain reaches it) and must move
+# TIER_DRAIN_ROWS; the fp32 colocated run makes TIER_PARITY_NEW tokens a
+# request, so that its short ticks still leave rows live on both
+# instances while the router submits (its other runs' streams are the
+# first TIER_NEW of those)
+TIER_INSTANCES = 2
+TIER_REQUESTS = 16
+TIER_NEW = 32
+TIER_PARITY_NEW = 256
+TIER_DRAIN_ROWS = 2
+TIER_TIMEOUT = 300             # seconds a tier run may take to finish
+
+
+def tier_argv(seed, *extra):
+    """Serve CLI flags of olmo-1b's tier instances: full width, the
+    kernels (``--kernel-backend auto`` on the card)."""
+    return ["--arch", LM_ARCH, "--slots", str(SERVE_SLOTS),
+            "--capacity", str(SERVE_CAPACITY), "--seed", str(seed),
+            "--kernel-backend", "auto", *extra]
+
+
+def tier_engine(argv):
+    """The engine the workers of ``argv`` build, in this process (the
+    serve CLI's own ``build_cfg`` and ``build_engine``)."""
+    from repro_torch.launch import serve as serve_cli
+
+    def error(msg):
+        raise AssertionError(msg)
+
+    args = serve_cli.build_parser().parse_args(argv)
+    cfg = serve_cli.build_cfg(args, error)
+    return serve_cli.build_engine(args, cfg, torch.device("cuda"), error)
+
+
+def spawn_tier(argv, roles, logdir):
+    """Start one worker per (name, role), each writing to its own log in
+    ``logdir``: their handles, not yet connected."""
+    from repro_torch.serving.tier import spawn_worker
+
+    handles = []
+    for name, role in roles:
+        log = open(os.path.join(logdir, f"{name}.log"), "w")
+        handles.append(spawn_worker(role, argv, name=name, stdout=log))
+        log.close()             # the child holds its own descriptor
+    return handles
+
+
+def stop_tier(handles):
+    """Ask every worker to exit, then wait for each (killing it after
+    10 s): they wind down at once."""
+    for h in handles:
+        h.stop()
+    for h in handles:
+        h.close(timeout=10)
+
+
+def close_tier(handles, logdir, failed: bool):
+    """Shut every worker down; after a failure print the end of each
+    worker's log."""
+    stop_tier(handles)
+    if failed:
+        for h in handles:
+            with open(os.path.join(logdir, f"{h.name}.log")) as f:
+                print(f"--- {h.name} (exit {h.proc.returncode}):\n"
+                      + f.read()[-3000:], flush=True)
+
+
+def single_streams(engine, prompts, new=TIER_NEW):
+    """One run of ``prompts`` through a single-process engine, all
+    submitted at once: ({rid: tokens}, wall seconds, results)."""
+    from repro_torch.serving import Request
+
+    rids = [engine.submit(Request(prompt=p, max_new_tokens=new))
+            for p in prompts]
+    t0 = time.perf_counter()
+    res = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_rid = {r.rid: r.tokens for r in res}
+    return {i: by_rid[rid] for i, rid in enumerate(rids)}, wall, res
+
+
+def worker_stats(handles) -> dict:
+    return {h.name: h.call("stats")[1] for h in handles}
+
+
+def tier_run(instances, prefill, prompts, drain=None, rows=1,
+             new=TIER_NEW):
+    """One run of ``prompts`` through a ``Router`` over ``instances``
+    (and ``prefill``).  With ``drain``, the drain of that instance
+    mid-stream: after each submit its stats are read, and once it holds
+    ``rows`` live rows (``rows`` + 1 for ``rows`` > 1, one of which may
+    retire first) and has ticked twice more, it is drained; the drain
+    must move at least ``rows``.
+    Fails if a worker died or the prefill worker was dropped (the router
+    would place the work again elsewhere), or a request was lost.
+    Returns ({grid: tokens}, router results, a dict of the wall and
+    submit seconds, the rows the drain moved and the queued requests it
+    placed again)."""
+    from repro_torch.serving import Request, Router
+
+    router = Router(instances, prefill=prefill)
+    at = rows + (rows > 1)
+    moved = requeued = seen = 0
+    live = None                     # live rows when the drain was due
+    t0 = time.perf_counter()
+    for p in prompts:
+        router.submit(Request(prompt=p, max_new_tokens=new))
+        if drain is not None and live is None:
+            st = drain.call("stats")[1]
+            seen = max(seen, st["active"])
+            if st["active"] >= at:
+                live = st["active"]
+                deadline = time.monotonic() + TIER_TIMEOUT
+                while drain.call("stats")[1]["decode_steps"] \
+                        < st["decode_steps"] + 2:
+                    if time.monotonic() > deadline:
+                        raise AssertionError("the instance to drain never "
+                                             "ticked")
+                    router.pump()
+                    time.sleep(0.002)
+                moved, requeued = router.drain_instance(
+                    drain, timeout=TIER_TIMEOUT)
+    submit_s = time.perf_counter() - t0
+    if drain is not None and moved < rows:
+        raise AssertionError(f"the drain moved {moved} rows, not {rows} "
+                             f"(at most {seen} were live at once)")
+    res = router.run_until_done(timeout=TIER_TIMEOUT)
+    wall = time.perf_counter() - t0
+    st = router.stats()
+    workers = instances + ([prefill] if prefill else [])
+    if st["dead"] or router.prefill_worker is not prefill or any(
+            h.proc.poll() is not None for h in workers):
+        raise AssertionError(f"a tier worker failed: dead {st['dead']}, "
+                             f"prefill worker {router.prefill_worker}")
+    if len(res) != len(prompts):
+        raise AssertionError(f"the tier dropped {len(prompts) - len(res)} "
+                             "requests")
+    return ({r["grid"]: r["tokens"] for r in res}, res,
+            {"wall_s": wall, "submit_s": submit_s, "rows_moved": moved,
+             "rows_live": live, "requeued": requeued,
+             "deferred": router.deferred})
+
+
+def check_streams(what, got, want, params, cfg, prompts):
+    if got != want:
+        at = first_difference(params, cfg, prompts, got, want)
+        raise AssertionError(f"{what}: the tier's streams differ from the "
+                             f"single-process engine's, first at {at}")
+
+
+def tier_metrics(res, wall) -> dict:
+    """Aggregate generated tokens/s and the router's latency p50/p99."""
+    lat = sorted(r["router_latency"] for r in res)
+    return {"generated_tokens_per_s": sum(len(r["tokens"]) for r in res)
+            / wall,
+            "router_latency_p50_ms": percentile(lat, 0.5) * 1e3,
+            "router_latency_p99_ms": percentile(lat, 0.99) * 1e3}
+
+
+def stats_delta(before, after, key) -> dict:
+    """Per worker, the change of its counters ``key`` (``launches`` or
+    ``seconds``) between two ``worker_stats``."""
+    return {name: {k: n - before[name][key][k] for k, n in st[key].items()}
+            for name, st in after.items()}
+
+
+def held_launches(what, before, after, insts, pre, layers, requests):
+    """The workers' kernel launches between two ``worker_stats``, held
+    exactly: a prefill worker launches ``layers`` ``flash_fwd`` a prompt
+    and nothing else; an instance ``layers`` ``decode_ring`` a tick and,
+    colocated, ``layers`` ``flash_fwd`` a prompt it admits (``requests``
+    prompts over all of them), and nothing else.  Colocated, every
+    instance must have ticked.  Returns (launches by worker, ticks by
+    instance)."""
+    delta = stats_delta(before, after, "launches")
+    ticks = {h.name: after[h.name]["decode_steps"]
+             - before[h.name]["decode_steps"] for h in insts}
+    flash = {h.name: delta[h.name]["flash_fwd"] for h in insts}
+    if pre is not None:
+        want = {pre.name: {"flash_fwd": layers * requests}}
+        want.update({n: {"flash_fwd": 0} for n in flash})
+    else:
+        if sum(flash.values()) != layers * requests or any(
+                f % layers or not f or not ticks[n]
+                for n, f in flash.items()):
+            raise AssertionError(f"{what}: not every instance prefilled "
+                                 f"and ticked, or {flash} flash_fwd for "
+                                 f"{requests} prompts of {layers} layers "
+                                 f"(ticks {ticks})")
+        want = {n: {"flash_fwd": f} for n, f in flash.items()}
+    for n in ticks:
+        want[n]["decode_ring"] = layers * ticks[n]
+    for name, counts in delta.items():
+        expect = {k: 0 for k in counts}
+        expect.update(want.get(name, {}))      # an idle worker: nothing
+        if counts != expect:
+            raise AssertionError(f"{what}: tier worker {name} launches "
+                                 f"{counts} != {expect}")
+    return delta, ticks
+
+
+def recurrent_handoff(arch, seed):
+    """In one process, no sockets: ``arch`` at its fp32 parity depth and
+    window (``RECURRENT_SERVE``), SERVE_SLOTS requests; every live row is
+    drained mid-stream (``export_slot``), packed, unpacked and imported
+    into a second engine, whose streams must equal an uninterrupted
+    run's."""
+    import dataclasses
+
+    from repro_torch import checkpoint, models
+    from repro_torch.configs import ARCHS
+    from repro_torch.serving import Request, ServingEngine, tier
+
+    _, layers, window = RECURRENT_SERVE[arch]
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=layers, dtype="float32")
+    if window:
+        cfg = dataclasses.replace(cfg, sliding_window=window)
+    params = models.init(cfg, torch.Generator().manual_seed(seed),
+                         device="cuda")
+    prompts = serve_prompts(cfg.vocab_size, SERVE_SLOTS, seed + 37)
+
+    def engine():
+        return ServingEngine(params, cfg, slots=SERVE_SLOTS,
+                             capacity=SERVE_CAPACITY)
+
+    want, _, _ = single_streams(engine(), prompts)
+    first = engine()
+    rids = {first.submit(Request(prompt=p, max_new_tokens=TIER_NEW)): i
+            for i, p in enumerate(prompts)}
+    for _ in range(5):
+        if first.step():
+            raise AssertionError("a row finished before the handoff")
+    t0 = time.perf_counter()
+    snaps, queued = first.drain()
+    bufs = [tier.pack_snapshot(s) for s in snaps]
+    second = engine()
+    like = tier.snapshot_like(cfg, SERVE_CAPACITY)
+    moved = {}
+    for buf in bufs:
+        rid = second.import_snapshot(tier.unpack_snapshot(buf, like))
+        moved[rid] = rids[checkpoint.peek_meta(buf)["rid"]]
+    handoff_s = time.perf_counter() - t0
+    if len(snaps) != SERVE_SLOTS or queued:
+        raise AssertionError(f"{arch}: drained {len(snaps)} rows, "
+                             f"{len(queued)} queued")
+    got = {moved[r.rid]: r.tokens for r in second.run()}
+    if got != want:
+        at = first_difference(params, cfg, prompts, got, want)
+        raise AssertionError(f"{arch}: streams after the handoff differ "
+                             f"from the uninterrupted run's, first at {at}")
+    out = {"config": cfg.name, "layers": layers, "window": window,
+           "dtype": "float32", "rows_moved": len(snaps),
+           "snapshot_mb": sum(map(len, bufs)) / 1e6,
+           "handoff_s": handoff_s, "streams_equal": True,
+           "tokens_compared": sum(map(len, got.values()))}
+    del params, first, second
+    return out
+
+
+def tier_phase(seed):
+    """The multi-process tier on the card (see TIER_*): (a) fp32 olmo-1b
+    at LM_PARITY_LAYERS layers, colocated and disaggregated, an instance
+    drained mid-stream each time, streams bit for bit those of one
+    engine in this process; (b) the recurrent LMs' in-process handoffs;
+    (c) olmo-1b at full depth in bf16: a warm-up, timed runs with and
+    without the prefill worker (tokens/s, router latency p50/p99, the
+    workers' launch counts held over each), a colocated run with a
+    drain, and
+    one engine in this process over the same requests for comparison,
+    every run's streams equal to that engine's.  All workers start at
+    once, while this process computes the streams to hold them to.
+    Returns the launches summed over the two timed runs."""
+    fp32 = tier_argv(seed, "--layers", str(LM_PARITY_LAYERS),
+                     "--dtype", "float32")
+    bf16 = tier_argv(seed)
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as logdir:
+        a_roles = [("a_eng0", "engine"), ("a_eng1", "engine"),
+                   ("a_eng2", "engine"), ("a_pre", "prefill")]
+        c_roles = [("c_eng0", "engine"), ("c_eng1", "engine"),
+                   ("c_pre", "prefill")]
+        a = spawn_tier(fp32, a_roles, logdir)
+        c = spawn_tier(bf16, c_roles, logdir)
+        failed = True
+        try:
+            out = _tier_checks(seed, fp32, bf16, a, c, t_start)
+            failed = False
+        finally:
+            close_tier(a + c, logdir, failed)
+    out["seconds"] = time.perf_counter() - t_start
+    emit({"phase": "tier", **out})
+    return out["launches"]
+
+
+def _tier_checks(seed, fp32, bf16, a, c, t_start):
+    from repro_torch.tree import tree_leaves
+
+    # the streams to hold the tier to, from one engine here each, while
+    # the workers start (fp32 at TIER_PARITY_NEW; a run of TIER_NEW
+    # tokens makes the first TIER_NEW of them)
+    eng = tier_engine(fp32)
+    prompts = serve_prompts(eng.cfg.vocab_size, TIER_REQUESTS, seed + 29)
+    want_long, _, _ = single_streams(eng, prompts, new=TIER_PARITY_NEW)
+    want = {i: t[:TIER_NEW] for i, t in want_long.items()}
+    eng16 = tier_engine(bf16)
+    want16, _, _ = single_streams(eng16, prompts)
+    # (a) fp32: colocated, the first instance drained once it holds
+    # TIER_DRAIN_ROWS + 1 live rows; disaggregated, drained at its first
+    # row (a row ends before the prefill worker ships the next one)
+    for h in a:
+        h.connect(timeout=TIER_TIMEOUT)
+    ready_s = time.perf_counter() - t_start
+    runs = {}
+    for mode, insts, pre, rows, new, ref in (
+            ("colocated", a[0:2], None, TIER_DRAIN_ROWS, TIER_PARITY_NEW,
+             want_long),
+            ("disaggregated", a[1:3], a[3], 1, TIER_NEW, want)):
+        got, _, runs[mode] = tier_run(insts, pre, prompts, drain=insts[0],
+                                      rows=rows, new=new)
+        check_streams(f"fp32 tier ({mode})", got, ref, eng.params,
+                      eng.cfg, prompts)
+        emit({"phase": "tier_run", "what": f"fp32 {mode}", **runs[mode]})
+    stop_tier(a)
+    del eng
+    torch.cuda.empty_cache()
+    fp32_out = {"layers": LM_PARITY_LAYERS, "dtype": "float32",
+                "streams_equal": True, "runs": runs,
+                "new_tokens": {"colocated": TIER_PARITY_NEW,
+                               "disaggregated": TIER_NEW},
+                "tokens_compared": sum(map(len, want_long.values()))
+                + sum(map(len, want.values())),
+                "seconds_at_end": time.perf_counter() - t_start}
+
+    # (b) the recurrent LMs' handoffs in this process
+    handoffs = {arch: recurrent_handoff(arch, seed)
+                for arch in RECURRENT_SERVE}
+    handoffs["seconds_at_end"] = time.perf_counter() - t_start
+    torch.cuda.empty_cache()
+
+    # (c) full depth, bf16: a timed run of the engine here, then the
+    # tier: 2 requests to warm the instances, a timed run through the
+    # prefill worker and a timed run without it, the workers' launches
+    # held exactly over each, and last (a drained instance admits no
+    # more) a colocated run in which c_eng0 is drained mid-stream
+    eng, want = eng16, want16
+    got, wall, res = single_streams(eng, prompts)
+    if got != want:
+        raise AssertionError("the single-process bf16 engine repeats "
+                             "itself differently")
+    lat = sorted(r.latency for r in res)
+    single = {"slots": SERVE_SLOTS, "wall_s": wall,
+              "generated_tokens_per_s": sum(map(len, got.values())) / wall,
+              "latency_p50_ms": percentile(lat, 0.5) * 1e3,
+              "latency_p99_ms": percentile(lat, 0.99) * 1e3}
+    row_mb = sum(t.nbytes for t in tree_leaves(eng.state.cache)) \
+        / SERVE_SLOTS / 1e6
+    for h in c:
+        h.connect(timeout=TIER_TIMEOUT)
+    insts, pre = c[:TIER_INSTANCES], c[TIER_INSTANCES]
+    layers = eng.cfg.n_layers
+    got, _, warm = tier_run(insts, None, prompts[:TIER_INSTANCES])
+    check_streams("bf16 tier (warm-up)", got,
+                  {i: want[i] for i in range(TIER_INSTANCES)}, eng.params,
+                  eng.cfg, prompts)
+    timed = {}
+    for mode, p in (("disaggregated", pre), ("colocated", None)):
+        before = worker_stats(c)
+        got, res, timed[mode] = tier_run(insts, p, prompts)
+        after = worker_stats(c)
+        check_streams(f"bf16 tier ({mode})", got, want, eng.params,
+                      eng.cfg, prompts)
+        delta, ticks = held_launches(f"bf16 tier ({mode})", before, after,
+                                     insts, p, layers, TIER_REQUESTS)
+        timed[mode].update(tier_metrics(res, timed[mode]["wall_s"]),
+                           decode_ticks=ticks, launches_by_worker=delta,
+                           worker_seconds=stats_delta(before, after,
+                                                      "seconds"))
+        emit({"phase": "tier_run", "what": f"bf16 {mode}", **timed[mode]})
+    got, _, drained = tier_run(insts, None, prompts, drain=insts[0],
+                               rows=TIER_DRAIN_ROWS)
+    check_streams("bf16 tier (drain)", got, want, eng.params, eng.cfg,
+                  prompts)
+    emit({"phase": "tier_run", "what": "bf16 drain", **drained})
+    launches = {k: sum(d[k] for r in timed.values()
+                       for d in r["launches_by_worker"].values())
+                for k in next(iter(delta.values()))}
+    del eng
+    return {"card": card(), "config": LM_ARCH, "instances": TIER_INSTANCES,
+            "slots": SERVE_SLOTS, "capacity": SERVE_CAPACITY,
+            "requests": TIER_REQUESTS, "new_tokens": TIER_NEW,
+            "prompt_tokens": [len(p) for p in prompts],
+            "workers_ready_s": ready_s, "fp32": fp32_out,
+            "recurrent_handoffs": handoffs,
+            "bf16": {"layers": layers, "streams_equal": True,
+                     "snapshot_row_mb": row_mb, "warm_up": warm,
+                     "drain": drained, "timed": timed["disaggregated"],
+                     "colocated": timed["colocated"],
+                     "single_process": single},
+            "launches": launches}
+
+
 def lm_cli_phase():
     """The LM train CLI at full width, 2 layers, 2 x 2 x 256: 6 steps
     with a checkpoint after step 4, resumed from it to 6; steps 5 and 6
@@ -2832,44 +3268,81 @@ def _run_cli(module, args, timeout=900):
     return proc.stdout.strip().splitlines(), time.perf_counter() - t0
 
 
-def cli_phase():
-    """The serving CLI (alexnet; olmo-1b on the ring and the block pool;
-    rwkv6-7b at 2 layers and recurrentgemma-9b at 3, full width, each
-    drafting speculatively with its first layer), then the
-    training CLI: 6 steps with a checkpoint after step 4, resumed from it
-    to 6."""
-    lines, serve_s = _run_cli("repro_torch.launch.serve",
-                              ["--arch", "alexnet", "--requests", "8"])
+def side_by_side(*chains):
+    """Run each callable in a thread of its own, at once (each is a chain
+    of CLI child processes on the card), and return their results in
+    order; every chain runs to its end, then the first failure is
+    raised."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(chains)) as pool:
+        futures = [pool.submit(c) for c in chains]
+    return [f.result() for f in futures]
+
+
+def _serve_cli(args, what):
+    lines, seconds = _run_cli("repro_torch.launch.serve", args)
     if not lines or lines[-1] != "serve OK":
-        raise AssertionError("the serve CLI did not end in 'serve OK'")
-    lm_serve_s = {}
+        raise AssertionError(f"the {what} serve CLI did not end in "
+                             "'serve OK'")
+    return lines, seconds
+
+
+def _serve_clis():
+    """alexnet; olmo-1b on the ring and the block pool: {what: seconds}."""
+    out = {"serve": _serve_cli(["--arch", "alexnet", "--requests", "8"],
+                               "alexnet")[1]}
     for mode, extra in (("ring", []), ("block", ["--block-size", "16"])):
-        lines, lm_serve_s[mode] = _run_cli(
-            "repro_torch.launch.serve", ["--arch", LM_ARCH, "--layers", "2",
-                                         "--requests", "8", "--capacity",
-                                         "512", *extra])
-        if not lines or lines[-1] != "serve OK":
-            raise AssertionError(f"the LM serve CLI ({mode}) did not end "
-                                 "in 'serve OK'")
-    # the recurrent archs serve speculatively, drafting with their first
-    # layer
+        out[mode] = _serve_cli(["--arch", LM_ARCH, "--layers", "2",
+                                "--requests", "8", "--capacity", "512",
+                                *extra], f"LM ({mode})")[1]
+    return out
+
+
+def _spec_serve_clis():
+    """The recurrent archs serve speculatively, drafting with their first
+    layer: {arch: seconds}."""
+    out = {}
     for arch, layers in (("rwkv6-7b", "2"), ("recurrentgemma-9b", "3")):
-        lines, lm_serve_s[arch] = _run_cli(
-            "repro_torch.launch.serve", ["--arch", arch, "--layers", layers,
-                                         "--requests", "8", "--capacity",
-                                         "512", "--draft-layers", "1",
-                                         "--spec-tokens", "4"])
-        if not lines or lines[-1] != "serve OK":
-            raise AssertionError(f"the {arch} serve CLI did not end in "
-                                 "'serve OK'")
+        lines, out[arch] = _serve_cli(
+            ["--arch", arch, "--layers", layers, "--requests", "8",
+             "--capacity", "512", "--draft-layers", "1", "--spec-tokens",
+             "4"], arch)
         if not any(line.startswith("spec: ") and "draft tokens accepted"
                    in line for line in lines):
             raise AssertionError(f"the {arch} serve CLI printed no 'spec:' "
                                  "line")
+    return out
+
+
+def _tier_cli():
+    """The tier: two engine workers and a prefill worker behind the
+    router; its workers must launch both kernels.  Returns seconds."""
+    lines, seconds = _serve_cli(["--arch", LM_ARCH, "--layers", "2",
+                                 "--requests", "8", "--capacity", "512",
+                                 "--tier", "2", "--disagg"], "tier")
+    launched = next((line for line in lines
+                     if line.startswith("worker kernel launches: ")), "")
+    if "flash_fwd=" not in launched or "decode_ring=" not in launched:
+        raise AssertionError(f"the tier's workers launched no flash_fwd or "
+                             f"no decode_ring: {launched!r}")
+    return seconds
+
+
+def cli_phase():
+    """The serving CLI (alexnet; olmo-1b on the ring and the block pool;
+    rwkv6-7b at 2 layers and recurrentgemma-9b at 3, full width, each
+    drafting speculatively with its first layer; olmo-1b as a tier of two
+    engine workers and a prefill worker) beside the training CLI: 6
+    steps with a checkpoint after step 4, resumed from it to 6."""
     base = ["--arch", "alexnet", "--faithful", "--replicas", "2",
             "--batch", "64", "--log-every", "1"]
-    straight, resumed, seconds = resume_runs(base, 4, 6, "AlexNet")
-    seconds.update(serve=serve_s, serve_lm=lm_serve_s)
+    serve_s, spec_s, tier_s, (straight, resumed, seconds) = side_by_side(
+        _serve_clis, _spec_serve_clis, _tier_cli,
+        lambda: resume_runs(base, 4, 6, "AlexNet"))
+    lm_serve_s = {k: serve_s.pop(k) for k in ("ring", "block")}
+    lm_serve_s.update(spec_s, tier=tier_s)
+    seconds.update(serve=serve_s.pop("serve"), serve_lm=lm_serve_s)
     diffs = {s: abs(resumed[s] - straight[s]) for s in resumed}
     if max(diffs.values()) > LOSS_TOL:
         raise AssertionError(f"resumed vs uninterrupted losses {diffs}")
@@ -2951,11 +3424,13 @@ def main() -> int:
     mark("rwkv_train")
     by_path["rg_train"] = recurrent_train_phase("recurrentgemma-9b",
                                                 args.seed)
-    # the CLIs run in child processes: mark() hands the cached memory back
+    # the tier's workers and the CLIs run in child processes: mark() hands
+    # the cached memory back
     mark("rg_train")
-    cli_phase()
-    lm_cli_phase()
-    recurrent_cli_phase()
+    by_path["lm_tier"] = tier_phase(args.seed)
+    mark("tier")
+    # each CLI chain is child processes at 1-3 layers: they share the card
+    side_by_side(cli_phase, lm_cli_phase, recurrent_cli_phase)
     mark("cli")
 
     src = "src/repro_torch/kernels"

@@ -17,10 +17,20 @@ reference stores them.  A Python int leaf (the port's
 stores its step.  Writes are atomic: into
 ``step_<N>.tmp``, then renamed; ``latest_step`` skips incomplete
 directories.  ``meta`` carries host-side session state (stream position,
-LR-controller state).  ``pack_tree`` waits for the serving tier.
+LR-controller state).
+
+``pack_tree`` is the same container in one bytes buffer, the serving
+tier's wire form of a slot snapshot:
+
+    <8-byte little-endian manifest length><JSON {"arrays", "meta"}>
+    <npz of the leaves' uint8 bytes>
+
+so a buffer packed by either package unpacks in the other, every leaf
+bit for bit; ``peek_meta`` reads the JSON header alone.
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import re
@@ -33,7 +43,8 @@ import torch
 from repro_torch.tree import flatten_with_paths, unflatten_like
 
 
-_DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.int64)
+_DTYPES = (torch.float32, torch.bfloat16, torch.int8, torch.int32,
+           torch.int64)
 
 
 def _host(leaf):
@@ -51,16 +62,27 @@ def _host(leaf):
     return np.asarray(leaf, np.int32), "int32"
 
 
-def _tensor(buf: bytes, dtype: str, shape) -> torch.Tensor:
+def _tensor(raw: np.ndarray, dtype: str, shape) -> torch.Tensor:
+    """The leaf stored as ``raw`` (a uint8 array fresh from the npz, which
+    the tensor takes over without a copy)."""
     if dtype == "bfloat16":
-        return torch.from_numpy(np.frombuffer(buf, np.int16).reshape(
-            shape).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.frombuffer(buf, np.dtype(dtype)).reshape(
-        shape).copy())
+        return torch.from_numpy(raw.view(np.int16).reshape(shape)).view(
+            torch.bfloat16)
+    return torch.from_numpy(raw.view(np.dtype(dtype)).reshape(shape))
 
 
 def step_dir(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:08d}")
+
+
+def _leaves(tree) -> tuple:
+    """(the manifest's ``arrays``, {key: the leaf's bytes as uint8})."""
+    manifest, buffers = {}, {}
+    for key, leaf in flatten_with_paths(tree).items():
+        arr, dtype = _host(leaf)
+        manifest[key] = {"dtype": dtype, "shape": list(arr.shape)}
+        buffers[key] = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    return manifest, buffers
 
 
 def save(directory: str, step: int, tree: Any, meta: dict = None) -> str:
@@ -70,11 +92,7 @@ def save(directory: str, step: int, tree: Any, meta: dict = None) -> str:
     if os.path.isdir(d):
         shutil.rmtree(d)
     os.makedirs(d)
-    manifest, buffers = {}, {}
-    for key, leaf in flatten_with_paths(tree).items():
-        arr, dtype = _host(leaf)
-        manifest[key] = {"dtype": dtype, "shape": list(arr.shape)}
-        buffers[key] = np.frombuffer(arr.tobytes(), np.uint8)
+    manifest, buffers = _leaves(tree)
     with open(os.path.join(d, "manifest.json"), "w") as f:
         json.dump({"step": step, "arrays": manifest, "meta": meta}, f)
     np.savez(os.path.join(d, "arrays.npz"), **buffers)
@@ -97,12 +115,54 @@ def restore(directory: str, step: int, like: Any, *, device=None) -> Any:
             if key not in manifest:
                 raise KeyError(f"checkpoint {d} has no array {key!r}")
             m = manifest[key]
-            t = _tensor(data[key].tobytes(), m["dtype"], m["shape"])
+            t = _tensor(data[key], m["dtype"], m["shape"])
             if isinstance(leaf, torch.Tensor):
                 flat[key] = t.to(leaf.device if device is None else device)
             else:
                 flat[key] = int(t.item())
     return unflatten_like(like, flat)
+
+
+def pack_tree(tree: Any, meta: dict = None) -> bytes:
+    """``tree`` (+ optional JSON-serializable ``meta``) as one buffer:
+    ``save``'s manifest and leaf bytes with no filesystem."""
+    manifest, buffers = _leaves(tree)
+    head = json.dumps({"arrays": manifest, "meta": meta}).encode()
+    bio = io.BytesIO()
+    bio.write(len(head).to_bytes(8, "little"))
+    bio.write(head)
+    np.savez(bio, **buffers)
+    return bio.getvalue()
+
+
+def _header(buf: bytes) -> tuple:
+    n = int.from_bytes(buf[:8], "little")
+    return json.loads(buf[8:8 + n].decode()), 8 + n
+
+
+def peek_meta(buf: bytes) -> dict | None:
+    """The ``meta`` of a ``pack_tree`` buffer, from its JSON header alone
+    (no arrays decoded, no ``like`` needed)."""
+    return _header(buf)[0].get("meta")
+
+
+def unpack_tree(buf: bytes, like: Any, *, device=None) -> tuple:
+    """Inverse of ``pack_tree``: (the tree shaped like ``like``, meta).
+    ``like`` gives the structure only: every leaf comes back as a tensor
+    of the buffer's dtype and shape, on ``device`` (default the CPU)."""
+    head, off = _header(buf)
+    manifest = head["arrays"]
+    flat = {}
+    bio = io.BytesIO(buf)
+    bio.seek(off)           # zipfile finds an archive behind a prefix
+    with np.load(bio) as data:
+        for key in flatten_with_paths(like):
+            if key not in manifest:
+                raise KeyError(f"packed tree has no array {key!r}")
+            m = manifest[key]
+            t = _tensor(data[key], m["dtype"], m["shape"])
+            flat[key] = t if device is None else t.to(device)
+    return unflatten_like(like, flat), head.get("meta")
 
 
 def load_meta(directory: str, step: int) -> dict | None:

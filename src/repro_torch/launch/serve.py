@@ -1,6 +1,6 @@
 """Serving CLI of the port: image classification with AlexNet, or token
 generation with a dense, ssm or hybrid LM of the zoo, on one GPU (or,
-when asked, on the CPU).
+when asked, on the CPU), in one process or as a multi-process tier.
 
 Builds the model with random weights from ``--seed``, starts
 ``repro_torch.serving.ServingEngine`` with ``--slots`` slots, feeds it
@@ -19,17 +19,19 @@ ending in ``serve OK``:
         --arch recurrentgemma-9b --smoke --layers 4 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
         --smoke --device cpu --draft-layers 1 --spec-tokens 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \\
+        --tier 2 --disagg
 
 ``--arch alexnet`` is the reference CLI's legacy net (``ALEXNET``:
 ungrouped, LRN before the pool) at full width, 227x227x3 images and 1000
 classes; ``--smoke`` serves the reduced ``ALEXNET_SMOKE``.  An LM (a
 dense one such as ``olmo-1b`` or ``gemma-7b``, ``rwkv6-7b`` or
 ``recurrentgemma-9b``) serves at its published width in its config's
-dtype (bf16); ``--layers`` cuts its depth, and ``--smoke`` takes the
-reference's reduced fp32 config (``--layers`` / ``--d-model`` size
-it).  Prompts are random tokens, their lengths drawn around
-``--prompt-len``; the run reports generated tokens/s, TTFT p50/p99 and
-the per-token latency of each request's decode (p50/p99).
+dtype (bf16; ``--dtype`` overrides it); ``--layers`` cuts its depth, and
+``--smoke`` takes the reference's reduced fp32 config (``--layers`` /
+``--d-model`` size it).  Prompts are random tokens, their lengths drawn
+around ``--prompt-len``; the run reports generated tokens/s, TTFT
+p50/p99 and the per-token latency of each request's decode (p50/p99).
 ``--block-size`` serves from the shared-prefix block pool (the dense
 family only: the engine refuses it for the recurrent state),
 ``--ticks-per-dispatch`` runs K decode ticks per host read, and
@@ -38,11 +40,20 @@ fp32 scales).  ``--draft-layers k`` decodes speculatively (greedy)
 with a draft of the target's own first k layers, ``--draft-arch A``
 with an independent draft of arch A (reduced under ``--smoke``, the
 target's vocabulary, weights from ``--seed`` + 1); ``--spec-tokens``
-draft tokens a round, and the report adds the accepted share.  It runs
-on ``cuda`` unless ``--device cpu`` is given, and exits non-zero when
-CUDA is asked for and absent.  The other LM families (moe, vlm,
-encdec), the replica mesh, the tier and numerics presets are not ported
-yet.
+draft tokens a round, and the report adds the accepted share.
+
+``--tier N`` spawns N engine worker processes (``--role engine`` with
+the same model flags, ``worker_argv``, each on a free port) behind a
+``serving.Router`` and routes the requests through them; ``--disagg``
+adds a prefill worker, and the instances then admit prefilled
+snapshots only.  The kernels are built once before any worker starts.
+The tier reports aggregate generated tokens/s, the router's latency
+p50/p99 and the kernel launches of its workers.
+
+It runs on ``cuda`` unless ``--device cpu`` is given, and exits non-zero
+when CUDA is asked for and absent.  TF32 is off on the card, in every
+process of a tier alike.  The other LM families (moe, vlm, encdec), the
+replica mesh and numerics presets are not ported yet.
 """
 from __future__ import annotations
 
@@ -57,8 +68,8 @@ from repro_torch import models
 from repro_torch.configs import ALEXNET, ALEXNET_SMOKE, ARCHS, reduced
 from repro_torch.kernels.common import BACKENDS, KernelPolicy, device_of
 from repro_torch.launch import not_ported
-from repro_torch.numerics import KV_CACHE_DTYPES
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.numerics import DTYPES, KV_CACHE_DTYPES, fp32_numerics
+from repro_torch.serving import Request, Router, ServingEngine
 from repro_torch.serving.spec_decode import truncated_draft
 
 LM_ARCHS = sorted(a for a, c in ARCHS.items()
@@ -123,21 +134,32 @@ def build_parser():
                     "on the GPU and their plain versions on the CPU")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    # the reference's multi-process tier, not ported: every flag at its
-    # default runs the single engine
+    ap.add_argument("--dtype", default=None, choices=sorted(DTYPES),
+                    help="LM params and activations dtype (default: the "
+                    "config's, bf16 at the published width and fp32 "
+                    "under --smoke); kept for fp32 parity runs until the "
+                    "numerics policy (queue A item 6) owns the choice")
+    # the multi-process tier
     ap.add_argument("--tier", "--instances", type=int, default=0,
                     dest="tier", help="> 0: engine worker processes behind "
                     "a router")
     ap.add_argument("--disagg", action="store_true",
-                    help="tier mode: a dedicated prefill worker")
+                    help="tier mode: add a dedicated prefill worker; the "
+                    "instances admit prefilled snapshots only")
     ap.add_argument("--role", default="driver",
                     choices=["driver", "router", "engine", "decode",
                              "prefill"],
-                    help="the process's role in the tier")
+                    help="worker roles serve one router connection on "
+                    "--port; router is an alias for --tier")
     ap.add_argument("--port", type=int, default=0,
-                    help="worker roles: localhost port to listen on")
+                    help="worker roles: localhost port to listen on (0 "
+                    "with --port-fd: any free port)")
+    ap.add_argument("--port-fd", type=int, default=None,
+                    help="worker roles: a pipe to write the bound port "
+                    "to once the worker accepts (set by spawn_worker)")
     ap.add_argument("--max-queue", type=int, default=0,
-                    help="worker backpressure bound")
+                    help="worker backpressure bound (default 2x slots): "
+                    "beyond it submits answer 'defer'")
     return ap
 
 
@@ -152,10 +174,6 @@ def check_ported(args) -> None:
                          "(the bf16 NumericsPolicy)")
     if args.images:
         raise not_ported("--images", "queue A item 8 (A8b, the vlm family)")
-    if (args.tier or args.disagg or args.role != "driver" or args.port
-            or args.max_queue):
-        raise not_ported("the multi-process tier (--tier, --disagg, "
-                         "--role, --port, --max-queue)", "queue A item 11")
 
 
 def build_cfg(args, error):
@@ -173,6 +191,8 @@ def build_cfg(args, error):
                   "published width is kept otherwise)")
         if args.layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
     return dataclasses.replace(
         cfg, kernels=pol, numerics=dataclasses.replace(
             cfg.numerics, kv_cache_dtype=args.kv_cache_dtype))
@@ -264,6 +284,120 @@ def report(engine, results, wall: float, family: str) -> None:
     print(line)
 
 
+def build_engine(args, cfg, device, error) -> ServingEngine:
+    """The engine of these flags: weights drawn from ``--seed``, as every
+    process of a tier draws them."""
+    params = models.init(cfg, torch.Generator().manual_seed(args.seed),
+                         device=device)
+    spec = build_spec(args, cfg, params, device, error)
+    return ServingEngine(params, cfg, slots=args.slots,
+                         capacity=args.capacity,
+                         temperature=args.temperature, top_k=args.top_k,
+                         seed=args.seed,
+                         ticks_per_dispatch=args.ticks_per_dispatch,
+                         block_size=args.block_size,
+                         num_blocks=args.num_blocks, **spec)
+
+
+def worker_argv(args) -> list:
+    """The flags a spawned worker needs to build the same engine as this
+    process would: a tier's instances must be alike for a handoff to
+    replay a snapshot."""
+    argv = ["--arch", args.arch, "--slots", str(args.slots),
+            "--capacity", str(args.capacity),
+            "--temperature", str(args.temperature),
+            "--top-k", str(args.top_k),
+            "--ticks-per-dispatch", str(args.ticks_per_dispatch),
+            "--kernel-backend", args.kernel_backend,
+            "--numerics", args.numerics,
+            "--kv-cache-dtype", args.kv_cache_dtype,
+            "--seed", str(args.seed), "--device", args.device]
+    if args.smoke:
+        argv.append("--smoke")
+    if args.layers is not None:
+        argv += ["--layers", str(args.layers)]
+    if args.d_model is not None:
+        argv += ["--d-model", str(args.d_model)]
+    if args.dtype is not None:
+        argv += ["--dtype", args.dtype]
+    if args.max_queue:
+        argv += ["--max-queue", str(args.max_queue)]
+    return argv
+
+
+def run_worker(args, cfg, device, error) -> None:
+    """Serve one engine (or, for ``--role prefill``, a prefill worker) to
+    one router connection.  The port (``--port``, or any free one) is
+    bound before the model is built, and written to ``--port-fd`` once
+    the worker accepts."""
+    from repro_torch.serving import tier
+    if not args.port and args.port_fd is None:
+        error("worker roles need --port or --port-fd")
+    listener = tier.worker_listener(args.port)
+    if args.role == "prefill":
+        params = models.init(cfg, torch.Generator().manual_seed(args.seed),
+                             device=device)
+        obj = tier.PrefillWorker(params, cfg, capacity=args.capacity,
+                                 temperature=args.temperature,
+                                 top_k=args.top_k, seed=args.seed)
+    else:
+        obj = build_engine(args, cfg, device, error)
+    tier.worker_serve(obj, listener, max_queue=args.max_queue or None,
+                      port_fd=args.port_fd)
+
+
+def run_tier(args, cfg, device) -> None:
+    """``--tier`` engine workers (and with ``--disagg`` a prefill worker)
+    behind a ``Router``; the requests go through it."""
+    from repro_torch.serving import tier
+    if cfg.family == "conv":
+        raise SystemExit("the tier routes token requests; image "
+                         "classification serves in one process")
+    if device.type == "cuda":
+        # build once: N workers starting together would each run nvcc
+        from repro_torch.kernels import _build
+        _build.build()
+    argv = worker_argv(args)
+    # the workers write to this process's stdout: their errors show here
+    instances = [tier.spawn_worker("engine", argv, name=f"engine{i}",
+                                   stdout=None) for i in range(args.tier)]
+    prefill = (tier.spawn_worker("prefill", argv, name="prefill",
+                                 stdout=None) if args.disagg else None)
+    router = Router(instances, prefill=prefill)
+    try:
+        for h in instances + ([prefill] if prefill else []):
+            h.connect()
+        reqs = make_requests(args, cfg)
+        print(f"tier: {args.tier} instance(s)"
+              + (" + prefill worker" if prefill else "")
+              + f", arch={cfg.name} device={device} slots={args.slots}/"
+              f"instance capacity={args.capacity} layers={cfg.n_layers} "
+              f"dtype={cfg.dtype} kernels={cfg.kernels.describe()}",
+              flush=True)
+        t0 = time.perf_counter()
+        for r in reqs:
+            router.submit(r)
+        results = router.run_until_done()
+        wall = time.perf_counter() - t0
+        st = router.stats()
+        launches = {}
+        for h in instances + ([prefill] if prefill else []):
+            for k, n in h.call("stats")[1]["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    finally:
+        router.shutdown()
+    toks = sum(len(r["tokens"]) for r in results)
+    lats = [r["router_latency"] for r in results]
+    print(f"served {len(results)} requests / {toks} tokens in {wall:.2f}s "
+          f"({toks / wall:.1f} generated tok/s aggregate, "
+          f"{router.deferred} deferred admissions, "
+          f"dead={st['dead'] or 'none'})")
+    print(f"router latency p50 {percentile(lats, 0.5) * 1e3:.0f}ms "
+          f"p99 {percentile(lats, 0.99) * 1e3:.0f}ms")
+    print("worker kernel launches: " + (", ".join(
+        f"{k}={n}" for k, n in launches.items() if n) or "none"))
+
+
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -272,21 +406,23 @@ def main(argv=None):
         device = device_of(args.device)
     except RuntimeError as e:
         raise SystemExit(str(e)) from None
+    fp32_numerics(device)
     cfg = build_cfg(args, ap.error)
     if cfg.family != "conv" and args.max_new >= args.capacity:
         ap.error(f"--max-new {args.max_new} must be < --capacity "
                  f"{args.capacity}: the ring holds capacity positions, "
                  "prompt included")
-    gen = torch.Generator().manual_seed(args.seed)
-    params = models.init(cfg, gen, device=device)
-    spec = build_spec(args, cfg, params, device, ap.error)
-    engine = ServingEngine(params, cfg, slots=args.slots,
-                           capacity=args.capacity,
-                           temperature=args.temperature, top_k=args.top_k,
-                           seed=args.seed,
-                           ticks_per_dispatch=args.ticks_per_dispatch,
-                           block_size=args.block_size,
-                           num_blocks=args.num_blocks, **spec)
+    if args.role in ("engine", "decode", "prefill"):
+        run_worker(args, cfg, device, ap.error)
+        return
+    if args.tier or args.role == "router":
+        if not args.tier:
+            ap.error("--role router needs --tier N (instances to spawn)")
+        run_tier(args, cfg, device)
+        print("serve OK")
+        return
+    engine = build_engine(args, cfg, device, ap.error)
+    spec = engine.draft_cfg is not None
     reqs = make_requests(args, cfg)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
@@ -297,7 +433,7 @@ def main(argv=None):
              f"d_model={cfg.d_model} dtype={cfg.dtype} "
              f"kv={args.kv_cache_dtype} block_size={args.block_size} "
              f"ticks_per_dispatch={args.ticks_per_dispatch} ")
-          + (f"draft={spec['draft_cfg'].name} "
+          + (f"draft={engine.draft_cfg.name} "
              f"spec_tokens={args.spec_tokens} " if spec else "")
           + f"kernels={cfg.kernels.describe()}", flush=True)
     t0 = time.perf_counter()

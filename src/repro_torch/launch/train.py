@@ -56,7 +56,7 @@ from repro_torch.data.preprocess import make_image_preprocess
 from repro_torch.kernels.common import BACKENDS, KernelPolicy, device_of
 from repro_torch.launch import not_ported
 from repro_torch.models import alexnet, transformer
-from repro_torch.numerics import KV_CACHE_DTYPES
+from repro_torch.numerics import KV_CACHE_DTYPES, fp32_numerics
 from repro_torch.optim import schedules
 from repro_torch.optim.optimizers import get_optimizer
 from repro_torch.train_loop import (EVAL_SEED_OFFSET, TrainSession,
@@ -290,20 +290,6 @@ def make_controller(args):
     return schedules.plateau_decay(
         args.lr, factor=args.plateau_factor, patience=args.plateau_patience,
         threshold=args.plateau_threshold)
-
-
-def fp32_numerics(device: torch.device) -> None:
-    """fp32 end to end on the card (no TF32, and bf16 GEMMs reduce in
-    fp32 as the reference's ``preferred_element_type`` does), and
-    deterministic library algorithms so a resumed run can repeat an
-    uninterrupted one."""
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
-            False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cudnn.deterministic = True
-        torch.backends.cudnn.benchmark = False
 
 
 def main(argv=None):

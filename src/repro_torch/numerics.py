@@ -110,3 +110,17 @@ def kv_cache_spec(cfg, model_dtype) -> tuple:
     if sel == "auto":
         return torch_dtype(model_dtype), False
     return _KV_TORCH[sel], sel == "int8"
+
+
+def fp32_numerics(device: torch.device) -> None:
+    """fp32 end to end on the card (no TF32, and bf16 GEMMs reduce in
+    fp32 as the reference's ``preferred_element_type`` does), and
+    deterministic library algorithms so a resumed run can repeat an
+    uninterrupted one."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False

@@ -37,10 +37,16 @@ requests with a common prompt prefix share its blocks, and an exact
 repeat of a prompt (greedy engines) admits with no forward at all.  The
 pool holds attention K/V only, so it serves the dense family alone.
 
+The multi-process tier (``serving/tier.py``, ``serving/router.py``) moves
+live rows between engines: ``export_slot`` snapshots one row (its
+DecodeState slice, last token, sampling rid and bookkeeping),
+``import_snapshot`` replays a snapshot into a free slot of a same-shape
+engine and continues its stream, and ``drain`` stops admission and
+hands back every live row's snapshot and the queue.
+
 Everything runs under ``torch.inference_mode()``, and the decode state
-is written in place.  The replica mesh, and the tier's ``export_slot`` /
-``import_snapshot`` / ``drain``, are not ported yet (ROADMAP queue A item
-11) and raise; so do the LM families the port has not got (item 8).
+is written in place.  The replica mesh (ROADMAP queue A item 12) and the
+LM families the port has not got (item 8) raise.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ import torch
 from repro_torch import models
 from repro_torch.serving import blocks as blk
 from repro_torch.serving import sampling, spec_decode
+from repro_torch.tree import tree_map
 
 DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512)
 
@@ -68,9 +75,60 @@ def _to_host(x):
     return x.cpu().numpy()
 
 
+def buckets_for(capacity: int) -> tuple:
+    """The prompt-length buckets of an engine of ``capacity``: any prompt
+    that fits the ring is admissible."""
+    return tuple(b for b in DEFAULT_BUCKETS if b < capacity) + (capacity,)
+
+
+def bucket_of(buckets, n: int) -> int:
+    """The smallest bucket that holds a prompt of ``n`` tokens."""
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"prompt length {n} exceeds the largest bucket "
+                     f"{buckets[-1]} (the capacity)")
+
+
+def prefill_prompt(params, cfg, prompt, rid: int, *, bucket: int,
+                   capacity: int, seed: int, temperature: float, top_k: int,
+                   draft=None):
+    """``prompt`` right-padded to ``bucket`` through ``models.prefill``
+    (batch 1): (the first token, a device (1,) tensor sampled at position
+    ``len(prompt)`` with request id ``rid``; the prefilled sub-state; the
+    draft's, or None when ``draft`` (params, cfg) is None).  The engine's
+    admission and the tier's prefill worker both run this."""
+    device = params["embed"]["tok"].device
+    toks = torch.zeros((1, bucket), dtype=torch.long)
+    toks[0, :len(prompt)] = torch.as_tensor(prompt, dtype=torch.long)
+    toks = toks.to(device)
+    length = torch.full((1,), len(prompt), dtype=torch.int32, device=device)
+    # a named range, so a profiler trace can book prefills apart
+    with torch.profiler.record_function("prefill"):
+        logits, sub = models.prefill(params, cfg, toks, capacity,
+                                     length=length)
+        dsub = None
+        if draft is not None:
+            # the draft consumes the same prompt, so its state sits at the
+            # same position; its first token is discarded: the stream's
+            # first token is the target's
+            _, dsub = models.prefill(draft[0], draft[1], toks, capacity,
+                                     length=length)
+    first = sampling.sample_slots(
+        seed, torch.full((1,), rid, device=device), length,
+        logits[:, len(prompt) - 1], temperature, top_k)
+    return first, sub, dsub
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md "
                                f"queue A {item}")
+
+
+class DrainingError(RuntimeError):
+    """``submit`` on a draining engine: it is handing its live rows to
+    peers and takes no new work (the router places the request on a
+    peer)."""
 
 
 @dataclasses.dataclass
@@ -126,7 +184,7 @@ class ServingEngine:
             raise _not_ported(f"serving the {cfg.family!r} family "
                               f"({cfg.name})", "item 8")
         if mesh is not None:
-            raise _not_ported("the replica mesh", "item 11")
+            raise _not_ported("the replica mesh", "item 12")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if ticks_per_dispatch < 1:
@@ -150,9 +208,8 @@ class ServingEngine:
         self.capacity, self.ticks = capacity, ticks_per_dispatch
         self.temperature, self.top_k, self.eos_id = temperature, top_k, eos_id
         self.seed = seed
-        # any prompt that fits the ring is admissible
-        self.buckets = tuple(b for b in DEFAULT_BUCKETS if b < capacity) \
-            + (capacity,)
+        self.buckets = buckets_for(capacity)
+        self._draining = False
         self._active: List[Optional[Request]] = [None] * slots
         self._results: Dict[int, Result] = {}
         self._queue: collections.deque = collections.deque()
@@ -215,11 +272,7 @@ class ServingEngine:
     # ----------------------------------------------------------- buckets ----
 
     def _bucket(self, n: int) -> int:
-        for b in self.buckets:
-            if n <= b:
-                return b
-        raise ValueError(f"prompt length {n} exceeds the largest bucket "
-                         f"{self.buckets[-1]} (capacity {self.capacity})")
+        return bucket_of(self.buckets, n)
 
     @property
     def prefill_compiles(self) -> int:
@@ -229,6 +282,9 @@ class ServingEngine:
     # ------------------------------------------------------------- queue ----
 
     def submit(self, request: Request) -> int:
+        if self._draining:
+            raise DrainingError("the engine is draining (a handoff is in "
+                                "progress): submit to a peer instance")
         if self.cfg.family == "conv":
             expect = (self.cfg.image_size, self.cfg.image_size,
                       self.cfg.in_channels)
@@ -258,32 +314,16 @@ class ServingEngine:
     # --------------------------------------------------------- admission ----
 
     def _prefill(self, prompt, rid: int):
-        """The prompt right-padded to its bucket through ``models.prefill``
-        (batch 1): (first token, a device (1,) tensor sampled at position
-        ``len(prompt)``; the prefilled sub-state; the draft's, or None
-        without a draft)."""
+        """``prefill_prompt`` at the prompt's bucket: (first token; the
+        prefilled sub-state; the draft's, or None without a draft)."""
         bucket = self._bucket(len(prompt))
         self._buckets_used.add(bucket)
-        toks = torch.zeros((1, bucket), dtype=torch.long)
-        toks[0, :len(prompt)] = torch.as_tensor(prompt, dtype=torch.long)
-        toks = toks.to(self.device)
-        length = torch.full((1,), len(prompt), dtype=torch.int32,
-                            device=self.device)
-        # a named range, so a profiler trace can book prefills apart
-        with torch.profiler.record_function("prefill"):
-            logits, sub = models.prefill(self.params, self.cfg, toks,
-                                         self.capacity, length=length)
-            dsub = None
-            if self.draft_cfg is not None:
-                # the draft consumes the same prompt, so its state sits at
-                # the same position; its first token is discarded: the
-                # stream's first token is the target's
-                _, dsub = models.prefill(self.draft_params, self.draft_cfg,
-                                         toks, self.capacity, length=length)
-        first = sampling.sample_slots(
-            self.seed, torch.full((1,), rid, device=self.device), length,
-            logits[:, len(prompt) - 1], self.temperature, self.top_k)
-        return first, sub, dsub
+        return prefill_prompt(
+            self.params, self.cfg, prompt, rid, bucket=bucket,
+            capacity=self.capacity, seed=self.seed,
+            temperature=self.temperature, top_k=self.top_k,
+            draft=None if self.draft_cfg is None
+            else (self.draft_params, self.draft_cfg))
 
     def _admit(self, req: Request, slot: int) -> bool:
         """Prefill ``req`` into ``slot``.  Returns False (the request is
@@ -392,18 +432,99 @@ class ServingEngine:
         return len(self._queue)
 
     def load(self) -> dict:
-        """Slots free now, requests queued behind them."""
+        """Slots free now, requests queued behind them, and whether the
+        engine still admits."""
         return {"free_slots": self.free_slots, "queue_len": self.queue_len,
-                "active": self.slots - self.free_slots}
+                "active": self.slots - self.free_slots,
+                "draining": self._draining}
 
-    def export_slot(self, slot: int):
-        raise _not_ported("export_slot (the tier's handoff)", "item 11")
+    # ---------------------------------------------------------- handoff ----
 
-    def import_snapshot(self, snap):
-        raise _not_ported("import_snapshot (the tier's handoff)", "item 11")
+    def export_slot(self, slot: int) -> dict:
+        """Snapshot live ``slot`` for a handoff: the row's DecodeState
+        slice (``models.read_slots``), its last sampled token and its
+        sampling rid (``slot_key``), copied to the host once, and the
+        request's bookkeeping.  ``import_snapshot`` into any free slot of
+        a same-shape engine continues the stream token for token:
+        sampling is positional on (seed, sampling rid, position), and the
+        retire rule reads (prompt_len, tokens, capacity), never the slot
+        index or the peers' traffic."""
+        req = self._active[slot]
+        if req is None:
+            raise ValueError(f"slot {slot} is not active")
+        res = self._results[req.rid]
+        with torch.inference_mode():
+            sub = models.read_slots(self.state, [slot])
+            arrays = tree_map(lambda t: t.cpu(), {
+                "cache": sub.cache, "pos": sub.pos,
+                "last_tok": self.last_tok[slot:slot + 1],
+                "slot_key": self.slot_rids[slot]})
+        return {
+            "arrays": arrays,
+            "meta": {
+                "rid": int(req.rid),       # engine-local: the router maps it
+                "prompt": np.asarray(req.prompt, np.int64).tolist(),
+                "max_new_tokens": int(req.max_new_tokens),
+                "prompt_len": res.prompt_len,
+                "tokens": list(res.tokens),
+                "t_submit": res.t_submit, "t_first": res.t_first,
+                "draft_proposed": res.draft_proposed,
+                "draft_accepted": res.draft_accepted,
+            },
+        }
 
-    def drain(self):
-        raise _not_ported("drain (the tier's handoff)", "item 11")
+    def import_snapshot(self, snap: dict) -> Optional[int]:
+        """Replay an ``export_slot`` (or prefill worker) snapshot into the
+        first free slot.  Returns the request's new engine-local rid, or
+        None when no slot is free (the caller retries after a step).  The
+        row samples on with the snapshot's sampling rid, not the new
+        one, so a sampled stream goes on as it would have."""
+        slot = next((s for s, r in enumerate(self._active) if r is None),
+                    None)
+        if slot is None:
+            return None
+        arrays, meta = snap["arrays"], snap["meta"]
+        with torch.inference_mode():
+            sub = models.DecodeState(
+                cache=tree_map(lambda t: t.to(self.device), arrays["cache"]),
+                pos=arrays["pos"].to(self.device))
+            self.state = models.write_slots(self.state, sub, [slot])
+            self.last_tok[slot] = arrays["last_tok"][0].to(self.device)
+            self.slot_rids[slot] = int(arrays["slot_key"])
+        req = Request(prompt=np.asarray(meta["prompt"], np.int64),
+                      max_new_tokens=meta["max_new_tokens"],
+                      rid=self._next_rid)
+        self._next_rid += 1
+        self._active[slot] = req
+        self._results[req.rid] = Result(
+            rid=req.rid, prompt_len=meta["prompt_len"],
+            tokens=list(meta["tokens"]), t_submit=meta["t_submit"],
+            t_first=meta["t_first"], t_done=0.0,
+            draft_proposed=meta["draft_proposed"],
+            draft_accepted=meta["draft_accepted"])
+        return req.rid
+
+    def drain(self) -> tuple:
+        """Stop admitting, snapshot every live row, hand back the queue:
+        (snapshots, queued requests).  The engine is empty afterwards and
+        ``submit`` raises ``DrainingError``; the router replays the
+        snapshots into peers, so no request is dropped."""
+        if self.block_mgr is not None:
+            raise NotImplementedError(
+                "drain: block-pool tables index a process-local pool; "
+                "export and replay need the ring layout")
+        if self.draft_cfg is not None:
+            raise NotImplementedError(
+                "drain: a spec engine would need the draft's DecodeState "
+                "exported beside the target's")
+        self._draining = True
+        snaps = [self.export_slot(s) for s, r in enumerate(self._active)
+                 if r is not None]
+        queued = list(self._queue)
+        self._queue.clear()
+        self._active = [None] * self.slots
+        self._results.clear()              # queued rows held Results too
+        return snaps, queued
 
     # -------------------------------------------------------------- step ----
 

@@ -6,7 +6,8 @@ read from the source with ``ast``; the serve flags come from
 ``repro.launch.serve.build_parser()``.  Each flag parses in the port's
 ``build_parser()`` at the reference's default; each value the port does not
 run yet raises ``NotImplementedError`` naming its ROADMAP item, and the
-values it does run pass its checks.
+values it does run pass its checks.  The tier's flags reach the workers
+through ``worker_argv``, and one disaggregated tier runs on the CPU.
 """
 import argparse
 import ast
@@ -116,12 +117,6 @@ def test_train_cli_runs_these_values(extra):
     (["--draft-arch", "olmo-1b"], None),
     (["--draft-layers", "1"], None),
     (["--spec-tokens", "2", "--draft-layers", "1"], None),
-    (["--tier", "2"], "queue A item 11"),
-    (["--instances", "2"], "queue A item 11"),
-    (["--disagg"], "queue A item 11"),
-    (["--role", "engine"], "queue A item 11"),
-    (["--port", "5000"], "queue A item 11"),
-    (["--max-queue", "4"], "queue A item 11"),
 ], ids=lambda x: " ".join(x) if isinstance(x, list) else str(x))
 def test_serve_cli_names_the_item_of_what_it_does_not_run(extra, item,
                                                           capsys):
@@ -140,6 +135,55 @@ def test_serve_cli_names_the_item_of_what_it_does_not_run(extra, item,
 
 def test_serve_cli_defaults_pass_the_checks():
     serve_cli.check_ported(serve_cli.build_parser().parse_args([]))
+
+
+# the flags a worker must share with the process that spawns it
+WORKER_FLAGS = ("arch", "smoke", "layers", "d_model", "slots", "capacity",
+                "temperature", "top_k", "ticks_per_dispatch",
+                "kernel_backend", "numerics", "kv_cache_dtype", "seed",
+                "device", "dtype", "max_queue")
+
+
+@pytest.mark.parametrize("extra,dest,value", [
+    (["--tier", "2"], "tier", 2),
+    (["--instances", "2"], "tier", 2),
+    (["--disagg"], "disagg", True),
+    (["--role", "engine"], "role", "engine"),
+    (["--port", "5000"], "port", 5000),
+    (["--max-queue", "4"], "max_queue", 4),
+], ids=lambda x: " ".join(x) if isinstance(x, list) else str(x))
+def test_serve_cli_takes_the_tier_flags(extra, dest, value):
+    """The tier's flags pass the checks (queue A item 11 is ported), and
+    ``worker_argv`` hands a worker every flag that shapes the engine, the
+    worker's --max-queue among them; --tier and --disagg stay with the
+    spawning process, --role, --port and --port-fd come from
+    ``spawn_worker``."""
+    ap = serve_cli.build_parser()
+    args = ap.parse_args(["--smoke", "--device", "cpu", "--layers", "3",
+                          "--d-model", "64", "--dtype", "float32",
+                          "--temperature", "0.5", "--top-k", "4",
+                          "--kv-cache-dtype", "int8", "--seed", "7"] + extra)
+    serve_cli.check_ported(args)
+    assert getattr(args, dest) == value
+    argv = serve_cli.worker_argv(args)
+    worker = ap.parse_args(["--role", "engine", "--port", "1"] + argv)
+    for flag in WORKER_FLAGS:
+        assert getattr(worker, flag) == getattr(args, flag), flag
+    assert not {"--tier", "--disagg", "--role", "--port",
+                "--port-fd"} & set(argv)
+
+
+def test_serve_cli_runs_a_disaggregated_tier(capsys, monkeypatch):
+    """``--tier 2 --disagg``: two engine workers and a prefill worker
+    behind the router serve every request and end in ``serve OK``."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")      # the workers inherit it
+    serve_cli.main(["--smoke", "--device", "cpu", "--tier", "2",
+                    "--disagg", "--requests", "4", "--max-new", "4",
+                    "--capacity", "48"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[-1] == "serve OK"
+    assert any(line.startswith("served 4 requests / 16 tokens")
+               and "dead=none" in line for line in out)
 
 
 def _heads(group, n_split, split):

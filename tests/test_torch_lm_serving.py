@@ -271,13 +271,17 @@ def test_what_is_not_ported_raises(pair):
     with pytest.raises(ValueError, match="speculative decoding"):
         ServingEngine(port, cfg, capacity=CAPACITY, block_size=8,
                       draft_params=port, draft_cfg=cfg)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         ServingEngine(port, cfg, mesh=object())
+    # the tier's handoff is ported; the reference's drain refusals hold
+    with pytest.raises(NotImplementedError, match="block-pool"):
+        ServingEngine(port, cfg, capacity=CAPACITY, block_size=8).drain()
+    with pytest.raises(NotImplementedError, match="spec engine"):
+        ServingEngine(port, cfg, capacity=CAPACITY, draft_params=port,
+                      draft_cfg=cfg).drain()
     eng = ServingEngine(port, cfg, capacity=CAPACITY)
-    for fn in (lambda: eng.export_slot(0), eng.drain,
-               lambda: eng.import_snapshot({})):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            fn()
+    with pytest.raises(ValueError, match="not active"):
+        eng.export_slot(0)
     with pytest.raises(ValueError, match="empty prompt"):
         eng.submit(Request(prompt=[]))
     with pytest.raises(ValueError, match="exceeds the largest bucket"):

@@ -352,7 +352,7 @@ def test_serving_still_refuses(name):
     """These families serve (``tests/test_torch_recurrent_decode.py``),
     speculatively too (``tests/test_torch_spec_decode.py``); what their
     serving still refuses names its ROADMAP item or says why: the replica
-    mesh (queue A item 11), spec decode under sampling, in the serve CLI
+    mesh (queue A item 12), spec decode under sampling, in the serve CLI
     and the engine, as the reference refuses it, and the block pool,
     which holds no recurrent state."""
     with pytest.raises(ValueError, match="greedy"):
@@ -364,7 +364,7 @@ def test_serving_still_refuses(name):
     with pytest.raises(ValueError, match="greedy"):
         ServingEngine(params, cfg, temperature=0.5, draft_params=params,
                       draft_cfg=cfg)
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
+    with pytest.raises(NotImplementedError, match="queue A item 12"):
         ServingEngine(params, cfg, mesh=object())
     with pytest.raises(ValueError, match="pure-attention family"):
         ServingEngine(params, cfg, block_size=8)

@@ -70,7 +70,8 @@ def test_engine_rejects_bad_images():
         eng.submit(Request(image=np.zeros((3, 3, 3))))
     with pytest.raises(ValueError, match="image of shape"):
         eng.submit(Request(prompt=[1, 2, 3]))      # tokens are not images
-    assert eng.load() == {"free_slots": 2, "queue_len": 0, "active": 0}
+    assert eng.load() == {"free_slots": 2, "queue_len": 0, "active": 0,
+                          "draining": False}
 
 
 def test_second_wave_reuses_slots():
