@@ -20,7 +20,14 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    rows with the kernel's tile, blocks and split, two conv and two LRN
    calls agreeing bit for bit; the GEMM runs the forward, dx and dw products of every
    conv of the im2col training phase (32 per replica), two calls agreeing
-   bit for bit where the reduction is split over blocks;
+   bit for bit where the reduction is split over blocks.  Then the bf16
+   entries the bf16 numerics preset runs, ``conv2d_fused_bf16`` (tensor
+   cores) at the 5 ``ALEXNET_FAITHFUL`` convs and ``lrn_bf16`` at its 2
+   LRNs, batch 128, bf16 operands, against their plain versions within
+   8e-3 of max |y| (2 bf16 ulps), the conv also with its reduction split
+   3 ways, two calls bit-equal, timed beside the plain version, cuDNN's
+   bf16 conv on channels-last and ``F.local_response_norm`` in bf16
+   (yardsticks only) and the bound (989 TFLOP/s bf16 or 3.35 TB/s);
 4. flash kernel phase: the flash-attention forward, dq and dk/dv kernels
    against their plain versions (fp32: 2e-4 forward, 2e-3 grads; bf16:
    3e-2) at the LM training shape (B=4, H=16, S=2048, hd=128, causal) and
@@ -80,6 +87,16 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    LRN backward's plain closed form booked apart, ``lrn_bwd``) and the
    idle share: once with the host preprocess (mean, crop, flip) in the
    loader thread for every batch, once over a pool preprocessed ahead;
+   Then the same net under the bf16 numerics preset (``train_bf16``:
+   bf16 params, images and activations, fp32 masters in the optimizer
+   state, dynamic loss scaling), 3 steps, step 2's batch carrying one NaN
+   pixel in replica 1: 5 ``conv2d_fused_bf16`` and 2 ``lrn_bf16``
+   launches per replica and step and none of the fp32 entries, steps 1
+   and 3 held against the plain policy under the same preset (2e-2), the
+   poisoned step leaving both replicas' params, masters and velocity bit
+   for bit as they were, the scale 2^15 -> 2^14 and one skip counted;
+   then one timed and one traced window of 10 steps over the
+   preprocessed pool and the peak memory;
 9. im2col training phase: 3 steps at 2 x 32 under
    ``--conv-backend im2col_ref`` count the GEMM kernel's launches (5
    forward, 5 dw and 4 dx per replica and step: conv1's dx is not
@@ -94,7 +111,11 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    1e-3 after 3 steps).  Then the peak memory, the device time of the
    update alone, three timed windows of 5 steps (tokens/s, step
    p50/p99, stage wait, idle share) and a traced window (device ms by
-   family);
+   family); then 3 steps of the same run under the bf16 numerics preset
+   (fp32 masters, dynamic loss scaling): the flash launch counts, finite
+   losses, the scale 2^15 after 3 clean steps, every updated param within
+   1 bf16 ulp of its master's cast (read before each exchange) and the
+   peak memory;
 11. LM serving phase: ``ServingEngine`` serves ``olmo-1b`` at full width
    (16 layers, bf16, 8 slots, capacity 2048, greedy, prompts of 256-1024
    random tokens, 128 new tokens each).  First the same width at 4
@@ -167,19 +188,21 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    (b) in this process, ``rwkv6-7b`` at 2 layers and
    ``recurrentgemma-9b`` at one superblock (window 256) in fp32: every
    live row drained mid-stream, packed, unpacked and imported into a
-   second engine gives the uninterrupted streams; (c) full depth in
-   bf16: a warm-up, a timed run through the prefill worker and one
-   without it, the workers' launch counts read just before and just
-   after each (16 ``flash_fwd`` per prompt in the prefill worker or,
-   colocated, in the instance that admits it; 16 ``decode_ring`` per
-   tick in each instance; nothing else; colocated, every instance must
+   second engine gives the uninterrupted streams; (c) full width at 8 of
+   the 16 layers (TIER_BF16_LAYERS) in bf16: a warm-up, a timed run
+   through the prefill worker and one without it, the workers' launch
+   counts read just before and just after each (8 ``flash_fwd`` per
+   prompt in the prefill worker or, colocated, in the instance that
+   admits it; 8 ``decode_ring`` per tick in each instance; nothing
+   else; colocated, every instance must
    have prefilled and ticked), a colocated run with an instance drained
    mid-stream (at 3 live rows, at least 2 moved), every stream equal to
    one engine's in this process, which is timed too (generated tokens/s
    and latency p50/p99 beside the tier's router latency); a worker that
    dies or fails to build fails the phase;
 14. CLI phase: ``repro_torch.launch.serve --arch alexnet --requests 8``
-   and ``--arch olmo-1b --layers 2 --requests 8 --capacity 512`` (ring,
+   (fp32, and ``--numerics bf16``) and ``--arch olmo-1b --layers 2
+   --requests 8 --capacity 512`` (ring,
    and ``--block-size 16``, and ``--tier 2 --disagg``, whose workers must
    launch ``flash_fwd`` and ``decode_ring``), ``--arch rwkv6-7b --layers
    2`` and ``--arch recurrentgemma-9b --layers 3`` (the same requests,
@@ -227,6 +250,9 @@ BF16_PEAK = 989e12       # H100 SXM dense bf16 on the tensor cores, FLOP/s
 HBM_RATE = 3.35e12       # H100 SXM HBM3, bytes/s
 CONV_TOL = 2e-4          # registry tolerance of repro/kernels/conv2d/ops.py
 LRN_TOL = 2e-5           # registry tolerance of repro/kernels/lrn/ops.py
+BF16_TOL = 8e-3          # bf16 conv / LRN kernel vs plain, relative to
+                         # max |y|: 2 bf16 ulps (2 x 2^-8)
+BF16_LOSS_TOL = 2e-2     # bf16-preset training, kernels vs plain policy
 GEMM_TOL = 2e-4          # the conv registry's, whose GEMM stage this is
 LOGIT_TOL = 1e-3
 LOSS_TOL = 1e-3          # kernel vs plain training losses on the card
@@ -674,6 +700,149 @@ def lrn_phase(gen, cases, account=None):
             account("lrn", (cfg_name, batch), row)
 
 
+def bf16_check(what, got, want) -> tuple:
+    """(max |err|, max |err| / max |want|), raising beyond BF16_TOL of
+    max |want|."""
+    err = max_err(got, want)
+    top = want.float().abs().max().item()
+    if not err <= BF16_TOL * top:
+        raise AssertionError(f"{what}: max |err| {err:.3e} beyond "
+                             f"{BF16_TOL} x max |y| = {BF16_TOL * top:.3e}")
+    return err, err / top
+
+
+def bf16_kernel_phase(gen, cfg, batch):
+    """``conv2d_fused_bf16`` at the 5 convs and ``lrn_bf16`` at the LRNs
+    of ``cfg`` at ``batch``, bf16 operands, against their plain versions
+    (upcast, fp32 math, one rounding; BF16_TOL relative to max |y|), two
+    calls bit-equal, the conv also with its reduction split 3 ways;
+    timed beside the plain version, the library call in bf16 (cuDNN on
+    channels-last, ``F.local_response_norm``; yardsticks only) and the
+    bound (the tensor cores' 989 TFLOP/s or 3.35 TB/s).  Returns the
+    totals of the two entries."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.conv2d import ops as conv_ops
+    from repro_torch.kernels.conv2d.ref import conv2d_ref
+    from repro_torch.kernels.lrn import ops as lrn_ops
+    from repro_torch.kernels.lrn.ref import lrn_ref
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                     "library_ms": 0.0, "max_abs_err": 0.0,
+                     "max_rel_err": 0.0, "flops": 0.0, "bytes": 0.0}
+              for name in ("conv2d_fused_bf16", "lrn_bf16")}
+
+    def account(name, row):
+        tot = totals[name]
+        tot["max_abs_err"] = max(tot["max_abs_err"], row["max_err"])
+        tot["max_rel_err"] = max(tot["max_rel_err"], row["rel_err"])
+        for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            tot[k] += row["kernel_ms" if k == "ms" else k]
+        tot["flops"] += row["flops"]
+        tot["bytes"] += row["bytes"]
+
+    for cfg_name, _, layer, xs, cs in conv_cases([(cfg, batch)]):
+        cg = xs[-1] // cs.groups
+        x = torch.randn(xs, generator=gen, device=dev).to(bf)
+        w = (torch.randn((cs.kernel, cs.kernel, cg, cs.out_channels),
+                         generator=gen, device=dev)
+             * (2.0 / (cs.kernel * cs.kernel * cg)) ** 0.5).to(bf)
+        b = (torch.randn((cs.out_channels,), generator=gen, device=dev)
+             * 0.1).to(bf)
+        kw = dict(stride=cs.stride, padding=cs.padding, bias=b, relu=True,
+                  groups=cs.groups)
+        what = f"conv2d_fused_bf16 {cfg_name} b{batch} {layer}"
+        with torch.inference_mode():
+            got = conv_ops.conv2d_fused(x, w, backend="cuda", **kw)
+            torch.cuda.synchronize()
+            want = conv2d_ref(x, w, cs.stride, cs.padding, cs.groups,
+                              bias=b, relu=True)
+            if got.dtype != bf or want.dtype != bf:
+                raise AssertionError(f"{what}: dtypes {got.dtype} / "
+                                     f"{want.dtype}")
+            err, rel = bf16_check(what, got, want)
+            if not torch.equal(got, conv_ops.conv2d_fused(
+                    x, w, backend="cuda", **kw)):
+                raise AssertionError(f"{what}: two calls differ")
+            m = got.shape[0] * got.shape[1] * got.shape[2]
+            npg = cs.out_channels // cs.groups
+            bn, split = conv_ops.conv_tiles(m, npg, cs.kernel ** 2 * cg,
+                                            cs.groups, sms)
+            split3 = conv_ops._conv_forward(x, w, b, cs.stride, cs.padding,
+                                            True, cs.groups, "cuda",
+                                            tiles=(bn, 3))
+            split_err, _ = bf16_check(what + " split 3", split3, want)
+            x_cl = x.permute(0, 3, 1, 2)
+            w_cl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+
+            def library():
+                return F.relu(F.conv2d(x_cl, w_cl, b, cs.stride, cs.padding,
+                                       1, cs.groups))
+
+            lib_err = max_err(library().permute(0, 2, 3, 1), got)
+            k_ms = time_ms(lambda: conv_ops.conv2d_fused(
+                x, w, backend="cuda", **kw))
+            p_ms = time_ms(lambda: conv2d_ref(x, w, cs.stride, cs.padding,
+                                              cs.groups, bias=b, relu=True),
+                           reps=5)
+            l_ms = time_ms(library)
+        flops = 2.0 * m * cs.out_channels * cs.kernel ** 2 * cg
+        nbytes = 2.0 * (x.numel() + w.numel() + b.numel() + got.numel())
+        bound, bound_by = _bound(flops, nbytes, BF16_PEAK)
+        row = {"phase": "kernel", "kernel": "conv2d_fused_bf16",
+               "config": cfg_name, "batch": batch, "layer": layer,
+               "x": list(xs), "w": list(w.shape), "groups": cs.groups,
+               "tile": [conv_ops.CONV_BM, bn], "split": split,
+               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "bound_ms": bound, "bound_by": bound_by,
+               "assumes": "989 TFLOP/s bf16 tensor cores, 3.35 TB/s",
+               "flops": flops, "bytes": nbytes,
+               "tflops": flops / (k_ms * 1e-3) / 1e12, "max_err": err,
+               "rel_err": rel, "split3_err": split_err,
+               "library_err": lib_err}
+        emit(row)
+        account("conv2d_fused_bf16", row)
+    for cfg_name, _, layer, xs in lrn_cases([(cfg, batch)]):
+        n, alpha, beta, k = cfg.lrn_n, cfg.lrn_alpha, cfg.lrn_beta, cfg.lrn_k
+        x = (torch.randn(xs, generator=gen, device=dev) * 10.0).to(bf)
+        kw = dict(n=n, alpha=alpha, beta=beta, k=k)
+        what = f"lrn_bf16 {cfg_name} b{batch} {layer}"
+        with torch.inference_mode():
+            got = lrn_ops.lrn(x, backend="cuda", **kw)
+            torch.cuda.synchronize()
+            want = lrn_ref(x, **kw)
+            err, rel = bf16_check(what, got, want)
+            if not torch.equal(got, lrn_ops.lrn(x, backend="cuda", **kw)):
+                raise AssertionError(f"{what}: two calls differ")
+            x_nchw = x.permute(0, 3, 1, 2).contiguous()
+
+            def library():
+                return F.local_response_norm(x_nchw, n, alpha=n * alpha,
+                                             beta=beta, k=k)
+
+            lib_err = max_err(library().permute(0, 2, 3, 1), got)
+            k_ms = time_ms(lambda: lrn_ops.lrn(x, backend="cuda", **kw))
+            p_ms = time_ms(lambda: lrn_ref(x, **kw))
+            l_ms = time_ms(library)
+        nbytes = 4.0 * x.numel()
+        row = {"phase": "kernel", "kernel": "lrn_bf16", "config": cfg_name,
+               "batch": batch, "layer": layer, "x": list(xs),
+               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "bound_ms": nbytes / HBM_RATE * 1e3, "bound_by": "bytes",
+               "assumes": "3.35 TB/s", "flops": 0.0, "bytes": nbytes,
+               "gbps": nbytes / (k_ms * 1e-3) / 1e9, "max_err": err,
+               "rel_err": rel, "library_err": lib_err}
+        emit(row)
+        account("lrn_bf16", row)
+    for name, tot in totals.items():
+        tot["bound_by"] = _bound(tot["flops"], tot["bytes"], BF16_PEAK)[1]
+        tot["tolerance"] = f"{BF16_TOL} x max |y|"
+    return totals
+
+
 def gemm_phase(gen, totals, account):
     """``matmul_bias`` at every GEMM of one replica-step of im2col
     training on ALEXNET_FAITHFUL (batch 32 per replica).  The plain
@@ -940,10 +1109,16 @@ def pool_stream(pool, mean, cfg, seed):
     return make
 
 
+def sgd(numerics=None):
+    """The trainer's SGD momentum, with fp32 masters under a policy that
+    keeps them."""
+    from repro_torch.optim.optimizers import for_numerics, get_optimizer
+    return for_numerics(get_optimizer("sgd_momentum"), numerics)
+
+
 def init_state(cfg, seed):
     from repro_torch.core.steps import init_param_avg_state
     from repro_torch.models import alexnet
-    from repro_torch.optim.optimizers import get_optimizer
     from repro_torch.tree import tree_map
 
     def init_fn(gen):
@@ -951,7 +1126,8 @@ def init_state(cfg, seed):
         return tree_map(lambda p: p.detach(), model.params())
 
     return init_param_avg_state(torch.Generator().manual_seed(seed), init_fn,
-                                get_optimizer("sgd_momentum"), REPLICAS)
+                                sgd(cfg.numerics), REPLICAS,
+                                numerics=cfg.numerics)
 
 
 def alexnet_loss(cfg):
@@ -969,22 +1145,28 @@ def lm_loss(cfg):
 
 
 def session(loss, state, make_stream, steps, items_per_step, *,
-            staging="pinned", metrics_path=None, spreads=None):
+            staging="pinned", metrics_path=None, spreads=None,
+            numerics=None, wrap=None, strategy="all_reduce"):
     """The trainer's session on the loss ``loss(params, batch)``: SGD
     momentum (m 0.9, wd 5e-4), LR 0.01, every-step all-reduce of weights
-    and momentum.  The step updates ``state`` in place (it is consumed),
-    so a second run from the same start takes a fresh state.  With
-    ``spreads`` each step appends the replicas' spread after it."""
+    and momentum, under the ``numerics`` policy (fp32 masters and loss
+    scaling with the bf16 preset).  The step updates ``state`` in place
+    (it is consumed), so a second run from the same start takes a fresh
+    state.  With ``spreads`` each step appends the replicas' spread
+    after it; ``wrap(step)`` wraps the step; ``strategy`` may be an
+    ``Exchanger`` of the same schedule."""
     from repro_torch.core.param_avg import replica_spread
     from repro_torch.core.steps import make_param_avg_step
     from repro_torch.optim import schedules
-    from repro_torch.optim.optimizers import get_optimizer
     from repro_torch.train_loop import TrainSession
 
-    opt = get_optimizer("sgd_momentum")
+    opt = sgd(numerics)
 
     def build_step(sched):
-        step = make_param_avg_step(loss, opt, sched, strategy="all_reduce")
+        step = make_param_avg_step(loss, opt, sched, strategy=strategy,
+                                   numerics=numerics)
+        if wrap is not None:
+            step = wrap(step)
         if spreads is None:
             return step
 
@@ -1002,6 +1184,8 @@ def session(loss, state, make_stream, steps, items_per_step, *,
 
 
 def launch_counts():
+    """{entry: (wrapper, its counter attribute)}: the bf16 conv and LRN
+    entries count apart from the fp32 ones on the same wrappers."""
     from repro_torch.kernels.conv2d.ops import conv2d_fused, matmul_bias
     from repro_torch.kernels.decode_attention.ops import (decode_ring,
                                                           decode_table)
@@ -1010,20 +1194,32 @@ def launch_counts():
     from repro_torch.kernels.lrn.ops import lrn
     from repro_torch.kernels.rglru.ops import rglru_fwd
     from repro_torch.kernels.rwkv6.ops import wkv_fwd
-    return {"conv2d_fused": conv2d_fused, "lrn": lrn,
-            "matmul_bias": matmul_bias, "flash_fwd": flash_fwd,
-            "flash_dq": flash_dq, "flash_dkv": flash_dkv,
-            "decode_ring": decode_ring, "decode_table": decode_table,
-            "wkv_fwd": wkv_fwd, "rglru_fwd": rglru_fwd}
+    out = {k: (fn, "launches") for k, fn in (
+        ("conv2d_fused", conv2d_fused), ("lrn", lrn),
+        ("matmul_bias", matmul_bias), ("flash_fwd", flash_fwd),
+        ("flash_dq", flash_dq), ("flash_dkv", flash_dkv),
+        ("decode_ring", decode_ring), ("decode_table", decode_table),
+        ("wkv_fwd", wkv_fwd), ("rglru_fwd", rglru_fwd))}
+    out["conv2d_fused_bf16"] = (conv2d_fused, "launches_bf16")
+    out["lrn_bf16"] = (lrn, "launches_bf16")
+    return out
 
 
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in launch_counts().items()}
+    return {k: getattr(fn, attr)
+            for k, (fn, attr) in launch_counts().items()}
 
 
 def zero_counts() -> None:
-    for fn in launch_counts().values():
-        fn.launches = 0
+    for fn, attr in launch_counts().values():
+        setattr(fn, attr, 0)
+
+
+def want_counts(**nonzero) -> dict:
+    """Every entry's expected launches: 0 but for ``nonzero``."""
+    want = {k: 0 for k in launch_counts()}
+    want.update(nonzero)
+    return want
 
 
 def losses_of(result) -> list:
@@ -1059,11 +1255,8 @@ def train_phase(model_cfg, seed):
         launches = read_counts()
     n_conv = len(cfg.convs)
     n_lrn = sum(cs.lrn for cs in cfg.convs)
-    want = {"conv2d_fused": n_conv * REPLICAS * steps,
-            "lrn": n_lrn * REPLICAS * steps, "matmul_bias": 0,
-            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-            "decode_ring": 0, "decode_table": 0, "wkv_fwd": 0,
-            "rglru_fwd": 0}
+    want = want_counts(conv2d_fused=n_conv * REPLICAS * steps,
+                       lrn=n_lrn * REPLICAS * steps)
     if launches != want:
         raise AssertionError(f"training launches {launches} != {want}")
     losses = losses_of(res)
@@ -1104,7 +1297,7 @@ def train_phase(model_cfg, seed):
 
 def train_timing(loss, state, make_stream, config, stream, items, *,
                  windows=3, steps=10, family=kernel_family,
-                 tokens_per_item=None, scopes=()):
+                 tokens_per_item=None, scopes=(), numerics=None):
     """``windows`` sessions of 1 warm-up + ``steps`` timed steps: items
     (images or sequences; ``items`` per step) per second and step
     p50/p99 from the session's Table-1 summary, and tokens/s when
@@ -1119,7 +1312,7 @@ def train_timing(loss, state, make_stream, config, stream, items, *,
         for i in range(windows):
             path = os.path.join(tmp, f"w{i}.jsonl")
             res = session(loss, state, make_stream, steps + 1, items,
-                          metrics_path=path).run()
+                          metrics_path=path, numerics=numerics).run()
             state = res.state
             summ = res.summary
             rows.append({"window": i, "timed_steps": summ["timed_steps"],
@@ -1134,7 +1327,8 @@ def train_timing(loss, state, make_stream, config, stream, items, *,
                 rows[-1]["tokens_per_s"] = (summ["images_per_sec"]
                                             * tokens_per_item)
         sess = session(loss, state, make_stream, steps, items,
-                       metrics_path=os.path.join(tmp, "traced.jsonl"))
+                       metrics_path=os.path.join(tmp, "traced.jsonl"),
+                       numerics=numerics)
         acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if scopes
                                           else [])
         with profile(activities=acts) as prof:
@@ -1160,6 +1354,7 @@ def train_timing(loss, state, make_stream, config, stream, items, *,
     if tokens_per_item:
         keys.append("tokens_per_s")
     emit({"phase": "train_timing", "config": config, "stream": stream,
+          "numerics": "fp32" if numerics is None else numerics.describe(),
           "replicas": REPLICAS, "items_per_step": items,
           "windows": windows, "timed_steps_per_window": steps,
           **{k: spread(k) for k in keys},
@@ -1169,6 +1364,129 @@ def train_timing(loss, state, make_stream, config, stream, items, *,
               k: v / steps for k, v in busy["ms_by_family"].items()},
           "top_kernels_ms": busy["top_kernels"]})
     return state
+
+
+def poisoned(make_stream, at: int, replica: int):
+    """``make_stream`` whose batch ``at`` (0-based) carries one NaN pixel
+    in ``replica``'s first image only."""
+    def make():
+        for i, b in enumerate(make_stream()):
+            if i == at:
+                b = dict(b, images=np.array(b["images"], copy=True))
+                b["images"][replica, 0, 0, 0, 0] = np.nan
+            yield b
+    return make
+
+
+def train_bf16_phase(model_cfg, seed):
+    """The faithful AlexNet at full width under the bf16 numerics preset
+    (bf16 params, images and activations, fp32 masters, dynamic loss
+    scaling), 2 x 128, 3 steps on the pool, step 2's batch poisoned with
+    one NaN pixel in replica 1: the launch counts (the bf16 conv and LRN
+    entries only), losses against the plain policy under the same
+    preset, the poisoned step bit-unchanged on both replicas (params,
+    masters, velocity) with the scale halved and one skip counted, step
+    3 clean.  Then one timed and one traced window of 10 steps over the
+    preprocessed pool."""
+    import dataclasses
+
+    from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.numerics import get_policy
+    from repro_torch.train_loop.metrics import read_jsonl
+    from repro_torch.tree import tree_leaves
+
+    npol = get_policy("bf16")
+    cfg = dataclasses.replace(model_cfg, kernels=KernelPolicy("auto"),
+                              numerics=npol)
+    plain_cfg = dataclasses.replace(cfg, kernels=KernelPolicy("plain"))
+    t0 = time.perf_counter()
+    pool, mean = host_pool(cfg, TRAIN_BATCH * REPLICAS, 4, seed + 7)
+    make_stream = poisoned(pool_stream(pool, mean, cfg, seed), 1, 1)
+    state0 = init_state(cfg, seed)
+    setup_s = time.perf_counter() - t0
+    dtypes = sorted({str(x.dtype) for x in tree_leaves(state0.params)})
+    if dtypes != ["torch.bfloat16"]:
+        raise AssertionError(f"bf16-preset params in {dtypes}")
+    steps, items = 3, TRAIN_BATCH * REPLICAS
+    checks = {}
+
+    def wrap(step):
+        def checked(st, batch):
+            before = None
+            if st.step == 1:          # the poisoned step
+                before = [x.clone() for x in tree_leaves(
+                    (st.params, st.opt_state))]
+            st, loss = step(st, batch)
+            if before is not None:
+                after = tree_leaves((st.params, st.opt_state))
+                checks["unchanged"] = all(torch.equal(a, b) for a, b in
+                                          zip(before, after))
+                checks["leaves"] = len(after)
+            return st, loss
+        return checked
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train_bf16.jsonl")
+        sess = session(alexnet_loss(cfg), state0, make_stream, steps, items,
+                       metrics_path=path, numerics=npol, wrap=wrap)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        res = sess.run()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        records = read_jsonl(path, "train")
+    n_conv = len(cfg.convs)
+    n_lrn = sum(cs.lrn for cs in cfg.convs)
+    want = want_counts(conv2d_fused_bf16=n_conv * REPLICAS * steps,
+                       lrn_bf16=n_lrn * REPLICAS * steps)
+    if launches != want:
+        raise AssertionError(f"bf16 training launches {launches} != {want}")
+    losses = losses_of(res)
+    if len(losses) != steps or not math.isfinite(losses[0]) or \
+            not math.isfinite(losses[2]) or math.isfinite(losses[1]):
+        raise AssertionError(f"bf16 losses {losses}: steps 1 and 3 finite, "
+                             "the poisoned step 2 not")
+    if not checks.get("unchanged"):
+        raise AssertionError(f"the poisoned step moved the state: {checks}")
+    scales = [r["loss_scale"] for r in records]
+    skipped = [r["skipped_steps"] for r in records]
+    ns = res.state.numerics
+    if scales != [2.0 ** 15, 2.0 ** 14, 2.0 ** 14] or \
+            skipped != [0, 1, 1] or int(ns["good_steps"]) != 1:
+        raise AssertionError(f"loss scale {scales}, skipped {skipped}, "
+                             f"good steps {int(ns['good_steps'])}")
+    plain = session(alexnet_loss(plain_cfg), init_state(plain_cfg, seed),
+                    make_stream, steps, items, metrics_path=os.devnull,
+                    numerics=npol).run()
+    plain_losses = losses_of(plain)
+    loss_errs = [abs(losses[i] - plain_losses[i]) for i in (0, 2)]
+    if not max(loss_errs) <= BF16_LOSS_TOL:
+        raise AssertionError(f"bf16 kernel vs plain losses {losses} / "
+                             f"{plain_losses}")
+    del plain
+    emit({"phase": "train_bf16", "config": cfg.name,
+          "numerics": npol.describe(), "replicas": REPLICAS,
+          "per_replica_batch": TRAIN_BATCH, "steps": steps,
+          "launches": launches, "losses": losses,
+          "plain_losses": plain_losses, "loss_abs_err_steps_1_3": loss_errs,
+          "loss_tol": BF16_LOSS_TOL, "poisoned": "step 2, replica 1, one "
+          "pixel", "poisoned_step_bit_unchanged": checks["unchanged"],
+          "leaves_compared": checks["leaves"], "loss_scale": scales,
+          "skipped_steps": skipped, "setup_s": setup_s,
+          "peak_mem_gb": peak / 1e9})
+    pre = pool_stream(pool, mean, cfg, seed)()
+    prepped = [next(pre) for _ in pool]
+    torch.cuda.reset_peak_memory_stats()
+    train_timing(alexnet_loss(cfg), res.state,
+                 lambda: itertools.cycle(prepped), cfg.name,
+                 "preprocessed pool", items, windows=1,
+                 scopes=("lrn_bwd",), numerics=npol)
+    emit({"phase": "train_bf16_memory", "config": cfg.name,
+          "peak_mem_gb_timed_windows":
+          torch.cuda.max_memory_allocated() / 1e9})
+    return launches
 
 
 def im2col_phase(model_cfg, seed):
@@ -1197,12 +1515,9 @@ def im2col_phase(model_cfg, seed):
     launches = read_counts()
     # per replica and step: 5 forward + 5 dw + 4 dx (conv1's input, the
     # images, needs no grad); LRN still runs its kernel; no fused conv
-    want = {"conv2d_fused": 0,
-            "lrn": sum(cs.lrn for cs in cfg.convs) * REPLICAS * steps,
-            "matmul_bias": (3 * len(cfg.convs) - 1) * REPLICAS * steps,
-            "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-            "decode_ring": 0, "decode_table": 0, "wkv_fwd": 0,
-            "rglru_fwd": 0}
+    want = want_counts(
+        lrn=sum(cs.lrn for cs in cfg.convs) * REPLICAS * steps,
+        matmul_bias=(3 * len(cfg.convs) - 1) * REPLICAS * steps)
     if launches != want:
         raise AssertionError(f"im2col launches {launches} != {want}")
     losses = losses_of(res)
@@ -1398,12 +1713,11 @@ def lm_stream(pool):
 def lm_state(cfg, seed):
     from repro_torch.core.steps import init_param_avg_state
     from repro_torch.models import transformer
-    from repro_torch.optim.optimizers import get_optimizer
 
     return init_param_avg_state(
         torch.Generator().manual_seed(seed),
         lambda gen: transformer.init(cfg, gen, device="cuda"),
-        get_optimizer("sgd_momentum"), REPLICAS)
+        sgd(cfg.numerics), REPLICAS, numerics=cfg.numerics)
 
 
 def lm_parity(seed):
@@ -1473,10 +1787,9 @@ def lm_train_phase(seed):
     wall = time.perf_counter() - t0
     launches = read_counts()
     per_step = REPLICAS * cfg.n_layers
-    want = {"conv2d_fused": 0, "lrn": 0, "matmul_bias": 0,
-            "flash_fwd": per_step * steps, "flash_dq": per_step * steps,
-            "flash_dkv": per_step * steps, "decode_ring": 0,
-            "decode_table": 0, "wkv_fwd": 0, "rglru_fwd": 0}
+    want = want_counts(flash_fwd=per_step * steps,
+                       flash_dq=per_step * steps,
+                       flash_dkv=per_step * steps)
     if launches != want:
         raise AssertionError(f"LM training launches {launches} != {want}")
     losses = losses_of(res)
@@ -1500,7 +1813,103 @@ def lm_train_phase(seed):
           "losses": losses, "replica_spread": spreads, "wall_s": wall,
           "setup_s": setup_s, "peak_mem_gb": peak / 1e9,
           "optimizer_exchange_ms": lm_update_ms(state)})
+    del state, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_bf16_window(seed)
     return launches
+
+
+def bf16_ulps(a, b) -> int:
+    """The most bf16 ulps between two bf16 tensors of one shape (ordered
+    bit patterns, so -0 and +0 are 0 apart), taken chunk by chunk."""
+    from repro_torch.core.param_avg import chunks
+
+    def ordered(t):
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return max(int((ordered(x) - ordered(y)).abs().max().item())
+               for x, y in zip(chunks(a, read_only=True),
+                               chunks(b, read_only=True)))
+
+
+def lm_bf16_window(seed):
+    """3 steps of olmo-1b at full width and depth under the bf16 preset
+    (fp32 masters in the optimizer state, dynamic loss scaling), 2 x 4 x
+    2048: the flash launch counts, finite losses, the scale still 2^15
+    after 3 clean steps, every param of every replica within 1 bf16 ulp
+    of its master's cast after each update (read just before the
+    exchange, which averages the bf16 params and the fp32 masters each
+    on its own, as the reference's does: a mean of opposite-signed
+    replicas near 0 can then sit many of its own ulps from the masters'
+    mean), and the peak memory beside the fp32-velocity run's."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.param_avg import Exchanger
+    from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.numerics import get_policy
+    from repro_torch.tree import tree_leaves
+
+    npol = get_policy("bf16")
+    cfg = dataclasses.replace(ARCHS[LM_ARCH], kernels=KernelPolicy("auto"),
+                              numerics=npol)
+    make_stream = lm_stream(lm_pool(cfg, LM_BATCH * REPLICAS, 3, seed + 19))
+    steps, items = 3, LM_BATCH * REPLICAS
+    ulps = []
+
+    class UlpChecked(Exchanger):
+        """The all-reduce, after reading how far each updated param lies
+        from its master's cast."""
+        def average_(self, tree):
+            params, opt_state = tree
+            ulps.append(max(bf16_ulps(p, m.to(torch.bfloat16)) for p, m in
+                            zip(tree_leaves(params),
+                                tree_leaves(opt_state["master"]))))
+            super().average_(tree)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state0 = lm_state(cfg, seed)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = session(lm_loss(cfg), state0, make_stream, steps, items,
+                  metrics_path=os.devnull, numerics=npol,
+                  strategy=UlpChecked("all_reduce")).run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = REPLICAS * cfg.n_layers
+    want = want_counts(flash_fwd=per_step * steps,
+                       flash_dq=per_step * steps,
+                       flash_dkv=per_step * steps)
+    if launches != want:
+        raise AssertionError(f"bf16-preset LM launches {launches} != "
+                             f"{want}")
+    losses = losses_of(res)
+    ns = res.state.numerics
+    scale, good = float(ns["scale"]), int(ns["good_steps"])
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses) \
+            or scale != 2.0 ** 15 or good != steps:
+        raise AssertionError(f"bf16-preset LM losses {losses}, scale "
+                             f"{scale}, good steps {good}")
+    params = tree_leaves(res.state.params)
+    if len(ulps) != steps or max(ulps) > 1 or \
+            {p.dtype for p in params} != {torch.bfloat16}:
+        raise AssertionError(f"updated params {ulps} bf16 ulps from their "
+                             "masters' cast")
+    after = max(bf16_ulps(p, m.to(torch.bfloat16)) for p, m in zip(
+        params, tree_leaves(res.state.opt_state["master"])))
+    emit({"phase": "lm_train_bf16", "config": cfg.name,
+          "numerics": npol.describe(), "layers": cfg.n_layers,
+          "replicas": REPLICAS, "per_replica_batch": LM_BATCH,
+          "seq_len": LM_SEQ, "steps": steps, "launches": launches,
+          "losses": losses, "loss_scale": scale, "good_steps": good,
+          "updated_params_max_ulps_from_master": ulps,
+          "exchanged_params_max_ulps_from_master": after, "wall_s": wall,
+          "peak_mem_gb": peak / 1e9})
 
 
 def lm_update_ms(state) -> float:
@@ -2809,6 +3218,11 @@ TIER_NEW = 32
 TIER_PARITY_NEW = 256
 TIER_DRAIN_ROWS = 2
 TIER_TIMEOUT = 300             # seconds a tier run may take to finish
+# the bf16 runs' depth: half of olmo-1b's 16 layers, which halves the
+# 268 MB snapshot a disaggregated request ships and keeps the whole run
+# within its time limit (959.4 s at 16 layers on an H100 80GB HBM3 at
+# 700 W, chip_smoke.py's total line)
+TIER_BF16_LAYERS = 8
 
 
 def tier_argv(seed, *extra):
@@ -3063,7 +3477,8 @@ def tier_phase(seed):
     at LM_PARITY_LAYERS layers, colocated and disaggregated, an instance
     drained mid-stream each time, streams bit for bit those of one
     engine in this process; (b) the recurrent LMs' in-process handoffs;
-    (c) olmo-1b at full depth in bf16: a warm-up, timed runs with and
+    (c) olmo-1b at TIER_BF16_LAYERS layers in bf16: a warm-up, timed runs
+    with and
     without the prefill worker (tokens/s, router latency p50/p99, the
     workers' launch counts held over each), a colocated run with a
     drain, and
@@ -3073,7 +3488,7 @@ def tier_phase(seed):
     Returns the launches summed over the two timed runs."""
     fp32 = tier_argv(seed, "--layers", str(LM_PARITY_LAYERS),
                      "--dtype", "float32")
-    bf16 = tier_argv(seed)
+    bf16 = tier_argv(seed, "--layers", str(TIER_BF16_LAYERS))
     t_start = time.perf_counter()
     with tempfile.TemporaryDirectory() as logdir:
         a_roles = [("a_eng0", "engine"), ("a_eng1", "engine"),
@@ -3138,11 +3553,12 @@ def _tier_checks(seed, fp32, bf16, a, c, t_start):
     handoffs["seconds_at_end"] = time.perf_counter() - t_start
     torch.cuda.empty_cache()
 
-    # (c) full depth, bf16: a timed run of the engine here, then the
-    # tier: 2 requests to warm the instances, a timed run through the
-    # prefill worker and a timed run without it, the workers' launches
-    # held exactly over each, and last (a drained instance admits no
-    # more) a colocated run in which c_eng0 is drained mid-stream
+    # (c) TIER_BF16_LAYERS layers, bf16: a timed run of the engine
+    # here, then the tier: 2 requests to warm the instances, a timed run
+    # through the prefill worker and a timed run without it, the workers'
+    # launches held exactly over each, and last (a drained instance
+    # admits no more) a colocated run in which c_eng0 is drained
+    # mid-stream
     eng, want = eng16, want16
     got, wall, res = single_streams(eng, prompts)
     if got != want:
@@ -3289,9 +3705,15 @@ def _serve_cli(args, what):
 
 
 def _serve_clis():
-    """alexnet; olmo-1b on the ring and the block pool: {what: seconds}."""
+    """alexnet (fp32, then under the bf16 preset); olmo-1b on the ring and
+    the block pool: {what: seconds}."""
     out = {"serve": _serve_cli(["--arch", "alexnet", "--requests", "8"],
                                "alexnet")[1]}
+    lines, out["serve_bf16"] = _serve_cli(
+        ["--arch", "alexnet", "--requests", "8", "--numerics", "bf16"],
+        "alexnet bf16")
+    if "numerics=param=bfloat16," not in lines[0]:
+        raise AssertionError(f"the bf16 serve CLI's header: {lines[0]!r}")
     for mode, extra in (("ring", []), ("block", ["--block-size", "16"])):
         out[mode] = _serve_cli(["--arch", LM_ARCH, "--layers", "2",
                                 "--requests", "8", "--capacity", "512",
@@ -3342,7 +3764,8 @@ def cli_phase():
         lambda: resume_runs(base, 4, 6, "AlexNet"))
     lm_serve_s = {k: serve_s.pop(k) for k in ("ring", "block")}
     lm_serve_s.update(spec_s, tier=tier_s)
-    seconds.update(serve=serve_s.pop("serve"), serve_lm=lm_serve_s)
+    seconds.update(serve=serve_s.pop("serve"),
+                   serve_bf16=serve_s.pop("serve_bf16"), serve_lm=lm_serve_s)
     diffs = {s: abs(resumed[s] - straight[s]) for s in resumed}
     if max(diffs.values()) > LOSS_TOL:
         raise AssertionError(f"resumed vs uninterrupted losses {diffs}")
@@ -3395,6 +3818,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    totals.update(bf16_kernel_phase(gen, ALEXNET_FAITHFUL, TRAIN_BATCH))
     mark("kernel")
     totals.update(flash_phase(gen))
     mark("flash")
@@ -3406,6 +3830,8 @@ def main() -> int:
     mark("serving")
     by_path["train"] = train_phase(ALEXNET_FAITHFUL, args.seed)
     mark("train")
+    by_path["train_bf16"] = train_bf16_phase(ALEXNET_FAITHFUL, args.seed)
+    mark("train_bf16")
     by_path["train_im2col"] = im2col_phase(ALEXNET_FAITHFUL, args.seed)
     mark("train_im2col")
     by_path["lm_train"] = lm_train_phase(args.seed)
@@ -3442,6 +3868,12 @@ def main() -> int:
         "matmul_bias": (f"{src}/conv2d/csrc/matmul_bias.cu",
                         "src/repro/kernels/conv2d/conv2d.py:50",
                         "train_im2col"),
+        # the bf16 numerics preset's entries of the same two TPU kernels
+        "conv2d_fused_bf16": (f"{src}/conv2d/csrc/conv2d_fused_bf16.cu",
+                              "src/repro/kernels/conv2d/conv2d.py:152",
+                              "train_bf16"),
+        "lrn_bf16": (f"{src}/lrn/csrc/lrn.cu",
+                     "src/repro/kernels/lrn/lrn.py:37", "train_bf16"),
     }
     # the main path is bf16: the tensor-core forward, dq and dk/dv (their
     # fp32 kernels are flash_fwd.cu and flash_bwd.cu)
@@ -3475,7 +3907,9 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": tot["library_ms"],
             **({"library": tot["library"]} if "library" in tot else {}),
             **({"tensor_core_cases": tot["tensor_core_cases"]}
-               if "tensor_core_cases" in tot else {})})
+               if "tensor_core_cases" in tot else {}),
+            **{k: tot[k] for k in ("max_rel_err", "tolerance")
+               if k in tot}})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "seconds_at_end_of": seconds})
     print(card(), flush=True)

@@ -13,9 +13,10 @@ Two flavours, field for field the reference's (``repro.configs.alexnet``):
     LRN runs *after* pool1/pool2 with the Caffe constants ``size=5,
     alpha=1e-4, beta=0.75``.  FAITHFUL totals 60,965,224 params.
 
-The reference's ``exchange`` and ``numerics`` fields are left out until
-the port has the training exchange and reduced precision; this port is
-fp32 only.
+``numerics`` carries the port's ``NumericsPolicy`` as the reference's
+config carries its own (``param_dtype(cfg)`` is the params' dtype); the
+reference's ``exchange`` field is left out until the port has the rest
+of the exchange (ROADMAP queue A item 4).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import dataclasses
 from typing import Tuple
 
 from repro_torch.kernels.common import KernelPolicy
+from repro_torch.numerics import NumericsPolicy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +65,8 @@ class AlexNetConfig:
     lrn_k: float = 2.0
     # which implementation each kernel op runs (kernels/common.py)
     kernels: KernelPolicy = KernelPolicy()
+    # precision policy (repro_torch.numerics.NumericsPolicy)
+    numerics: NumericsPolicy = NumericsPolicy()
     dtype: str = "float32"
     citation: str = "Krizhevsky et al. 2012; Ding et al. ICLR 2015 (this paper)"
 

@@ -72,6 +72,13 @@ struct Shape {
   int relu, vec_b;
 };
 
+// The epilogue's ReLU: max(v, 0) that keeps a NaN, as the reference's
+// jnp.maximum and torch.relu do (fmaxf alone would turn it into 0 and hide a
+// non-finite input from the loss-scaling skip).
+__device__ __forceinline__ float relu_keep_nan(float v) {
+  return isnan(v) ? v : fmaxf(v, 0.f);
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -312,7 +319,7 @@ conv2d_fused_kernel(const float* __restrict__ x, const float* __restrict__ w,
       float v = acc[i][j];
       if (n_split == 1) {
         v += bn;
-        if (s.relu) v = fmaxf(v, 0.f);
+        if (s.relu) v = relu_keep_nan(v);
       }
       out[(size_t)m * s.Cout + cout0 + n] = v;
     }
@@ -331,7 +338,7 @@ conv2d_fused_sum(const float* __restrict__ part,
     float v = 0.f;
     for (int s = 0; s < n_split; ++s) v += part[s * n + i];
     if (bias) v += bias[i % N];
-    if (relu) v = fmaxf(v, 0.f);
+    if (relu) v = relu_keep_nan(v);
     y[i] = v;
   }
 }

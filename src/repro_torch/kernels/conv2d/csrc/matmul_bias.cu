@@ -49,6 +49,13 @@
 
 namespace {
 
+// The epilogue's ReLU: max(v, 0) that keeps a NaN, as the reference's
+// jnp.maximum and torch.relu do (fmaxf alone would turn it into 0 and hide a
+// non-finite input from the loss-scaling skip).
+__device__ __forceinline__ float relu_keep_nan(float v) {
+  return isnan(v) ? v : fmaxf(v, 0.f);
+}
+
 constexpr int BM = 128;       // output rows per block
 constexpr int BK = 16;        // reduction chunk
 constexpr int PAD = BK + 4;   // row stride (floats) of an m- or n-major tile
@@ -279,7 +286,7 @@ matmul_bias_kernel(const float* __restrict__ a, const float* __restrict__ b,
       float v = acc[i][j];
       if (n_split == 1) {
         v += bn;
-        if (relu) v = fmaxf(v, 0.f);
+        if (relu) v = relu_keep_nan(v);
       }
       out[(size_t)m * N + n] = v;
     }
@@ -297,7 +304,7 @@ matmul_bias_sum(const float* __restrict__ part, const float* __restrict__ bias,
     float v = 0.f;
     for (int s = 0; s < n_split; ++s) v += part[s * n + i];
     if (bias) v += bias[i % N];
-    if (relu) v = fmaxf(v, 0.f);
+    if (relu) v = relu_keep_nan(v);
     y[i] = v;
   }
 }

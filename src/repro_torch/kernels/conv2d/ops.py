@@ -1,12 +1,18 @@
 """Conv dispatch: the CUDA kernels (``csrc/conv2d_fused.cu``,
-``csrc/matmul_bias.cu``) or their plain versions, each differentiable.
+``csrc/conv2d_fused_bf16.cu``, ``csrc/matmul_bias.cu``) or their plain
+versions, each differentiable.
 
 ``conv2d_fused(x, w, ...)`` takes the reference's layouts: x (B,H,W,Cin)
-NHWC, w (K,K,Cin/G,Cout) HWIO, output channels group-major.  Its backward
-follows ``_conv_fused_bwd`` (``repro/kernels/conv2d/conv2d.py``): the ReLU
-mask, the bias sum, and dx / dw as the conv's transposes, which the
-reference leaves to XLA's conv-grad and this port to the library's
-(``aten.convolution_backward``).
+NHWC, w (K,K,Cin/G,Cout) HWIO, output channels group-major, in fp32 or
+bf16 (x, w and the bias of one dtype; y in it).  fp32 operands launch
+``conv2d_fused_f32``, bf16 ones ``conv2d_fused_bf16`` (tensor cores, fp32
+accumulation, bias and ReLU in fp32, one rounding to bf16, as the
+reference kernel computes on upcast operands).  Its backward follows
+``_conv_fused_bwd`` (``repro/kernels/conv2d/conv2d.py``): the ReLU mask,
+the bias sum, and dx / dw as the conv's transposes in fp32 over upcast
+operands, cast back to the operands' dtype, which the reference leaves to
+XLA's conv-grad and this port to the library's
+(``aten.convolution_backward``, TF32 off).
 
 ``matmul_bias(x, w, b, ...)`` is (M,K) @ (K,N) + b with the bias/ReLU
 epilogue; its backward is two more launches of the same kernel,
@@ -16,12 +22,15 @@ place.  Where the output tiles are too few to fill the card,
 partials a second kernel adds in a fixed order (one launch all the
 same).  ``conv2d_im2col`` is the two-stage parity formulation built on
 it: ``F.unfold`` patches (the reference's XLA patch extraction) times
-the reordered, block-diagonal weight matrix.
+the reordered, block-diagonal weight matrix.  The GEMM kernel is fp32
+only: a bf16 operand raises ``NotImplementedError`` (ROADMAP.md queue A
+item 6, sub-item A6b) rather than fall back.
 
 Under ``backend="auto"`` a CUDA tensor runs the kernels and a CPU tensor
 the plain versions (``ref``).  ``conv2d_fused.launches`` counts forward
-launches (its backward is the library's); ``matmul_bias.launches``
-counts every launch, backward included.
+launches of the fp32 entry and ``conv2d_fused.launches_bf16`` of the bf16
+one (the backward is the library's); ``matmul_bias.launches`` counts
+every launch, backward included.
 """
 from __future__ import annotations
 
@@ -38,6 +47,12 @@ _CONV_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14
                   + [ctypes.c_void_p])
 _MATMUL_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
+# the fused conv's entry per operand dtype, and the launch count it adds to
+_CONV_ENTRIES = {torch.float32: ("conv2d_fused_f32", "launches"),
+                 torch.bfloat16: ("conv2d_fused_bf16", "launches_bf16")}
+_A6B = ("bf16 operands on the matmul_bias kernel (the im2col conv route) "
+        "are not ported yet: see ROADMAP.md queue A item 6 (A6b, "
+        "matmul_bias in bf16)")
 # The GEMM kernel's output tile (GEMM_BM rows, gemm_bn(N) columns) and its
 # reduction chunk (csrc/matmul_bias.cu's BM, BK and the N <= 64 pick of
 # launch_tiles; tests/test_torch_matmul.py reads them from the source).
@@ -59,7 +74,9 @@ HBM_RATE = 3.35e12
 # The fused conv kernel's output tile (CONV_BM rows, one of CONV_BNS
 # columns) and reduction chunk (csrc/conv2d_fused.cu's BM, BK and the bn
 # cases of conv2d_fused_f32; tests/test_torch_conv2d.py reads them from the
-# source).  conv_tiles' cost model: the 64-wide kernel fits two blocks to
+# source; the bf16 kernel, csrc/conv2d_fused_bf16.cu, shares BM, BK and the
+# widths, so the same rules pick for it).  conv_tiles' cost model (timed
+# on the fp32 kernel): the 64-wide kernel fits two blocks to
 # an SM (116-128 registers a thread), the 96-wide one one (181-199); a
 # block's chunk takes CONV_CHUNK_US[bn] of its SM's time, or CONV_ALONE_US
 # where a 64-wide block has its SM to itself.  kernel_sweep.py's times on
@@ -117,19 +134,24 @@ def conv_tiles(m: int, npg: int, kdim: int, groups: int, sms: int) -> tuple:
 
 def _conv_forward(x, w, bias, stride, padding, relu, groups, backend,
                   tiles=None):
-    """One forward: the kernel launch, or the plain version.  The kernel
-    takes the tile width and split ``conv_tiles`` picks, or ``tiles`` =
-    (bn, n_split) when given, the split over the runs of
+    """One forward: the kernel launch of x's dtype, or the plain version.
+    The kernel takes the tile width and split ``conv_tiles`` picks, or
+    ``tiles`` = (bn, n_split) when given, the split over the runs of
     ``conv_ranges(K*K*Cg, n_split)`` (kernel_sweep.py times the
     choices)."""
     k, _, _, cout = w.shape
+    for name, t in (("w", w), ("bias", bias)):
+        if t is not None and t.dtype != x.dtype:
+            raise ValueError(f"conv2d_fused: {name} is {t.dtype}, x is "
+                             f"{x.dtype}; the operands share one dtype")
     if common.route(backend, x) == "plain":
         return conv_ref.conv2d_ref(x, w, stride, padding, groups,
                                    bias=bias, relu=relu)
-    common.check_operand("x", x, 4)
-    common.check_operand("w", w, 4)
+    dtypes = tuple(_CONV_ENTRIES)
+    common.check_operand("x", x, 4, dtypes)
+    common.check_operand("w", w, 4, dtypes)
     if bias is not None:
-        common.check_operand("bias", bias, 1)
+        common.check_operand("bias", bias, 1, dtypes)
         if bias.shape[0] != cout:
             raise ValueError(f"bias has {bias.shape[0]} entries, "
                              f"cout is {cout}")
@@ -143,8 +165,8 @@ def _conv_forward(x, w, bias, stride, padding, relu, groups, backend,
     ow = (wd + 2 * padding - k) // stride + 1
     if b_ < 1 or oh < 1 or ow < 1:
         raise ValueError(f"empty output: batch {b_}, {oh}x{ow} map")
-    y = torch.empty((b_, oh, ow, cout), device=x.device, dtype=torch.float32)
-    common.check_operand("y", y, 4)
+    y = torch.empty((b_, oh, ow, cout), device=x.device, dtype=x.dtype)
+    common.check_operand("y", y, 4, dtypes)
     kdim = k * k * (cin // groups)
     if tiles is None:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -157,15 +179,16 @@ def _conv_forward(x, w, bias, stride, padding, relu, groups, backend,
         part = torch.empty((n_split,) + tuple(y.shape), device=x.device,
                            dtype=torch.float32)
         common.check_operand("part", part, 5)
-    fn = _build.function("conv2d_fused_f32", _CONV_ARGTYPES)
+    entry, counter = _CONV_ENTRIES[x.dtype]
+    fn = _build.function(entry, _CONV_ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(),
              None if bias is None else bias.data_ptr(), y.data_ptr(),
              None if part is None else part.data_ptr(),
              b_, h, wd, cin, oh, ow, cout, k, stride, padding, groups,
              int(relu), bn, n_split, torch.cuda.current_stream().cuda_stream)
     if err:
-        raise _build.launch_error("conv2d_fused_f32", err)
-    conv2d_fused.launches += 1
+        raise _build.launch_error(entry, err)
+    setattr(conv2d_fused, counter, getattr(conv2d_fused, counter) + 1)
     return y
 
 
@@ -174,15 +197,21 @@ def conv_transpose_grads(dy, x, w, stride: int, padding: int, groups: int,
     """dx (NHWC) and dw (HWIO) of the grouped conv y = conv(x, w) for the
     cotangent dy (NHWC): the library's conv-grad on channels-last views,
     the counterpart of XLA's conv-transpose in the reference.  A grad
-    that is not needed comes back as None."""
+    that is not needed comes back as None.  The operands are upcast to
+    fp32 and the grads cast back to x's and w's dtype, as the
+    reference's ``_conv_fused_bwd`` does (a no-op in fp32)."""
+    x_dt, w_dt = x.dtype, w.dtype
+    dy, x, w = dy.float(), x.float(), w.float()
     w_oihw = w.permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
     dx, dw, _ = torch.ops.aten.convolution_backward(
         dy.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w_oihw, None,
         [stride, stride], [padding, padding], [1, 1], False, [0, 0],
         groups, [need_x, need_w, False])
-    return (dx.permute(0, 2, 3, 1).contiguous() if need_x else None,
-            dw.permute(2, 3, 1, 0).contiguous() if need_w else None)
+    return (dx.permute(0, 2, 3, 1).to(x_dt).contiguous() if need_x
+            else None,
+            dw.permute(2, 3, 1, 0).to(w_dt).contiguous() if need_w
+            else None)
 
 
 class _ConvFused(torch.autograd.Function):
@@ -210,8 +239,9 @@ class _ConvFused(torch.autograd.Function):
 def conv2d_fused(x, w, *, stride: int, padding: int, bias=None,
                  relu: bool = False, groups: int = 1,
                  backend: str = "auto"):
-    """x (B,H,W,Cin), w (K,K,Cin/G,Cout) -> (B,OH,OW,Cout) float32, with
-    the bias add and optional ReLU fused.  Differentiable."""
+    """x (B,H,W,Cin), w (K,K,Cin/G,Cout) -> (B,OH,OW,Cout) in x's dtype
+    (fp32 or bf16, shared by w and the bias), with the bias add and
+    optional ReLU fused.  Differentiable."""
     _, _, wcin, cout = w.shape
     cin = x.shape[-1]
     if wcin * groups != cin:
@@ -224,6 +254,7 @@ def conv2d_fused(x, w, *, stride: int, padding: int, bias=None,
 
 
 conv2d_fused.launches = 0
+conv2d_fused.launches_bf16 = 0
 
 
 # --------------------------------------------------- blocked GEMM --------
@@ -292,6 +323,8 @@ def _matmul(x, w, b, relu, backend, n_split=None):
     times the choices)."""
     if common.route(backend, x) == "plain":
         return conv_ref.matmul_bias_ref(x, w, b, relu)
+    if torch.bfloat16 in (x.dtype, w.dtype):
+        raise NotImplementedError(_A6B)
     m, k = x.shape
     n = w.shape[1]
     trans_a = _layout("x", x)
@@ -395,7 +428,11 @@ def conv2d_im2col(x, w, *, stride: int, padding: int, bias=None,
                   backend: str = "auto"):
     """Two-stage conv: ``F.unfold`` patches, then ``matmul_bias`` against
     the reordered weights.  x (B,H,W,Cin), w (K,K,Cin/G,Cout) ->
-    (B,OH,OW,Cout).  Differentiable."""
+    (B,OH,OW,Cout).  Differentiable.  fp32 only: bf16 operands raise
+    ``NotImplementedError`` (ROADMAP.md queue A item 6, A6b) on every
+    device, as the route has no bf16 kernel to hold a plain version to."""
+    if torch.bfloat16 in (x.dtype, w.dtype):
+        raise NotImplementedError(_A6B)
     k, _, wcin, cout = w.shape
     if wcin * groups != x.shape[-1]:
         raise ValueError(f"w in-channels {wcin} x groups {groups} != "

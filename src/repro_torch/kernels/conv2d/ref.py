@@ -5,8 +5,10 @@ with bias and ReLU, and the blocked GEMM with its bias/ReLU epilogue.
 (``repro/kernels/conv2d/conv2d.py::_conv_fused_kernel``): for every kernel
 offset (kh, kw) the strided window slice of the zero-padded image is that
 offset's (M, Cg) slab of the im2col matrix, and the conv is the sum of
-K*K (M, Cg) @ (Cg, Cout/G) products per group, in fp32.  It calls no
-library convolution, so it is independent of the kernel and of cuDNN.
+K*K (M, Cg) @ (Cg, Cout/G) products per group, in fp32 over upcast
+operands, with the bias and ReLU in fp32 and the result cast once to x's
+dtype (bf16 under the bf16 numerics preset).  It calls no library
+convolution, so it is independent of the kernel and of cuDNN.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch.nn.functional as F
 
 def conv2d_ref(x, w, stride: int, padding: int, groups: int = 1, *,
                bias=None, relu: bool = False):
-    """x (B,H,W,Cin), w (K,K,Cin/G,Cout) -> (B,OH,OW,Cout) float32.
+    """x (B,H,W,Cin), w (K,K,Cin/G,Cout) -> (B,OH,OW,Cout) in x's dtype.
 
     Output channels are group-major: group g owns
     ``[g*Cout/G, (g+1)*Cout/G)`` and reads input channels
@@ -44,7 +46,7 @@ def conv2d_ref(x, w, stride: int, padding: int, groups: int = 1, *,
     y = outs[0] if groups == 1 else torch.cat(outs, dim=-1)
     if bias is not None:
         y = y + bias.float()
-    return torch.relu(y) if relu else y
+    return (torch.relu(y) if relu else y).to(x.dtype)
 
 
 def matmul_bias_ref(x, w, b=None, relu: bool = False):

@@ -1,4 +1,4 @@
-// Cross-channel local response normalization, fp32, sm_90a.
+// Cross-channel local response normalization, fp32 or bf16, sm_90a.
 //
 // Replaces the TPU kernel src/repro/kernels/lrn/lrn.py, _lrn_kernel
 // (wrapper lrn_pallas):  y = x / (k + alpha * W(x^2))^beta, where W is the
@@ -31,6 +31,14 @@
 // d takes powf.  Other shapes (lrn_generic_kernel: C % 4 != 0, wider rows,
 // wider windows) read each window straight from device memory, one element
 // a thread.
+//
+// bf16 (lrn_bf16, the bf16 numerics preset's path): the same kernels
+// templated on the storage type, as the TPU kernel computes in fp32 and
+// stores in x's dtype.  The vectorized path moves 4 channels a thread in
+// one 8-byte load and one 8-byte store, widens them to fp32, sums the
+// window and scales in fp32 and rounds once to bf16 (round to nearest
+// even).  Its bound is half the fp32 one: 4 bytes an element.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -47,10 +55,52 @@ __device__ __forceinline__ float scale(float x, float d, float beta) {
   return d > 0.f ? x * exp2f(-beta * log2f(d)) : x / powf(d, beta);
 }
 
-template <int N>
+// Four neighbouring channels in storage: a float4 (fp32) or a uint2 of
+// four bf16 (channel 0 in the low half of .x).
+template <typename T>
+struct Quad;
+template <>
+struct Quad<float> {
+  using type = float4;
+};
+template <>
+struct Quad<__nv_bfloat16> {
+  using type = uint2;
+};
+
+__device__ __forceinline__ float4 widen(float4 v) { return v; }
+__device__ __forceinline__ float4 widen(uint2 v) {
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void store_cs(float4* p, float4 v) {
+  __stcs(p, v);
+}
+__device__ __forceinline__ void store_cs(uint2* p, float4 v) {
+  __stcs(p, make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w)));
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+template <int N, typename Q>
 __global__ void __launch_bounds__(BLOCK)
-lrn_vec_kernel(const float4* __restrict__ x, float4* __restrict__ y, int M,
-               int G, int rows_per_step, float alpha, float beta, float k) {
+lrn_vec_kernel(const Q* __restrict__ x, Q* __restrict__ y, int M, int G,
+               int rows_per_step, float alpha, float beta, float k) {
   constexpr int HALF = N / 2;          // channels below
   constexpr int HI = N - 1 - HALF;     // channels above
   const int tid = threadIdx.x;
@@ -68,9 +118,9 @@ lrn_vec_kernel(const float4* __restrict__ x, float4* __restrict__ y, int M,
     const int row = row0 + u * rows_per_step;
     const bool ok = live && row < M;
     const size_t at = (size_t)row * G + j;
-    xv[u] = ok ? __ldcs(x + at) : zero;
-    lv[u] = HALF > 0 && ok && left_far ? __ldg(x + at - 1) : zero;
-    rv[u] = HI > 0 && ok && right_far ? __ldg(x + at + 1) : zero;
+    xv[u] = ok ? widen(__ldcs(x + at)) : zero;
+    lv[u] = HALF > 0 && ok && left_far ? widen(__ldg(x + at - 1)) : zero;
+    rv[u] = HI > 0 && ok && right_far ? widen(__ldg(x + at + 1)) : zero;
   }
 #pragma unroll
   for (int u = 0; u < U; ++u) {
@@ -109,31 +159,35 @@ lrn_vec_kernel(const float4* __restrict__ x, float4* __restrict__ y, int M,
       out[c] = scale(xs[c], k + alpha * s, beta);
     }
     if (live && row < M)
-      __stcs(y + (size_t)row * G + j,
-             make_float4(out[0], out[1], out[2], out[3]));
+      store_cs(y + (size_t)row * G + j,
+               make_float4(out[0], out[1], out[2], out[3]));
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(BLOCK)
-lrn_generic_kernel(const float* __restrict__ x, float* __restrict__ y,
-                   int total, int C, int n, float alpha, float beta,
-                   float k) {
+lrn_generic_kernel(const T* __restrict__ x, T* __restrict__ y, int total,
+                   int C, int n, float alpha, float beta, float k) {
   const int half = n / 2;
   for (int e = blockIdx.x * BLOCK + threadIdx.x; e < total;
        e += gridDim.x * BLOCK) {
     const int c = e % C;
-    const float* xr = x + (e - c);
+    const T* xr = x + (e - c);
     const int lo = max(c - half, 0);
     const int hi = min(c - half + n, C);
     float s = 0.f;
-    for (int i = lo; i < hi; ++i) s += xr[i] * xr[i];
-    y[e] = scale(x[e], k + alpha * s, beta);
+    for (int i = lo; i < hi; ++i) {
+      const float v = to_f32(xr[i]);
+      s += v * v;
+    }
+    store(y + e, scale(to_f32(x[e]), k + alpha * s, beta));
   }
 }
 
-template <int N>
-void launch_vec(const float* x, float* y, int M, int G, float alpha,
-                float beta, float k, cudaStream_t stream) {
+template <int N, typename T>
+void launch_vec(const T* x, T* y, int M, int G, float alpha, float beta,
+                float k, cudaStream_t stream) {
+  using Q = typename Quad<T>::type;
   // rows a block takes per step: a whole number of warps where that fits
   int rows = BLOCK / G;
   for (int r = rows; r >= 1; --r) {
@@ -144,26 +198,22 @@ void launch_vec(const float* x, float* y, int M, int G, float alpha,
   }
   const int threads = (G * rows + 31) / 32 * 32;
   const int grid = (M + rows * U - 1) / (rows * U);
-  lrn_vec_kernel<N><<<grid, threads, 0, stream>>>(
-      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y), M, G,
-      rows, alpha, beta, k);
+  lrn_vec_kernel<N, Q><<<grid, threads, 0, stream>>>(
+      reinterpret_cast<const Q*>(x), reinterpret_cast<Q*>(y), M, G, rows,
+      alpha, beta, k);
 }
 
-}  // namespace
-
-// x, y (M, C) fp32, contiguous, on the current device; C >= 1, n >= 1 and
-// M * C below 2^31.  Launches on `stream` and returns cudaGetLastError() (0
-// on success); no sync.
-extern "C" int lrn_f32(const float* x, float* y, int M, int C, int n,
-                       float alpha, float beta, float k, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
+template <typename T>
+int launch(const T* x, T* y, int M, int C, int n, float alpha, float beta,
+           float k, cudaStream_t st) {
   const int G = C / 4;
   const bool vec = C % 4 == 0 && G <= MAX_GROUPS && n <= MAX_N &&
-                   ((uintptr_t)x | (uintptr_t)y) % 16 == 0;
+                   ((uintptr_t)x | (uintptr_t)y) % sizeof(
+                       typename Quad<T>::type) == 0;
   if (!vec) {
     const int total = M * C;
     const int grid = (total + BLOCK - 1) / BLOCK;
-    lrn_generic_kernel<<<grid < 65536 ? grid : 65536, BLOCK, 0, st>>>(
+    lrn_generic_kernel<T><<<grid < 65536 ? grid : 65536, BLOCK, 0, st>>>(
         x, y, total, C, n, alpha, beta, k);
     return (int)cudaGetLastError();
   }
@@ -179,4 +229,20 @@ extern "C" int lrn_f32(const float* x, float* y, int M, int C, int n,
     default: launch_vec<9>(x, y, M, G, alpha, beta, k, st); break;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x, y (M, C) fp32 (lrn_f32) or bf16 (lrn_bf16), contiguous, on the
+// current device; C >= 1, n >= 1 and M * C below 2^31.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success); no sync.
+extern "C" int lrn_f32(const float* x, float* y, int M, int C, int n,
+                       float alpha, float beta, float k, void* stream) {
+  return launch(x, y, M, C, n, alpha, beta, k, (cudaStream_t)stream);
+}
+
+extern "C" int lrn_bf16(const __nv_bfloat16* x, __nv_bfloat16* y, int M,
+                        int C, int n, float alpha, float beta, float k,
+                        void* stream) {
+  return launch(x, y, M, C, n, alpha, beta, k, (cudaStream_t)stream);
 }

@@ -1,10 +1,13 @@
 """LRN dispatch: the CUDA kernel (``csrc/lrn.cu``) or its plain version,
 differentiable.
 
-``lrn(x, ...)`` takes NHWC (or any (..., C)) fp32 activations.  Under
-``backend="auto"`` a CUDA tensor runs the kernel and a CPU tensor the
-plain version (``ref.lrn_ref``); ``lrn.launches`` counts forward kernel
-launches.  The backward is the reference's closed form (``_lrn_bwd`` in
+``lrn(x, ...)`` takes NHWC (or any (..., C)) fp32 or bf16 activations
+and returns y in x's dtype (the window and the scale in fp32, as the
+reference kernel computes).  Under ``backend="auto"`` a CUDA tensor runs
+the kernel of its dtype (``lrn_f32`` or ``lrn_bf16``) and a CPU tensor
+the plain version (``ref.lrn_ref``); ``lrn.launches`` counts forward
+launches of the fp32 entry and ``lrn.launches_bf16`` of the bf16 one.
+The backward is the reference's closed form (``_lrn_bwd`` in
 ``repro/kernels/lrn/lrn.py``), which the reference leaves to XLA and this
 port computes in plain PyTorch (``ref.lrn_grad``) inside a
 ``torch.profiler.record_function("lrn_bwd")`` range, so that a trace books
@@ -30,13 +33,16 @@ VEC_MAX_WINDOW = 9
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
              ctypes.c_void_p]
+# the entry per activation dtype, and the launch count it adds to
+_ENTRIES = {torch.float32: ("lrn_f32", "launches"),
+            torch.bfloat16: ("lrn_bf16", "launches_bf16")}
 
 
 def _lrn_forward(x, n, alpha, beta, k, backend):
     """One forward: the kernel launch, or the plain version."""
     if common.route(backend, x) == "plain":
         return lrn_ref_mod.lrn_ref(x, n=n, alpha=alpha, beta=beta, k=k)
-    common.check_operand("x", x, x.dim())
+    common.check_operand("x", x, x.dim(), tuple(_ENTRIES))
     c = x.shape[-1]
     if c < 1:
         raise ValueError(f"lrn kernel takes C >= 1 channels, got {c}")
@@ -44,12 +50,13 @@ def _lrn_forward(x, n, alpha, beta, k, backend):
     m = x.numel() // c
     if m == 0:
         return y
-    fn = _build.function("lrn_f32", _ARGTYPES)
+    entry, counter = _ENTRIES[x.dtype]
+    fn = _build.function(entry, _ARGTYPES)
     err = fn(x.data_ptr(), y.data_ptr(), m, c, n, alpha, beta, k,
              torch.cuda.current_stream().cuda_stream)
     if err:
-        raise _build.launch_error("lrn_f32", err)
-    lrn.launches += 1
+        raise _build.launch_error(entry, err)
+    setattr(lrn, counter, getattr(lrn, counter) + 1)
     return y
 
 
@@ -72,10 +79,12 @@ class _LRN(torch.autograd.Function):
 
 def lrn(x, *, n: int = 5, alpha: float = 1e-4, beta: float = 0.75,
         k: float = 2.0, backend: str = "auto"):
-    """x (..., C) -> (..., C) float32.  Differentiable."""
+    """x (..., C) -> (..., C) in x's dtype (fp32 or bf16).
+    Differentiable."""
     if n < 1:
         raise ValueError(f"window size n must be >= 1, got {n}")
     return _LRN.apply(x, n, float(alpha), float(beta), float(k), backend)
 
 
 lrn.launches = 0
+lrn.launches_bf16 = 0

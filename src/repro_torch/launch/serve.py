@@ -27,7 +27,8 @@ ungrouped, LRN before the pool) at full width, 227x227x3 images and 1000
 classes; ``--smoke`` serves the reduced ``ALEXNET_SMOKE``.  An LM (a
 dense one such as ``olmo-1b`` or ``gemma-7b``, ``rwkv6-7b`` or
 ``recurrentgemma-9b``) serves at its published width in its config's
-dtype (bf16; ``--dtype`` overrides it); ``--layers`` cuts its depth, and
+dtype (bf16; ``--dtype`` sets the numerics policy's ``param_dtype``
+over it); ``--layers`` cuts its depth, and
 ``--smoke`` takes the reference's reduced fp32 config (``--layers`` /
 ``--d-model`` size it).  Prompts are random tokens, their lengths drawn
 around ``--prompt-len``; the run reports generated tokens/s, TTFT
@@ -52,8 +53,10 @@ p50/p99 and the kernel launches of its workers.
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and exits non-zero
 when CUDA is asked for and absent.  TF32 is off on the card, in every
-process of a tier alike.  The other LM families (moe, vlm, encdec), the
-replica mesh and numerics presets are not ported yet.
+process of a tier alike.  ``--numerics bf16`` serves under the bf16
+preset: bf16 params (AlexNet's images are cast to them and run the bf16
+conv and LRN kernels) and a bf16 KV cache for the LMs.  The other LM
+families (moe, vlm, encdec) and the replica mesh are not ported yet.
 """
 from __future__ import annotations
 
@@ -68,7 +71,8 @@ from repro_torch import models
 from repro_torch.configs import ALEXNET, ALEXNET_SMOKE, ARCHS, reduced
 from repro_torch.kernels.common import BACKENDS, KernelPolicy, device_of
 from repro_torch.launch import not_ported
-from repro_torch.numerics import DTYPES, KV_CACHE_DTYPES, fp32_numerics
+from repro_torch.numerics import (DTYPES, KV_CACHE_DTYPES, dtype_name,
+                                  fp32_numerics, get_policy, param_dtype)
 from repro_torch.serving import Request, Router, ServingEngine
 from repro_torch.serving.spec_decode import truncated_draft
 
@@ -123,8 +127,8 @@ def build_parser():
                     help="pool size for --block-size (default: full "
                     "private provisioning, slots*capacity/bs + trash)")
     ap.add_argument("--numerics", default="fp32", choices=["fp32", "bf16"],
-                    help="NumericsPolicy preset of the served model (bf16 "
-                    "is not ported)")
+                    help="NumericsPolicy preset of the served model: bf16 "
+                    "= bf16 params and a bf16 KV cache")
     ap.add_argument("--kv-cache-dtype", default="auto",
                     choices=KV_CACHE_DTYPES,
                     help="KV-cache storage: auto follows the model dtype; "
@@ -135,10 +139,10 @@ def build_parser():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--dtype", default=None, choices=sorted(DTYPES),
-                    help="LM params and activations dtype (default: the "
-                    "config's, bf16 at the published width and fp32 "
-                    "under --smoke); kept for fp32 parity runs until the "
-                    "numerics policy (queue A item 6) owns the choice")
+                    help="the numerics policy's param_dtype: the params' "
+                    "and activations' dtype (default: the preset's, else "
+                    "the config's, bf16 at the published width and fp32 "
+                    "under --smoke); fp32 parity runs set float32")
     # the multi-process tier
     ap.add_argument("--tier", "--instances", type=int, default=0,
                     dest="tier", help="> 0: engine worker processes behind "
@@ -169,18 +173,27 @@ def check_ported(args) -> None:
     if args.arch != "alexnet" and args.arch not in LM_ARCHS:
         raise not_ported(f"serving --arch {args.arch} "
                          f"({ARCHS[args.arch].family})", "queue A item 8")
-    if args.numerics != "fp32":
-        raise not_ported(f"--numerics {args.numerics}", "queue A item 6 "
-                         "(the bf16 NumericsPolicy)")
     if args.images:
         raise not_ported("--images", "queue A item 8 (A8b, the vlm family)")
+
+
+def numerics_policy(args):
+    """The ``--numerics`` preset, with ``--kv-cache-dtype`` over its KV
+    cache dtype when set and ``--dtype`` as its ``param_dtype``."""
+    npol = get_policy(args.numerics)
+    if args.kv_cache_dtype != "auto":
+        npol = dataclasses.replace(npol, kv_cache_dtype=args.kv_cache_dtype)
+    if args.dtype is not None:
+        npol = dataclasses.replace(npol, param_dtype=args.dtype)
+    return npol
 
 
 def build_cfg(args, error):
     pol = KernelPolicy(backend=args.kernel_backend)
     if args.arch == "alexnet":
         cfg = ALEXNET_SMOKE if args.smoke else ALEXNET
-        return dataclasses.replace(cfg, kernels=pol)
+        return dataclasses.replace(cfg, kernels=pol,
+                                   numerics=numerics_policy(args))
     cfg = ARCHS[args.arch]
     if args.smoke:
         cfg = reduced(cfg, n_layers=args.layers or 2,
@@ -191,11 +204,8 @@ def build_cfg(args, error):
                   "published width is kept otherwise)")
         if args.layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    if args.dtype is not None:
-        cfg = dataclasses.replace(cfg, dtype=args.dtype)
-    return dataclasses.replace(
-        cfg, kernels=pol, numerics=dataclasses.replace(
-            cfg.numerics, kv_cache_dtype=args.kv_cache_dtype))
+    return dataclasses.replace(cfg, kernels=pol,
+                               numerics=numerics_policy(args))
 
 
 def build_spec(args, cfg, params, device, error) -> dict:
@@ -372,7 +382,8 @@ def run_tier(args, cfg, device) -> None:
               + (" + prefill worker" if prefill else "")
               + f", arch={cfg.name} device={device} slots={args.slots}/"
               f"instance capacity={args.capacity} layers={cfg.n_layers} "
-              f"dtype={cfg.dtype} kernels={cfg.kernels.describe()}",
+              f"dtype={dtype_name(param_dtype(cfg))} "
+              f"kernels={cfg.kernels.describe()}",
               flush=True)
         t0 = time.perf_counter()
         for r in reqs:
@@ -430,12 +441,13 @@ def main(argv=None):
           f"slots={args.slots} "
           + ("" if cfg.family == "conv" else
              f"capacity={args.capacity} layers={cfg.n_layers} "
-             f"d_model={cfg.d_model} dtype={cfg.dtype} "
+             f"d_model={cfg.d_model} dtype={dtype_name(param_dtype(cfg))} "
              f"kv={args.kv_cache_dtype} block_size={args.block_size} "
              f"ticks_per_dispatch={args.ticks_per_dispatch} ")
           + (f"draft={engine.draft_cfg.name} "
              f"spec_tokens={args.spec_tokens} " if spec else "")
-          + f"kernels={cfg.kernels.describe()}", flush=True)
+          + f"numerics={cfg.numerics.describe()} "
+          f"kernels={cfg.kernels.describe()}", flush=True)
     t0 = time.perf_counter()
     results = engine.run(reqs)
     if device.type == "cuda":

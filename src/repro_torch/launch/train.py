@@ -32,9 +32,16 @@ exits non-zero when CUDA is asked for and absent.  On the GPU fp32 runs
 with TF32 off and deterministic cuDNN algorithms.  Weights are random
 from ``--seed`` through ``torch.Generator``, so they differ from the JAX
 CLI's for the same seed; the data streams are the same numpy streams.
-The moe, vlm and encdec families, the mesh engine, model parallelism,
-bf16 numerics and the overlapped / compressed exchange are not ported
-yet and raise.
+``--numerics bf16`` trains under the reference's bf16 preset: bf16
+params and compute (AlexNet's images are cast to bf16 at the loss, its
+conv and LRN run their bf16 kernels), fp32 master weights in the
+optimizer state, which the exchange averages, and dynamic loss scaling
+that skips a non-finite step on every replica at once (docs/numerics.md
+has the contract; the README says where the port differs).  The im2col
+conv route is fp32 only: its first forward raises under it (ROADMAP
+queue A item 6, A6b).  The moe, vlm and encdec families, the mesh engine, model
+parallelism and the overlapped / compressed exchange are not ported yet
+and raise.
 """
 from __future__ import annotations
 
@@ -56,9 +63,10 @@ from repro_torch.data.preprocess import make_image_preprocess
 from repro_torch.kernels.common import BACKENDS, KernelPolicy, device_of
 from repro_torch.launch import not_ported
 from repro_torch.models import alexnet, transformer
-from repro_torch.numerics import KV_CACHE_DTYPES, fp32_numerics
+from repro_torch.numerics import (KV_CACHE_DTYPES, dtype_name,
+                                  fp32_numerics, get_policy, param_dtype)
 from repro_torch.optim import schedules
-from repro_torch.optim.optimizers import get_optimizer
+from repro_torch.optim.optimizers import for_numerics, get_optimizer
 from repro_torch.train_loop import (EVAL_SEED_OFFSET, TrainSession,
                                     alexnet_metrics, lm_metrics)
 from repro_torch.tree import tree_leaves, tree_map
@@ -151,7 +159,9 @@ def build_parser():
                     choices=sorted(CONV_BACKENDS),
                     help="fused = implicit-GEMM conv kernel; im2col_ref = "
                     "unfold + the matmul_bias kernel (parity path)")
-    ap.add_argument("--numerics", default="fp32", choices=["fp32", "bf16"])
+    ap.add_argument("--numerics", default="fp32", choices=["fp32", "bf16"],
+                    help="NumericsPolicy preset: bf16 = bf16 params and "
+                    "compute, fp32 master weights, dynamic loss scaling")
     ap.add_argument("--kv-cache-dtype", default="auto",
                     choices=KV_CACHE_DTYPES,
                     help="decode KV-cache storage dtype of the LM's numerics "
@@ -189,10 +199,15 @@ def check_ported(args) -> None:
     if args.engine == "mesh":
         raise not_ported("--engine mesh", "queue A item 4 (the "
                          "torch.distributed engine)")
-    if args.numerics != "fp32":
-        raise not_ported(f"--numerics {args.numerics}", "queue A item 6 "
-                         "(the bf16 NumericsPolicy with fp32 master "
-                         "weights)")
+
+
+def numerics_policy(args):
+    """The ``--numerics`` preset, with ``--kv-cache-dtype`` over its KV
+    cache dtype when set."""
+    npol = get_policy(args.numerics)
+    if args.kv_cache_dtype != "auto":
+        npol = dataclasses.replace(npol, kv_cache_dtype=args.kv_cache_dtype)
+    return npol
 
 
 def build_cfg(args, error):
@@ -203,7 +218,8 @@ def build_cfg(args, error):
     else:
         cfg = ALEXNET_SMOKE if args.smoke else ALEXNET
     cfg = dataclasses.replace(cfg, kernels=KernelPolicy(
-        backend=args.kernel_backend, conv2d=CONV_BACKENDS[args.conv_backend]))
+        backend=args.kernel_backend, conv2d=CONV_BACKENDS[args.conv_backend]),
+        numerics=numerics_policy(args))
     if args.image_size is not None:
         try:
             cfg.feature_hw(args.image_size)   # conv/pool windows must fit
@@ -227,8 +243,7 @@ def build_lm_cfg(args, error):
     return dataclasses.replace(
         cfg, kernels=KernelPolicy(backend=args.kernel_backend,
                                   attention=args.attn_impl),
-        numerics=dataclasses.replace(cfg.numerics,
-                                     kv_cache_dtype=args.kv_cache_dtype))
+        numerics=numerics_policy(args))
 
 
 def build_lm(args, cfg, dev) -> Build:
@@ -315,15 +330,16 @@ def main(argv=None):
         args, cfg, dev)
     n_rep = args.replicas
 
-    opt = get_optimizer(args.optimizer)
+    npol = cfg.numerics
+    opt = for_numerics(get_optimizer(args.optimizer), npol)
     state = init_param_avg_state(torch.Generator().manual_seed(args.seed),
-                                 build.init, opt, n_rep)
+                                 build.init, opt, n_rep, numerics=npol)
     policy = cfg.kernels.describe()
     n_params = sum(x[0].numel() for x in tree_leaves(state.params))
     session = TrainSession(
         state=state,
-        build_step=lambda sched: make_param_avg_step(build.loss, opt, sched,
-                                                     strategy=exch),
+        build_step=lambda sched: make_param_avg_step(
+            build.loss, opt, sched, strategy=exch, numerics=npol),
         make_stream=lambda: map(lambda b: reshape_for_replicas(b, n_rep),
                                 build.make_stream()),
         controller=make_controller(args), steps=args.steps, device=dev,
@@ -336,7 +352,7 @@ def main(argv=None):
         prefetch=args.prefetch, staging=args.staging,
         log_every=args.log_every, images_per_step=args.batch,
         metrics_path=args.metrics_out,
-        run_meta={"kernels": policy, "numerics": args.numerics,
+        run_meta={"kernels": policy, "numerics": npol.describe(),
                   "engine": "reference", "strategy": args.strategy,
                   "exchange": exch.describe(), "staging": args.staging,
                   "device": dev.type})
@@ -347,11 +363,12 @@ def main(argv=None):
           + ("" if args.arch == "alexnet" else
              f"layers={cfg.n_layers} d_model={cfg.d_model} "
              f"seq_len={args.seq_len} optimizer={args.optimizer} "
-             f"params={n_params} dtype={cfg.dtype} ")
+             f"params={n_params} "
+             f"dtype={dtype_name(param_dtype(cfg))} ")
           + 
           f"model_parallel=1 engine=reference exchange={exch.describe()} "
           f"replica_exec=sequential staging={args.staging} "
-          f"kernels={policy} numerics={args.numerics} device={dev.type} "
+          f"kernels={policy} numerics={npol.describe()} device={dev.type} "
           f"({name})" + (f" resume_from={args.ckpt_dir}" if args.resume
                          else ""), flush=True)
     result = session.run()

@@ -22,6 +22,14 @@ params tree in the reference's structure (``{"convs": [{"w", "b"}],
 stacked parameters; ``AlexNet.forward`` runs them on the module's own.
 Dropout (``train=True``) draws its masks from an explicit
 ``torch.Generator``.
+
+Params are stored in ``numerics.param_dtype(cfg)``: bf16 under the bf16
+numerics preset, whose trainer casts the images to bf16 too.  Conv and
+LRN then run their bf16 kernels; the FC products run ``torch.matmul`` in
+bf16 with fp32 reduction (``numerics.fp32_numerics`` turns the reduced-
+precision reduction off on the card), rounded once to bf16, and the bias
+is added in bf16, as the reference's ``preferred_element_type`` form;
+the logits come out fp32.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from repro_torch.kernels.common import device_of, policy_of
 from repro_torch.kernels.conv2d.ops import conv2d_fused, conv2d_im2col
 from repro_torch.kernels.lrn.ops import lrn
 from repro_torch.models.layers import softmax_xent
+from repro_torch.numerics import param_dtype
 
 
 def maxpool(x, size: int = 3, stride: int = 2):
@@ -120,11 +129,13 @@ class AlexNet(nn.Module):
         super().__init__()
         self.cfg = cfg
         dev = device_of(device)
+        dt = param_dtype(cfg)
         shapes = param_shapes(cfg)
 
         def plist(shs):
             return nn.ParameterList(
-                nn.Parameter(torch.empty(s, device=dev)) for s in shs)
+                nn.Parameter(torch.empty(s, device=dev, dtype=dt))
+                for s in shs)
 
         self.conv_w = plist([w for w, _ in shapes["convs"]])
         self.conv_b = plist([b for _, b in shapes["convs"]])
@@ -148,8 +159,9 @@ class AlexNet(nn.Module):
 def init(cfg, generator: torch.Generator, *, device=None) -> AlexNet:
     """He-initialized weights (the reference's scheme: conv std
     sqrt(2/fan_in) with fan_in over the group's channels, FC std
-    in**-0.5, zero biases), drawn on the CPU from ``generator`` so the
-    same seed gives the same weights on every device."""
+    in**-0.5, zero biases), drawn in fp32 on the CPU from ``generator``
+    so the same seed gives the same weights on every device, and cast to
+    the params' dtype."""
     model = AlexNet(cfg, device=device)
     for w in model.conv_w:
         fan_in = w.shape[0] * w.shape[1] * w.shape[2]

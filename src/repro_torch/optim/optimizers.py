@@ -17,7 +17,9 @@ work on any leading shape, so the trainer applies them to stacked
 As in the reference, the state and the update math are fp32 whatever
 the params' dtype (bf16 for the LM zoo's published configs), and
 ``apply_updates`` adds in fp32 and casts back to the param's dtype.
-``with_master_weights`` comes with the numerics slice (ROADMAP queue A).
+``with_master_weights`` (``for_numerics`` under a policy with
+``master_weights``) keeps fp32 master copies in the optimizer state, so
+the exchange averages exact fp32 masters beside the bf16 live params.
 """
 from __future__ import annotations
 
@@ -113,6 +115,45 @@ def apply_updates(params, updates):
     """``p + u`` in fp32, cast back to the param's dtype."""
     return tree_map(lambda p, u: (p.float() + u).to(p.dtype), params,
                     updates)
+
+
+def with_master_weights(inner: Optimizer) -> Optimizer:
+    """Mixed-precision wrapper: an fp32 master copy of the params lives in
+    the optimizer state (``{"master": ..., "inner": inner's state}``);
+    the inner update runs against the masters, and the live (bf16)
+    params become a cast of the new master each step.
+
+    The returned updates are ``new_master - p.float()``, so that the
+    ``apply_updates`` contract, ``(p.float() + u).to(p.dtype)``, lands the
+    params on ``cast(new_master)`` (to 1 ulp), the reference's form.  The
+    masters ride in the optimizer state, which the exchange averages with
+    the params (paper footnote 3)."""
+
+    def init(params):
+        # a copy even for fp32 params (``.float()`` would alias them): the
+        # step writes masters and params in place, one after the other
+        return {"master": tree_map(
+                    lambda p: p.detach().to(torch.float32, copy=True),
+                    params),
+                "inner": inner.init(params)}
+
+    def update(grads, state, params, lr):
+        master = state["master"]
+        updates, inner_state = inner.update(grads, state["inner"], master,
+                                            lr)
+        new_master = tree_map(lambda m, u: m + u, master, updates)
+        out = tree_map(lambda nm, p: nm - p.float(), new_master, params)
+        return out, {"master": new_master, "inner": inner_state}
+
+    return Optimizer(init, update, inner.name + "+master")
+
+
+def for_numerics(optimizer: Optimizer, numerics) -> Optimizer:
+    """Wrap per the NumericsPolicy (the optimizer as it is when masters
+    are off)."""
+    if numerics is None or not getattr(numerics, "master_weights", False):
+        return optimizer
+    return with_master_weights(optimizer)
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:

@@ -58,7 +58,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import models
+from repro_torch import models, numerics
 from repro_torch.serving import blocks as blk
 from repro_torch.serving import sampling, spec_decode
 from repro_torch.tree import tree_map
@@ -388,7 +388,10 @@ class ServingEngine:
                          cfg.in_channels), np.float32)
         for i, req in enumerate(reqs):
             imgs[i] = req.image
-        logits = self.params(torch.from_numpy(imgs).to(self.device))
+        # float inputs follow the params' dtype (bf16 under the bf16
+        # preset, so the conv and LRN run their bf16 kernels)
+        logits = self.params(torch.from_numpy(imgs).to(
+            self.device, numerics.param_dtype(cfg)))
         toks = sampling.sample(logits, self.temperature, self.top_k,
                                self.generator)
         host = toks.cpu().numpy()      # the device sync point of the wave

@@ -16,8 +16,9 @@ session's single source of truth: tests diff resumed-vs-uninterrupted
 
 On resume, entries past the restored step are dropped (they came from the
 killed run's un-checkpointed tail) and the file continues in place, so one
-session — however many restarts — yields one coherent trace.  The port
-trains in fp32 only, so it writes no ``loss_scale`` / ``skipped_steps``.
+session — however many restarts — yields one coherent trace.  Under
+loss scaling (the bf16 numerics preset) each ``train`` line and the
+summary carry ``loss_scale`` and the cumulative ``skipped_steps``.
 """
 from __future__ import annotations
 
@@ -72,6 +73,8 @@ class MetricsWriter:
         self._images = images_per_step
         self._times_ms: list = []
         self._stage_ms: list = []
+        self._last_scale: Optional[float] = None
+        self._last_skipped: Optional[int] = None
         if path is None:
             return
         if resume_step is not None and os.path.exists(path):
@@ -94,13 +97,17 @@ class MetricsWriter:
             self._f.flush()
 
     def train(self, step: int, loss: float, lr: float, step_time_s: float,
-              *, timed: bool = True, stage_wait_ms: Optional[float] = None):
+              *, timed: bool = True, stage_wait_ms: Optional[float] = None,
+              loss_scale: Optional[float] = None,
+              skipped_steps: Optional[int] = None):
         """``timed=False`` marks a warm-up step (the first of a run, which
         builds the kernels and warms the allocator): logged, but excluded
         from the throughput percentiles (it would dominate p99).
         ``stage_wait_ms`` is how long the trainer was blocked waiting for
         this step's batch to be staged (loader stall — observable loading
-        overlap, not inferred)."""
+        overlap, not inferred).  ``loss_scale``/``skipped_steps`` trace the
+        loss-scaling state (written only when scaling is on): the current
+        scale and the cumulative non-finite-skip count."""
         ms = step_time_s * 1e3
         if timed:
             self._times_ms.append(ms)
@@ -110,6 +117,12 @@ class MetricsWriter:
             rec["stage_wait_ms"] = round(stage_wait_ms, 3)
             if timed:
                 self._stage_ms.append(stage_wait_ms)
+        if loss_scale is not None:
+            rec["loss_scale"] = loss_scale
+            self._last_scale = loss_scale
+        if skipped_steps is not None:
+            rec["skipped_steps"] = skipped_steps
+            self._last_skipped = skipped_steps
         if not timed:
             rec["compile"] = True
         if self._images and timed and step_time_s > 0:
@@ -137,6 +150,10 @@ class MetricsWriter:
                 percentile(sorted(self._stage_ms), 90), 3)
         if self._images and total_s > 0:
             out["images_per_sec"] = round(len(ts) * self._images / total_s, 1)
+        if self._last_scale is not None:
+            out["loss_scale"] = self._last_scale
+        if self._last_skipped is not None:
+            out["skipped_steps"] = self._last_skipped
         self._write(out)
         return out
 

@@ -12,7 +12,8 @@ A session owns the train loop:
 and makes it deterministic under kill/resume:
 
 * **State**: the ``TrainState`` is checkpointed with its step counter and
-  restored onto the session's device.
+  its loss-scale state (``numerics``, under loss scaling), and restored
+  onto the session's device.
 * **Data**: the streams are seeded iterators; the manifest records how
   many batches the train stream yielded, and resume rebuilds the stream
   and fast-forwards past exactly that many draws (which also replays the
@@ -202,10 +203,18 @@ class TrainSession:
                     loss_f = float(loss)          # waits for the device
                     result.losses.append((i + 1, loss_f))
                 if per_step_sync:
+                    # the loss-scale state (bf16 preset) rides the
+                    # TrainState as device scalars: trace it so a run's
+                    # scale trajectory and skip count read from the JSONL
+                    ns = getattr(self.state, "numerics", None)
                     writer.train(i + 1, loss_f, float(sched_fn(i)),
                                  time.perf_counter() - t0,
                                  timed=not warming,
-                                 stage_wait_ms=stage_wait_ms)
+                                 stage_wait_ms=stage_wait_ms,
+                                 loss_scale=float(ns["scale"])
+                                 if ns is not None else None,
+                                 skipped_steps=int(ns["skipped"])
+                                 if ns is not None else None)
                 warming = False
                 if at_log:
                     print(f"step {i + 1:5d} loss {loss_f:.4f} "

@@ -16,9 +16,12 @@ empty ``{}`` of a non-parametric norm included; leaves keep their dtype
 only once ``ml_dtypes`` is imported, as JAX does).
 
 ``state_from_reference`` / ``state_to_reference`` do the same for a
-parameter-averaging ``TrainState`` of either: params and the optimizer
+parameter-averaging ``TrainState`` of either: params (in the config's
+``param_dtype``, bf16 under the bf16 numerics preset) and the optimizer
 state (``{"velocity"}`` for SGD, ``{"mu", "nu", "count"}`` for AdamW,
-fp32) with a leading replica axis R, and the step.
+fp32, under ``{"master": fp32 masters, "inner": ...}`` with master
+weights) with a leading replica axis R, the step, and the loss-scale
+state (``numerics``: scale, good_steps, skipped) when there is one.
 
 ``decode_state_from_reference`` / ``decode_state_to_reference`` carry a
 serving ``DecodeState`` (the stacked ring KV cache, or the block pool,
@@ -34,7 +37,7 @@ from repro_torch import models
 from repro_torch.core.steps import TrainState
 from repro_torch.kernels.common import device_of
 from repro_torch.models import alexnet, transformer
-from repro_torch.numerics import param_dtype
+from repro_torch.numerics import dtype_name, param_dtype
 from repro_torch.tree import flatten_with_paths, tree_map
 
 
@@ -85,7 +88,7 @@ def _convert(src, shapes, dtype, device, path="params"):
         return tuple(_convert(a, b, dtype, device, f"{path}/{i}")
                      for i, (a, b) in enumerate(zip(src, shapes)))
     arr = np.asarray(src)
-    want = str(dtype).replace("torch.", "")
+    want = dtype_name(dtype)
     if tuple(arr.shape) != tuple(shapes) or arr.dtype.name != want:
         raise ValueError(f"{path}: got {arr.dtype.name}{arr.shape}, "
                          f"expected {want}{tuple(shapes)}")
@@ -116,8 +119,10 @@ def lm_to_reference(params) -> dict:
 
 @torch.no_grad()
 def from_reference(params, cfg, *, device=None) -> alexnet.AlexNet:
-    """An ``AlexNet`` for ``cfg`` on ``device`` holding ``params``."""
+    """An ``AlexNet`` for ``cfg`` on ``device`` holding ``params`` (in
+    the config's param dtype, bit for bit)."""
     model = alexnet.AlexNet(cfg, device=device)
+    want = dtype_name(param_dtype(cfg))
     for group, ws, bs in (("convs", model.conv_w, model.conv_b),
                           ("fcs", model.fc_w, model.fc_b)):
         layers = params[group]
@@ -127,11 +132,11 @@ def from_reference(params, cfg, *, device=None) -> alexnet.AlexNet:
         for i, (layer, w, b) in enumerate(zip(layers, ws, bs)):
             for key, dst in (("w", w), ("b", b)):
                 src = np.asarray(layer[key])
-                if src.shape != tuple(dst.shape) or src.dtype != np.float32:
+                if src.shape != tuple(dst.shape) or src.dtype.name != want:
                     raise ValueError(
                         f"{group}[{i}].{key}: got {src.dtype}{src.shape}, "
-                        f"expected float32{tuple(dst.shape)}")
-                dst.copy_(torch.tensor(src))
+                        f"expected {want}{tuple(dst.shape)}")
+                dst.copy_(to_torch(src))
     return model
 
 
@@ -152,32 +157,72 @@ def _stacked_shapes(cfg, n_rep: int) -> dict:
             for group in ("convs", "fcs")}
 
 
+def _opt_from_reference(src, params_tree, n_rep, dev, path="opt_state"):
+    """The reference's optimizer state: ``count`` (AdamW's step count, one
+    per replica) int32, ``inner`` (the wrapped optimizer's state under
+    master weights) recursively, every other entry (velocity, mu, nu,
+    master) an fp32 tree shaped like the params, via ``params_tree(src,
+    dtype, path)``."""
+    out = {}
+    for key, sub in src.items():
+        at = f"{path}/{key}"
+        if key == "count":
+            out[key] = _convert(sub, (n_rep,), torch.int32, dev, at)
+        elif key == "inner":
+            out[key] = _opt_from_reference(sub, params_tree, n_rep, dev, at)
+        else:
+            out[key] = params_tree(sub, torch.float32, at)
+    return out
+
+
+def _numerics_from_reference(ns, dev):
+    """The loss-scale state (None, or fp32 scale and int32 counters)."""
+    if ns is None:
+        return None
+    kinds = {"scale": torch.float32, "good_steps": torch.int32,
+             "skipped": torch.int32}
+    out = {}
+    for k, dt in kinds.items():
+        arr = np.asarray(ns[k])
+        if arr.shape != () or arr.dtype.name != dtype_name(dt):
+            raise ValueError(f"numerics/{k}: got {arr.dtype.name}"
+                             f"{arr.shape}, expected {dtype_name(dt)}()")
+        out[k] = to_torch(arr, dev)
+    return out
+
+
 @torch.no_grad()
 def state_from_reference(state, cfg, *, device=None) -> TrainState:
     """The port's ``TrainState`` on ``device`` for the reference's (any
-    object with ``params``, ``opt_state`` and ``step``): the optimizer
-    state of R replicas, copied bit for bit."""
+    object with ``params``, ``opt_state`` and ``step``, and optionally
+    ``numerics``): R replicas' params, optimizer state (masters
+    included) and loss-scale state, copied bit for bit."""
     if cfg.family != "conv":
         return _lm_state_from_reference(state, cfg, device)
     dev = device_of(device)
     n_rep = np.asarray(state.params["convs"][0]["w"]).shape[0]
     shapes = _stacked_shapes(cfg, n_rep)
 
-    def leaf(src, shape):
+    def leaf(src, shape, dtype, path):
         arr = np.asarray(src)
-        if arr.shape != shape or arr.dtype != np.float32:
-            raise ValueError(f"got {arr.dtype}{arr.shape}, expected "
-                             f"float32{shape}")
-        return torch.tensor(arr, device=dev)
+        want = dtype_name(dtype)
+        if arr.shape != shape or arr.dtype.name != want:
+            raise ValueError(f"{path}: got {arr.dtype}{arr.shape}, expected "
+                             f"{want}{shape}")
+        return to_torch(arr, dev)
 
-    def tree(src):
-        return {g: [{k: leaf(layer[k], sh[k]) for k in ("w", "b")}
-                    for layer, sh in zip(src[g], shapes[g], strict=True)]
+    def tree(src, dtype, path="params"):
+        return {g: [{k: leaf(layer[k], sh[k], dtype, f"{path}/{g}/{i}/{k}")
+                     for k in ("w", "b")}
+                    for i, (layer, sh) in enumerate(
+                        zip(src[g], shapes[g], strict=True))]
                 for g in ("convs", "fcs")}
 
-    return TrainState(tree(state.params),
-                      {"velocity": tree(state.opt_state["velocity"])},
-                      int(np.asarray(state.step)))
+    return TrainState(tree(state.params, param_dtype(cfg)),
+                      _opt_from_reference(state.opt_state, tree, n_rep, dev),
+                      int(np.asarray(state.step)),
+                      _numerics_from_reference(
+                          getattr(state, "numerics", None), dev))
 
 
 def _lm_state_from_reference(state, cfg, device) -> TrainState:
@@ -187,13 +232,13 @@ def _lm_state_from_reference(state, cfg, device) -> TrainState:
     n_rep = np.asarray(leaves[0]).shape[0]
     shapes = _prefixed(transformer.param_shapes(cfg), n_rep)
     params = _convert(state.params, shapes, param_dtype(cfg), dev)
-    opt = {}
-    for key, sub in state.opt_state.items():
-        if key == "count":        # AdamW's step count, one per replica
-            opt[key] = _convert(sub, (n_rep,), torch.int32, dev, key)
-        else:                     # velocity / mu / nu: fp32, like params
-            opt[key] = _convert(sub, shapes, torch.float32, dev, key)
-    return TrainState(params, opt, int(np.asarray(state.step)))
+    opt = _opt_from_reference(
+        state.opt_state,
+        lambda src, dt, path: _convert(src, shapes, dt, dev, path), n_rep,
+        dev)
+    return TrainState(params, opt, int(np.asarray(state.step)),
+                      _numerics_from_reference(
+                          getattr(state, "numerics", None), dev))
 
 
 def state_to_reference(state: TrainState) -> dict:
@@ -201,7 +246,8 @@ def state_to_reference(state: TrainState) -> dict:
     ``repro.core.TrainState(**state_to_reference(s))`` rebuilds it."""
     return {"params": tree_map(to_numpy, state.params),
             "opt_state": tree_map(to_numpy, state.opt_state),
-            "step": np.asarray(state.step, np.int32)}
+            "step": np.asarray(state.step, np.int32),
+            "numerics": tree_map(to_numpy, state.numerics)}
 
 
 @torch.no_grad()
@@ -222,7 +268,7 @@ def decode_state_from_reference(state, cfg, *, device=None):
 
     def one(src, want, axis):
         arr = np.asarray(src)
-        dt = str(want.dtype).replace("torch.", "")
+        dt = dtype_name(want.dtype)
         if tuple(arr.shape) != tuple(want.shape) or arr.dtype.name != dt:
             raise ValueError(f"decode cache leaf: got {arr.dtype.name}"
                              f"{arr.shape}, expected {dt}"

@@ -11,10 +11,12 @@ through ``worker_argv``, and one disaggregated tier runs on the CPU.
 """
 import argparse
 import ast
+import dataclasses
 import re
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.launch import serve as serve_cli
@@ -111,7 +113,8 @@ def test_train_cli_runs_these_values(extra):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--numerics", "bf16"], "queue A item 6"),
+    # the numerics policy (queue A item 6) is ported: the bf16 preset runs
+    (["--numerics", "bf16"], None),
     (["--images"], "queue A item 8"),
     # speculative decoding (queue A item 10) is ported: these run
     (["--draft-arch", "olmo-1b"], None),
@@ -126,11 +129,36 @@ def test_serve_cli_names_the_item_of_what_it_does_not_run(extra, item,
                                "--prompt-len", "8", "--capacity", "32"])
         out = capsys.readouterr().out.splitlines()
         assert out[-1] == "serve OK"
-        assert any(line.startswith("spec: ") and "draft tokens accepted"
-                   in line for line in out)
+        spec = any(a.startswith("--draft") for a in extra)
+        assert spec == any(line.startswith("spec: ") and "draft tokens "
+                           "accepted" in line for line in out)
+        if "--numerics" in extra:
+            assert "dtype=bfloat16" in out[0]
+            assert "numerics=param=bfloat16,master_fp32," in out[0]
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         serve_cli.main(argv)
+
+
+@pytest.mark.parametrize("numerics", ["fp32", "bf16"])
+def test_serve_cli_dtype_sets_only_the_param_dtype(numerics):
+    """``--dtype`` is the numerics policy's ``param_dtype`` and nothing
+    else: the config's own ``dtype`` and every other policy field stay
+    the preset's."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.numerics import get_policy, param_dtype
+
+    base = ["--arch", "olmo-1b", "--numerics", numerics]
+    args = serve_cli.build_parser().parse_args(base + ["--dtype", "float32"])
+    cfg = serve_cli.build_cfg(args, pytest.fail)
+    assert cfg.dtype == ARCHS["olmo-1b"].dtype == "bfloat16"
+    assert cfg.numerics == dataclasses.replace(get_policy(numerics),
+                                               param_dtype="float32")
+    assert param_dtype(cfg) == torch.float32
+    plain = serve_cli.build_cfg(serve_cli.build_parser().parse_args(base),
+                                pytest.fail)
+    assert plain.numerics == get_policy(numerics)
+    assert param_dtype(plain) == torch.bfloat16
 
 
 def test_serve_cli_defaults_pass_the_checks():

@@ -8,9 +8,10 @@ from repro_torch.configs import alexnet as port_cfgs
 
 NAMES = ["CONFIG", "SMOKE", "FAITHFUL", "FAITHFUL_SMOKE"]
 # fields of the reference the port leaves out until it has their slices
-NOT_PORTED = {"exchange", "numerics"}
-# the port's policy type is its own (backends auto|plain|cuda)
-OWN_TYPE = {"kernels"}
+NOT_PORTED = {"exchange"}
+# the port's policy types are its own (backends auto|plain|cuda; torch
+# dtypes), compared field by field below
+OWN_TYPE = {"kernels", "numerics"}
 
 
 def _fields(cfg):
@@ -28,6 +29,8 @@ def test_config_fields_match_reference(name):
                 [dataclasses.asdict(c) for c in ref.convs]
         else:
             assert getattr(port, f) == getattr(ref, f), f
+    assert dataclasses.asdict(port.numerics) == \
+        dataclasses.asdict(ref.numerics)
 
 
 @pytest.mark.parametrize("name", NAMES)

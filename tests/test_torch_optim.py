@@ -67,9 +67,11 @@ def test_weight_decay_form():
 
 
 def test_unported_optimizers_raise():
-    # adamw is ported now (the LM training slice); an unknown name raises
+    # adamw and the master-weights wrapper are ported now (the LM training
+    # and numerics slices); an unknown name raises
     assert optimizers.get_optimizer("adamw").name == "adamw"
-    assert not hasattr(optimizers, "with_master_weights")
+    assert optimizers.with_master_weights(
+        optimizers.get_optimizer("adamw")).name == "adamw+master"
     with pytest.raises(ValueError, match="unknown optimizer"):
         optimizers.get_optimizer("lamb")
 

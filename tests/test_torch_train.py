@@ -8,6 +8,7 @@ Weights come from ``repro.models.init`` through the bridge, batches from
 numpy.
 """
 import dataclasses
+import math
 import os
 import subprocess
 import sys
@@ -24,7 +25,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models import alexnet
 from repro_torch.optim import optimizers, schedules
 from repro_torch.train_loop import alexnet_metrics, read_jsonl
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 try:
     import jax
@@ -267,11 +268,25 @@ def test_plateau_schedule_drives_eval(tmp_path):
     (["--arch", "mixtral-8x7b"], "ROADMAP.md queue A item 8"),
     (["--model-parallel", "2"], "ROADMAP.md queue A item 12"),
     (["--engine", "mesh"], "ROADMAP.md queue A item 4"),
-    (["--numerics", "bf16"], "ROADMAP.md queue A item 6"),
+    # the numerics policy (queue A item 6) is ported: the bf16 preset runs
+    (["--numerics", "bf16"], None),
     (["--exchange-delay", "1"], "ROADMAP.md queue A"),
     (["--exchange-compression", "topk"], "ROADMAP.md queue A"),
+    # ... but not the im2col route's GEMM in bf16 (A6b)
+    (["--numerics", "bf16", "--conv-backend", "im2col_ref"],
+     r"ROADMAP.md queue A item 6 \(A6b"),
 ])
 def test_cli_refuses_what_is_not_ported(extra, match):
+    if match is None:
+        res = train_cli.main(CLI + ["--steps", "2"] + extra)
+        assert res.final_step == 2
+        assert all(math.isfinite(v) for _, v in res.losses)
+        assert {x.dtype for x in tree_leaves(res.state.params)} == \
+            {torch.bfloat16}
+        assert {x.dtype for x in tree_leaves(
+            res.state.opt_state["master"])} == {torch.float32}
+        assert float(res.state.numerics["scale"]) == 2.0 ** 15
+        return
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(CLI + ["--steps", "1"] + extra)
 
