@@ -22,12 +22,13 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    conv of the im2col training phase (32 per replica), two calls agreeing
    bit for bit where the reduction is split over blocks.  Then the bf16
    entries the bf16 numerics preset runs, ``conv2d_fused_bf16`` (tensor
-   cores) at the 5 ``ALEXNET_FAITHFUL`` convs and ``lrn_bf16`` at its 2
-   LRNs, batch 128, bf16 operands, against their plain versions within
-   8e-3 of max |y| (2 bf16 ulps), the conv also with its reduction split
-   3 ways, two calls bit-equal, timed beside the plain version, cuDNN's
-   bf16 conv on channels-last and ``F.local_response_norm`` in bf16
-   (yardsticks only) and the bound (989 TFLOP/s bf16 or 3.35 TB/s);
+   cores; every conv must take its wgmma body) at the 5
+   ``ALEXNET_FAITHFUL`` convs and ``lrn_bf16`` at its 2 LRNs, batch 128,
+   bf16 operands, against their plain versions within 8e-3 of max |y| (2
+   bf16 ulps), the conv also with its reduction split 3 ways, two calls
+   bit-equal, timed beside the plain version, the entry's mma_sync body,
+   cuDNN's bf16 conv on channels-last and ``F.local_response_norm`` in
+   bf16 (yardsticks only) and the bound (989 TFLOP/s bf16 or 3.35 TB/s);
 4. flash kernel phase: the flash-attention forward, dq and dk/dv kernels
    against their plain versions (fp32: 2e-4 forward, 2e-3 grads; bf16:
    3e-2) at the LM training shape (B=4, H=16, S=2048, hd=128, causal) and
@@ -387,7 +388,8 @@ def kernel_family(name: str) -> str:
     """The family a device kernel's time is booked under."""
     n = name.lower()
     for fam, keys in (("conv2d_fused", ("conv2d_fused",)),
-                      ("lrn", ("lrn_vec_kernel", "lrn_generic_kernel")),
+                      ("lrn", ("lrn_vec_kernel", "lrn_vec8_kernel",
+                               "lrn_generic_kernel")),
                       ("matmul_bias", ("matmul_bias",)),
                       ("max_pool", ("max_pool",)),
                       ("conv_grad", ("wgrad", "dgrad", "cudnn", "conv",
@@ -711,6 +713,20 @@ def bf16_check(what, got, want) -> tuple:
     return err, err / top
 
 
+def bf16_flips(a, b) -> dict:
+    """How many outputs of two bf16 tensors differ, their share, and the
+    most bf16 ulps between two of them (bit patterns mapped to one ordered
+    integer line, so +0 and -0 are 0 apart)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7fff), i)
+
+    ulps = (ordered(a) - ordered(b)).abs()
+    differ = int((ulps > 0).sum().item())
+    return {"differ": differ, "share": differ / ulps.numel(),
+            "max_ulps": int(ulps.max().item())}
+
+
 def bf16_kernel_phase(gen, cfg, batch):
     """``conv2d_fused_bf16`` at the 5 convs and ``lrn_bf16`` at the LRNs
     of ``cfg`` at ``batch``, bf16 operands, against their plain versions
@@ -718,8 +734,15 @@ def bf16_kernel_phase(gen, cfg, batch):
     calls bit-equal, the conv also with its reduction split 3 ways;
     timed beside the plain version, the library call in bf16 (cuDNN on
     channels-last, ``F.local_response_norm``; yardsticks only) and the
-    bound (the tensor cores' 989 TFLOP/s or 3.35 TB/s).  Returns the
-    totals of the two entries."""
+    bound (the tensor cores' 989 TFLOP/s or 3.35 TB/s).  Each conv must
+    take the wgmma body (it raises otherwise); its row names the body,
+    tile and split, the TFLOP/s and the share of the bound, and times the
+    entry's mma_sync body at the same shape beside it (a yardstick, held
+    to the same tolerance).  Each LRN row names its path and counts the
+    outputs where its SFU power and the full-accuracy one (the 4-channel
+    path, taken by the same values at an 8-byte offset) round apart, and
+    where each differs from the plain version, with the most bf16 ulps
+    between them.  Returns the totals of the two entries."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.conv2d import ops as conv_ops
@@ -736,6 +759,9 @@ def bf16_kernel_phase(gen, cfg, batch):
 
     def account(name, row):
         tot = totals[name]
+        if "mma_sync_ms" in row:
+            tot["mma_sync_ms"] = tot.get("mma_sync_ms", 0.0) + \
+                row["mma_sync_ms"]
         tot["max_abs_err"] = max(tot["max_abs_err"], row["max_err"])
         tot["max_rel_err"] = max(tot["max_rel_err"], row["rel_err"])
         for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
@@ -755,8 +781,11 @@ def bf16_kernel_phase(gen, cfg, batch):
                   groups=cs.groups)
         what = f"conv2d_fused_bf16 {cfg_name} b{batch} {layer}"
         with torch.inference_mode():
+            wgmma0 = conv_ops.conv2d_fused.launches_bf16_wgmma
             got = conv_ops.conv2d_fused(x, w, backend="cuda", **kw)
             torch.cuda.synchronize()
+            if conv_ops.conv2d_fused.launches_bf16_wgmma != wgmma0 + 1:
+                raise AssertionError(f"{what}: did not take the wgmma body")
             want = conv2d_ref(x, w, cs.stride, cs.padding, cs.groups,
                               bias=b, relu=True)
             if got.dtype != bf or want.dtype != bf:
@@ -768,12 +797,24 @@ def bf16_kernel_phase(gen, cfg, batch):
                 raise AssertionError(f"{what}: two calls differ")
             m = got.shape[0] * got.shape[1] * got.shape[2]
             npg = cs.out_channels // cs.groups
-            bn, split = conv_ops.conv_tiles(m, npg, cs.kernel ** 2 * cg,
-                                            cs.groups, sms)
+            body, bn, split = conv_ops.conv_plan_bf16(
+                xs, cs.out_channels, cs.kernel, cs.stride, cs.padding,
+                cs.groups, sms)
             split3 = conv_ops._conv_forward(x, w, b, cs.stride, cs.padding,
                                             True, cs.groups, "cuda",
                                             tiles=(bn, 3))
             split_err, _ = bf16_check(what + " split 3", split3, want)
+
+            def mma_sync():
+                return conv_ops._conv_forward(x, w, b, cs.stride, cs.padding,
+                                              True, cs.groups, "cuda",
+                                              body="mma_sync")
+
+            mma_err, _ = bf16_check(what + " mma_sync body", mma_sync(),
+                                    want)
+            _, mma_bn, mma_split = conv_ops.conv_plan_bf16(
+                xs, cs.out_channels, cs.kernel, cs.stride, cs.padding,
+                cs.groups, sms, body="mma_sync")
             x_cl = x.permute(0, 3, 1, 2)
             w_cl = w.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
@@ -789,20 +830,28 @@ def bf16_kernel_phase(gen, cfg, batch):
                                               cs.groups, bias=b, relu=True),
                            reps=5)
             l_ms = time_ms(library)
+            mma_ms = time_ms(mma_sync)
         flops = 2.0 * m * cs.out_channels * cs.kernel ** 2 * cg
         nbytes = 2.0 * (x.numel() + w.numel() + b.numel() + got.numel())
         bound, bound_by = _bound(flops, nbytes, BF16_PEAK)
         row = {"phase": "kernel", "kernel": "conv2d_fused_bf16",
                "config": cfg_name, "batch": batch, "layer": layer,
                "x": list(xs), "w": list(w.shape), "groups": cs.groups,
-               "tile": [conv_ops.CONV_BM, bn], "split": split,
+               "body": body, "tile": [conv_ops.CONV_BF16_BM, bn],
+               "split": split,
+               "blocks": (-(-m // conv_ops.CONV_BF16_BM) * -(-npg // bn)
+                          * cs.groups * split),
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "mma_sync_ms": mma_ms,
+               "mma_sync_tile": [conv_ops.CONV_BM, mma_bn],
+               "mma_sync_split": mma_split,
                "bound_ms": bound, "bound_by": bound_by,
+               "bound_share": bound / k_ms,
                "assumes": "989 TFLOP/s bf16 tensor cores, 3.35 TB/s",
                "flops": flops, "bytes": nbytes,
                "tflops": flops / (k_ms * 1e-3) / 1e12, "max_err": err,
                "rel_err": rel, "split3_err": split_err,
-               "library_err": lib_err}
+               "mma_sync_err": mma_err, "library_err": lib_err}
         emit(row)
         account("conv2d_fused_bf16", row)
     for cfg_name, _, layer, xs in lrn_cases([(cfg, batch)]):
@@ -817,6 +866,18 @@ def bf16_kernel_phase(gen, cfg, batch):
             err, rel = bf16_check(what, got, want)
             if not torch.equal(got, lrn_ops.lrn(x, backend="cuda", **kw)):
                 raise AssertionError(f"{what}: two calls differ")
+            path = lrn_ops.lrn_path(xs[-1], n, bf, k, alpha)
+            # the full-accuracy form: the same values 8 bytes off a
+            # 16-byte boundary take the 4-channel path (exp2f / log2f)
+            x8 = torch.empty(x.numel() + 4, device=dev, dtype=bf)[4:]
+            x8 = x8.view(xs).copy_(x)
+            if lrn_ops.lrn_path(xs[-1], n, bf, k, alpha, align=8) != "vec4":
+                raise AssertionError(f"{what}: the offset copy does not "
+                                     "take the 4-channel path")
+            full = lrn_ops.lrn(x8, backend="cuda", **kw)
+            flips = {"sfu_vs_full": bf16_flips(got, full),
+                     "sfu_vs_plain": bf16_flips(got, want),
+                     "full_vs_plain": bf16_flips(full, want)}
             x_nchw = x.permute(0, 3, 1, 2).contiguous()
 
             def library():
@@ -830,6 +891,7 @@ def bf16_kernel_phase(gen, cfg, batch):
         nbytes = 4.0 * x.numel()
         row = {"phase": "kernel", "kernel": "lrn_bf16", "config": cfg_name,
                "batch": batch, "layer": layer, "x": list(xs),
+               "path": path, "flips": flips,
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                "bound_ms": nbytes / HBM_RATE * 1e3, "bound_by": "bytes",
                "assumes": "3.35 TB/s", "flops": 0.0, "bytes": nbytes,
@@ -1383,14 +1445,15 @@ def train_bf16_phase(model_cfg, seed):
     (bf16 params, images and activations, fp32 masters, dynamic loss
     scaling), 2 x 128, 3 steps on the pool, step 2's batch poisoned with
     one NaN pixel in replica 1: the launch counts (the bf16 conv and LRN
-    entries only), losses against the plain policy under the same
-    preset, the poisoned step bit-unchanged on both replicas (params,
-    masters, velocity) with the scale halved and one skip counted, step
-    3 clean.  Then one timed and one traced window of 10 steps over the
-    preprocessed pool."""
+    entries only, every conv launch on the wgmma body), losses against
+    the plain policy under the same preset, the poisoned step
+    bit-unchanged on both replicas (params, masters, velocity) with the
+    scale halved and one skip counted, step 3 clean.  Then one timed and
+    one traced window of 10 steps over the preprocessed pool."""
     import dataclasses
 
     from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.kernels.conv2d.ops import conv2d_fused
     from repro_torch.numerics import get_policy
     from repro_torch.train_loop.metrics import read_jsonl
     from repro_torch.tree import tree_leaves
@@ -1432,9 +1495,11 @@ def train_bf16_phase(model_cfg, seed):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
+        conv2d_fused.launches_bf16_wgmma = 0
         res = sess.run()
         torch.cuda.synchronize()
         launches = read_counts()
+        wgmma = conv2d_fused.launches_bf16_wgmma
         peak = torch.cuda.max_memory_allocated()
         records = read_jsonl(path, "train")
     n_conv = len(cfg.convs)
@@ -1443,6 +1508,10 @@ def train_bf16_phase(model_cfg, seed):
                        lrn_bf16=n_lrn * REPLICAS * steps)
     if launches != want:
         raise AssertionError(f"bf16 training launches {launches} != {want}")
+    if wgmma != n_conv * REPLICAS * steps:
+        raise AssertionError(f"bf16 training: {wgmma} of the "
+                             f"{n_conv * REPLICAS * steps} conv launches "
+                             "took the wgmma body")
     losses = losses_of(res)
     if len(losses) != steps or not math.isfinite(losses[0]) or \
             not math.isfinite(losses[2]) or math.isfinite(losses[1]):
@@ -1469,7 +1538,7 @@ def train_bf16_phase(model_cfg, seed):
     emit({"phase": "train_bf16", "config": cfg.name,
           "numerics": npol.describe(), "replicas": REPLICAS,
           "per_replica_batch": TRAIN_BATCH, "steps": steps,
-          "launches": launches, "losses": losses,
+          "launches": launches, "wgmma_launches": wgmma, "losses": losses,
           "plain_losses": plain_losses, "loss_abs_err_steps_1_3": loss_errs,
           "loss_tol": BF16_LOSS_TOL, "poisoned": "step 2, replica 1, one "
           "pixel", "poisoned_step_bit_unchanged": checks["unchanged"],
@@ -3908,8 +3977,8 @@ def main() -> int:
             **({"library": tot["library"]} if "library" in tot else {}),
             **({"tensor_core_cases": tot["tensor_core_cases"]}
                if "tensor_core_cases" in tot else {}),
-            **{k: tot[k] for k in ("max_rel_err", "tolerance")
-               if k in tot}})
+            **{k: tot[k] for k in ("max_rel_err", "tolerance",
+                                   "mma_sync_ms") if k in tot}})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "seconds_at_end_of": seconds})
     print(card(), flush=True)

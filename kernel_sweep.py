@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the split, chunk and tile choices of the GEMM, fused conv, decode,
-WKV and RG-LRU kernels on one NVIDIA GPU.
+"""Time the split, chunk and tile choices of the GEMM, fused conv (fp32
+and bf16), decode, WKV and RG-LRU kernels on one NVIDIA GPU.
 
-    python3 kernel_sweep.py [--kernels decode wkv rglru conv gemm]
+    python3 kernel_sweep.py [--kernels decode wkv rglru conv conv_bf16 gemm]
 
 Run from the root of a checkout; it imports ``repro_torch`` from ``src/``
 and ``chip_smoke``'s helpers (never ``jax`` or ``repro``), builds the
@@ -18,6 +18,12 @@ kernel's ``chip_smoke`` tolerance of its plain version:
   ``conv_tiles`` picks and at every width of ``CONV_BNS`` with every split
   of ``CONV_SPLITS`` that leaves no split shorter than
   ``GEMM_MIN_CHUNKS`` chunks;
+* ``conv2d_fused_bf16``, the same convs in bf16: the time of the
+  entry's mma_sync body at its rule (``conv_tiles``), and of its wgmma
+  body at the (width, split) ``conv_tiles_bf16`` picks and at every width
+  of ``CONV_BF16_BNS`` that divides the group's channels with every split
+  of ``CONV_SPLITS`` that leaves no split shorter than
+  ``CONV_BF16_MIN_CHUNKS`` chunks (the source of ``CONV_BF16_CHUNK_US``);
 * ``decode_table`` at the serving tick's shape (``chip_smoke``'s
   ``serve_table`` and ``int8_table`` cases) and ``decode_ring`` at its
   ``serve``, ``gqa`` and ``window`` cases: the time at the chunk
@@ -139,6 +145,74 @@ def conv_sweep(cs, gen, dev, sms):
                  "best_sum_ms": best_ms})
 
 
+def conv_bf16_sweep(cs, gen, dev, sms):
+    from repro_torch.configs import ALEXNET, ALEXNET_FAITHFUL
+    from repro_torch.kernels.conv2d import ops
+    from repro_torch.kernels.conv2d.ref import conv2d_ref
+
+    bf = torch.bfloat16
+    sums = {}
+    for cfg_name, batch, layer, xs, c in cs.conv_cases(
+            [(ALEXNET_FAITHFUL, cs.SERVE_BATCH), (ALEXNET, cs.SERVE_BATCH),
+             (ALEXNET_FAITHFUL, cs.TRAIN_BATCH)]):
+        cin = xs[-1]
+        cg = cin // c.groups
+        x = torch.randn(xs, generator=gen, device=dev).to(bf)
+        w = (torch.randn((c.kernel, c.kernel, cg, c.out_channels),
+                         generator=gen, device=dev)
+             * (2.0 / (c.kernel ** 2 * cg)) ** 0.5).to(bf)
+        b = (torch.randn((c.out_channels,), generator=gen, device=dev)
+             * 0.1).to(bf)
+        want = conv2d_ref(x, w, c.stride, c.padding, c.groups, bias=b,
+                          relu=True)
+        m = want.shape[0] * want.shape[1] * want.shape[2]
+        npg = c.out_channels // c.groups
+        route = ops.conv_route_bf16(cin, c.out_channels, c.kernel,
+                                    c.padding, c.groups)
+        chunks = ops.conv_chunks_bf16(route, c.kernel, cg)
+        _, *rule = ops.conv_plan_bf16(xs, c.out_channels, c.kernel,
+                                      c.stride, c.padding, c.groups, sms)
+        rule = tuple(rule)
+        most = max(1, chunks // ops.CONV_BF16_MIN_CHUNKS)
+        widths = [bn for bn in ops.CONV_BF16_BNS if npg % bn == 0]
+        choices = {rule} | {(bn, len(ops.conv_ranges_bf16(chunks, z)))
+                            for bn in widths for z in CONV_SPLITS
+                            if z <= most}
+        what = f"conv2d_fused_bf16 {cfg_name} b{batch} {layer}"
+        times = {}
+        with torch.inference_mode():
+            def mma_sync():
+                return ops._conv_forward(x, w, b, c.stride, c.padding, True,
+                                         c.groups, "cuda", body="mma_sync")
+
+            cs.bf16_check(what + " mma_sync", mma_sync(), want)
+            mma_ms = cs.time_ms(mma_sync, reps=5)
+            for tiles in sorted(choices):
+                def call(tiles=tiles):
+                    return ops._conv_forward(x, w, b, c.stride, c.padding,
+                                             True, c.groups, "cuda",
+                                             tiles=tiles, body="wgmma")
+
+                cs.bf16_check(f"{what} {tiles}", call(), want)
+                times[tiles] = cs.time_ms(call, reps=5)
+        best = min(times, key=times.get)
+        tot = sums.setdefault(batch, [0.0, 0.0, 0.0])
+        tot[0] += times[rule]
+        tot[1] += times[best]
+        tot[2] += mma_ms
+        cs.emit({"kernel": "conv2d_fused_bf16", "config": cfg_name,
+                 "batch": batch, "layer": layer, "m": m, "npg": npg,
+                 "chunks": chunks, "route": route, "groups": c.groups,
+                 "rule": list(rule), "rule_ms": times[rule],
+                 "best": list(best), "best_ms": times[best],
+                 "mma_sync_ms": mma_ms,
+                 "ms_by_tiles": {f"{bn}x{z}": t
+                                 for (bn, z), t in times.items()}})
+    for batch, (rule_ms, best_ms, mma_ms) in sorted(sums.items()):
+        cs.emit({"conv2d_fused_bf16_batch": batch, "rule_sum_ms": rule_ms,
+                 "best_sum_ms": best_ms, "mma_sync_sum_ms": mma_ms})
+
+
 def decode_sweep(cs, gen, sms):
     from repro_torch.kernels.decode_attention import ops
 
@@ -253,7 +327,7 @@ def rglru_sweep(cs, gen, sms):
              "rglru_fwd_best_sum_ms": best_sum})
 
 
-SWEEPS = ("decode", "wkv", "rglru", "conv", "gemm")
+SWEEPS = ("decode", "wkv", "rglru", "conv", "conv_bf16", "gemm")
 
 
 def main() -> int:
@@ -282,6 +356,7 @@ def main() -> int:
               "wkv": lambda: wkv_sweep(cs, gen, sms),
               "rglru": lambda: rglru_sweep(cs, gen, sms),
               "conv": lambda: conv_sweep(cs, gen, dev, sms),
+              "conv_bf16": lambda: conv_bf16_sweep(cs, gen, dev, sms),
               "gemm": lambda: gemm_sweep(cs, gen, dev, sms)}
     for name in args.kernels:
         sweeps[name]()

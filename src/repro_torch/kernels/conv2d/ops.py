@@ -7,12 +7,16 @@ NHWC, w (K,K,Cin/G,Cout) HWIO, output channels group-major, in fp32 or
 bf16 (x, w and the bias of one dtype; y in it).  fp32 operands launch
 ``conv2d_fused_f32``, bf16 ones ``conv2d_fused_bf16`` (tensor cores, fp32
 accumulation, bias and ReLU in fp32, one rounding to bf16, as the
-reference kernel computes on upcast operands).  Its backward follows
-``_conv_fused_bwd`` (``repro/kernels/conv2d/conv2d.py``): the ReLU mask,
-the bias sum, and dx / dw as the conv's transposes in fp32 over upcast
-operands, cast back to the operands' dtype, which the reference leaves to
-XLA's conv-grad and this port to the library's
-(``aten.convolution_backward``, TF32 off).
+reference kernel computes on upcast operands).  The bf16 entry has two
+bodies, picked by shape before the launch (``conv_route_bf16``): the
+``wgmma`` body (warp-specialised, a TMA-fed weight ring, whole-group
+tiles; ``conv_tiles_bf16``) wherever it takes the shape, every AlexNet
+conv among them, and the ``mma_sync`` body (``conv_tiles``) elsewhere.
+Its backward follows ``_conv_fused_bwd``
+(``repro/kernels/conv2d/conv2d.py``): the ReLU mask, the bias sum, and dx
+/ dw as the conv's transposes in fp32 over upcast operands, cast back to
+the operands' dtype, which the reference leaves to XLA's conv-grad and
+this port to the library's (``aten.convolution_backward``, TF32 off).
 
 ``matmul_bias(x, w, b, ...)`` is (M,K) @ (K,N) + b with the bias/ReLU
 epilogue; its backward is two more launches of the same kernel,
@@ -29,8 +33,9 @@ item 6, sub-item A6b) rather than fall back.
 Under ``backend="auto"`` a CUDA tensor runs the kernels and a CPU tensor
 the plain versions (``ref``).  ``conv2d_fused.launches`` counts forward
 launches of the fp32 entry and ``conv2d_fused.launches_bf16`` of the bf16
-one (the backward is the library's); ``matmul_bias.launches`` counts
-every launch, backward included.
+one (the backward is the library's), of which
+``conv2d_fused.launches_bf16_wgmma`` took the wgmma body;
+``matmul_bias.launches`` counts every launch, backward included.
 """
 from __future__ import annotations
 
@@ -45,11 +50,19 @@ from repro_torch.kernels.conv2d import ref as conv_ref
 
 _CONV_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14
                   + [ctypes.c_void_p])
+# the bf16 entry takes the body as one more int
+_CONV_BF16_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 15
+                       + [ctypes.c_void_p])
 _MATMUL_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
-# the fused conv's entry per operand dtype, and the launch count it adds to
-_CONV_ENTRIES = {torch.float32: ("conv2d_fused_f32", "launches"),
-                 torch.bfloat16: ("conv2d_fused_bf16", "launches_bf16")}
+# the fused conv's entry per operand dtype, the launch count it adds to and
+# its argument types
+_CONV_ENTRIES = {torch.float32: ("conv2d_fused_f32", "launches",
+                                 _CONV_ARGTYPES),
+                 torch.bfloat16: ("conv2d_fused_bf16", "launches_bf16",
+                                  _CONV_BF16_ARGTYPES)}
+# the bf16 entry's bodies, by the code it takes
+CONV_BF16_BODIES = {"wgmma": 1, "mma_sync": 2}
 _A6B = ("bf16 operands on the matmul_bias kernel (the im2col conv route) "
         "are not ported yet: see ROADMAP.md queue A item 6 (A6b, "
         "matmul_bias in bf16)")
@@ -74,9 +87,10 @@ HBM_RATE = 3.35e12
 # The fused conv kernel's output tile (CONV_BM rows, one of CONV_BNS
 # columns) and reduction chunk (csrc/conv2d_fused.cu's BM, BK and the bn
 # cases of conv2d_fused_f32; tests/test_torch_conv2d.py reads them from the
-# source; the bf16 kernel, csrc/conv2d_fused_bf16.cu, shares BM, BK and the
-# widths, so the same rules pick for it).  conv_tiles' cost model (timed
-# on the fp32 kernel): the 64-wide kernel fits two blocks to
+# source; the bf16 kernel's mma_sync body, csrc/conv2d_fused_bf16.cu,
+# shares BM, BK and the widths, so the same rules pick for it).
+# conv_tiles' cost model (timed on the fp32 kernel): the 64-wide kernel
+# fits two blocks to
 # an SM (116-128 registers a thread), the 96-wide one one (181-199); a
 # block's chunk takes CONV_CHUNK_US[bn] of its SM's time, or CONV_ALONE_US
 # where a 64-wide block has its SM to itself.  kernel_sweep.py's times on
@@ -89,6 +103,27 @@ CONV_RESIDENT = {64: 2, 96: 1}
 CONV_CHUNK_US = {64: 0.81, 96: 1.37}
 CONV_ALONE_US = 1.13
 CONV_BNS = tuple(sorted(CONV_CHUNK_US))
+# The bf16 kernel's wgmma body (csrc/conv2d_fused_bf16.cu's WG_BM, WG_BK and
+# the widths conv2d_fused_bf16 launches; tests/test_torch_conv2d.py reads
+# them from the source): 128-row tiles of one of CONV_BF16_BNS columns, a
+# reduction chunk of CONV_BF16_BK columns (one kh on the rows route), a
+# persistent block of 384 threads per SM.  conv_tiles_bf16's cost model: a
+# work unit's chunk takes CONV_BF16_CHUNK_US[bn] of its SM's time and its
+# epilogue CONV_BF16_FILL_CHUNKS chunks more; a split adds the partials'
+# HBM traffic and CONV_BF16_SUM_US for the kernel that adds them; a
+# split's run is at least CONV_BF16_MIN_CHUNKS chunks.  The constants are a
+# least-squares fit (relative error) to kernel_sweep.py --kernels
+# conv_bf16 on an H100 80GB HBM3 at 700 W: with 6 us a launch they
+# reproduce the 180 timed (width, split) points of the 11 pieces-route
+# shapes to 5 % rms, and on the final kernel's sweep the rule picks the
+# fastest choice at all 15 shapes.
+CONV_BF16_BM, CONV_BF16_BK = 128, 64
+CONV_BF16_ROW_RUN = 37   # the rows route's longest run (ROW_RUN)
+CONV_BF16_CHUNK_US = {64: 0.48, 96: 0.59, 128: 0.62, 192: 0.78}
+CONV_BF16_FILL_CHUNKS = 1.5
+CONV_BF16_SUM_US = 2.0
+CONV_BF16_MIN_CHUNKS = 2
+CONV_BF16_BNS = tuple(sorted(CONV_BF16_CHUNK_US))
 
 # ------------------------------------------------------- fused conv ------
 
@@ -132,13 +167,117 @@ def conv_tiles(m: int, npg: int, kdim: int, groups: int, sms: int) -> tuple:
     return best
 
 
+def conv_route_bf16(cin: int, cout: int, k: int, padding: int,
+                    groups: int, aligned: bool = True):
+    """How the bf16 kernel's wgmma body gathers its A operand for this
+    shape, or None where it takes none and the ``mma_sync`` body runs
+    (the rule that picks the body; the entry point's ``wgmma_route``
+    refuses the wgmma body where it fails): ``"pieces"`` (16-byte copies of 8
+    channels of one tap) where Cg % 8 == 0, ``"rows"`` (each pixel's run
+    of K * Cin values for one kh, copied raw and shifted into place) for
+    an ungrouped, unpadded conv whose run is at most ``CONV_BF16_ROW_RUN``
+    values (conv1: Cin 3, K 11).  Both need whole 16-byte output pieces
+    (npg % 8 == 0) and 16-byte aligned operands."""
+    cg, npg = cin // groups, cout // groups
+    if npg % 8 or not aligned:
+        return None
+    if cg % 8 == 0:
+        return "pieces"
+    if groups == 1 and padding == 0 and k * cin <= CONV_BF16_ROW_RUN:
+        return "rows"
+    return None
+
+
+def conv_chunks_bf16(route: str, k: int, cg: int) -> int:
+    """Reduction chunks of the wgmma body: one per kh on the rows route,
+    else ``ceil(K*K*Cg / CONV_BF16_BK)``."""
+    return k if route == "rows" else -(-k * k * cg // CONV_BF16_BK)
+
+
+def conv_ranges_bf16(chunks: int, n_split: int) -> list:
+    """The runs ``[lo, hi)`` of the wgmma body's ``chunks`` that its
+    splits take when ``n_split`` are asked (the kernel's ``c_lo`` and
+    ``n_c``); empty runs are left out."""
+    per = -(-chunks // n_split)
+    return [(lo, min(chunks, lo + per)) for lo in range(0, chunks, per)]
+
+
+@functools.lru_cache(maxsize=1024)
+def conv_tiles_bf16(m: int, npg: int, chunks: int, groups: int,
+                    sms: int) -> tuple:
+    """(bn, n_split) for the bf16 kernel's wgmma body: the output tile's
+    width (one of ``CONV_BF16_BNS`` that divides ``npg`` where one does,
+    so a tile spans the group's channels or an equal share of them) and
+    the blocks over which each tile's reduction chunks are dealt out
+    (``conv_ranges_bf16``), for M = ``m`` output pixels, ``npg`` output
+    channels per group, ``chunks`` reduction chunks and a card with
+    ``sms`` SMs.  It minimises the run's time in the model above: the
+    busiest SM's units (``ceil(units / sms)`` of them), each taking its
+    chunks plus ``CONV_BF16_FILL_CHUNKS``, plus, for a split, the sum
+    kernel and every split's fp32 partial through HBM.  Ties go to the
+    wider tile and to fewer splits."""
+    partial_us = 8.0 * m * npg * groups / HBM_RATE * 1e6
+    best, best_cost = None, None
+    for bn in sorted([w for w in CONV_BF16_BNS if npg % w == 0]
+                     or CONV_BF16_BNS, reverse=True):
+        tiles = -(-m // CONV_BF16_BM) * -(-npg // bn) * groups
+        for want in range(1, max(1, min(chunks // CONV_BF16_MIN_CHUNKS,
+                                        -(-2 * sms // tiles))) + 1):
+            runs = conv_ranges_bf16(chunks, want)
+            split, per = len(runs), runs[0][1]
+            waves = -(-tiles * split // sms)
+            cost = (waves * (per + CONV_BF16_FILL_CHUNKS)
+                    * CONV_BF16_CHUNK_US[bn]
+                    + (split > 1) * (CONV_BF16_SUM_US + split * partial_us))
+            if best_cost is None or cost < best_cost - 1e-9:
+                best, best_cost = (bn, split), cost
+    return best
+
+
+def conv_plan_bf16(x_shape, cout: int, k: int, stride: int, padding: int,
+                   groups: int, sms: int, aligned: bool = True, tiles=None,
+                   body=None) -> tuple:
+    """(body, bn, n_split) of a bf16 launch on x of ``x_shape`` (B, H, W,
+    Cin), with 16-byte aligned operands where ``aligned``: the body
+    ``conv_route_bf16`` picks, or ``body`` when given (``"wgmma"`` raises
+    where the route takes no shape); then the tile width and split of
+    that body's rule, or of ``tiles`` = (bn, n_split) over that body's
+    runs.  ``_conv_forward`` names the body to the entry point, which
+    runs it or refuses it and never picks another."""
+    b_, h, wd, cin = x_shape
+    m = (b_ * ((h + 2 * padding - k) // stride + 1)
+         * ((wd + 2 * padding - k) // stride + 1))
+    route = conv_route_bf16(cin, cout, k, padding, groups, aligned)
+    if body is None:
+        body = "mma_sync" if route is None else "wgmma"
+    elif body not in CONV_BF16_BODIES:
+        raise ValueError(f"body must be one of {tuple(CONV_BF16_BODIES)}, "
+                         f"got {body!r}")
+    elif body == "wgmma" and route is None:
+        raise ValueError("the wgmma body does not take this shape "
+                         "(see conv_route_bf16)")
+    cg, npg = cin // groups, cout // groups
+    if body == "wgmma":
+        chunks = conv_chunks_bf16(route, k, cg)
+        if tiles is None:
+            return (body,) + conv_tiles_bf16(m, npg, chunks, groups, sms)
+        return body, tiles[0], len(conv_ranges_bf16(chunks, tiles[1]))
+    kdim = k * k * cg
+    if tiles is None:
+        return (body,) + conv_tiles(m, npg, kdim, groups, sms)
+    return body, tiles[0], len(conv_ranges(kdim, tiles[1]))
+
+
 def _conv_forward(x, w, bias, stride, padding, relu, groups, backend,
-                  tiles=None):
+                  tiles=None, body=None):
     """One forward: the kernel launch of x's dtype, or the plain version.
-    The kernel takes the tile width and split ``conv_tiles`` picks, or
-    ``tiles`` = (bn, n_split) when given, the split over the runs of
-    ``conv_ranges(K*K*Cg, n_split)`` (kernel_sweep.py times the
-    choices)."""
+    bf16 operands run the body ``conv_route_bf16`` picks, or ``body``
+    (``"wgmma"`` or ``"mma_sync"``) when given (``conv_plan_bf16``).  The
+    kernel takes the tile width and split its body's rule picks
+    (``conv_tiles_bf16``, or ``conv_tiles`` for fp32 and the mma_sync
+    body), or ``tiles`` = (bn, n_split) when given, the split over the
+    runs of ``conv_ranges_bf16`` or ``conv_ranges`` (kernel_sweep.py times
+    the choices)."""
     k, _, _, cout = w.shape
     for name, t in (("w", w), ("bias", bias)):
         if t is not None and t.dtype != x.dtype:
@@ -168,8 +307,18 @@ def _conv_forward(x, w, bias, stride, padding, relu, groups, backend,
     y = torch.empty((b_, oh, ow, cout), device=x.device, dtype=x.dtype)
     common.check_operand("y", y, 4, dtypes)
     kdim = k * k * (cin // groups)
-    if tiles is None:
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    if x.dtype == torch.bfloat16:
+        # the wgmma body's rule on these operands' addresses (a fresh part
+        # is aligned); the entry runs the body named, or refuses it
+        body, bn, n_split = conv_plan_bf16(
+            x.shape, cout, k, stride, padding, groups, sms,
+            (x.data_ptr() | w.data_ptr() | y.data_ptr()
+             | (0 if bias is None else bias.data_ptr())) % 16 == 0, tiles,
+            body)
+    elif body is not None:
+        raise ValueError("body applies to bf16 operands only")
+    elif tiles is None:
         bn, n_split = conv_tiles(b_ * oh * ow, cout // groups, kdim, groups,
                                  sms)
     else:
@@ -179,16 +328,21 @@ def _conv_forward(x, w, bias, stride, padding, relu, groups, backend,
         part = torch.empty((n_split,) + tuple(y.shape), device=x.device,
                            dtype=torch.float32)
         common.check_operand("part", part, 5)
-    entry, counter = _CONV_ENTRIES[x.dtype]
-    fn = _build.function(entry, _CONV_ARGTYPES)
+    entry, counter, argtypes = _CONV_ENTRIES[x.dtype]
+    fn = _build.function(entry, argtypes)
+    body_arg = ((CONV_BF16_BODIES[body],) if x.dtype == torch.bfloat16
+                else ())
     err = fn(x.data_ptr(), w.data_ptr(),
              None if bias is None else bias.data_ptr(), y.data_ptr(),
              None if part is None else part.data_ptr(),
              b_, h, wd, cin, oh, ow, cout, k, stride, padding, groups,
-             int(relu), bn, n_split, torch.cuda.current_stream().cuda_stream)
+             int(relu), bn, n_split, *body_arg,
+             torch.cuda.current_stream().cuda_stream)
     if err:
         raise _build.launch_error(entry, err)
     setattr(conv2d_fused, counter, getattr(conv2d_fused, counter) + 1)
+    if body == "wgmma":
+        conv2d_fused.launches_bf16_wgmma += 1
     return y
 
 
@@ -255,6 +409,7 @@ def conv2d_fused(x, w, *, stride: int, padding: int, bias=None,
 
 conv2d_fused.launches = 0
 conv2d_fused.launches_bf16 = 0
+conv2d_fused.launches_bf16_wgmma = 0
 
 
 # --------------------------------------------------- blocked GEMM --------

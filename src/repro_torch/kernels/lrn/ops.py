@@ -13,9 +13,13 @@ port computes in plain PyTorch (``ref.lrn_grad``) inside a
 ``torch.profiler.record_function("lrn_bwd")`` range, so that a trace books
 its device time apart.
 
-The kernel takes any C >= 1.  C % 4 == 0 up to VEC_MAX_CHANNELS with a
-window up to VEC_MAX_WINDOW (AlexNet's C = 96 and 256, n = 5) runs its
-vectorized path; other shapes a plain one-element-a-thread path.
+The kernel takes any C >= 1 and picks its path by shape before the
+launch (``lrn_path``): in bf16, C % 8 == 0 up to VEC8_MAX_CHANNELS with a
+window up to VEC_MAX_WINDOW, k >= FLT_MIN and alpha >= 0 (AlexNet's C = 96
+and 256, n = 5, k = 2) runs the 8-channel path (16-byte loads, the power
+on the SFU); otherwise, in either dtype, C % 4 == 0 up to
+VEC_MAX_CHANNELS runs the 4-channel vectorized path, and other shapes a
+plain one-element-a-thread path.
 """
 from __future__ import annotations
 
@@ -26,9 +30,11 @@ import torch
 from repro_torch.kernels import _build, common
 from repro_torch.kernels.lrn import ref as lrn_ref_mod
 
-# the vectorized path (MAX_GROUPS * 4 and MAX_N in csrc/lrn.cu)
+# the vectorized path (MAX_GROUPS * 4 and MAX_N in csrc/lrn.cu), and the
+# bf16 8-channel path (MAX_GROUPS * 8)
 VEC_MAX_CHANNELS = 1024
 VEC_MAX_WINDOW = 9
+VEC8_MAX_CHANNELS = 2048
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
@@ -36,6 +42,27 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
 # the entry per activation dtype, and the launch count it adds to
 _ENTRIES = {torch.float32: ("lrn_f32", "launches"),
             torch.bfloat16: ("lrn_bf16", "launches_bf16")}
+
+
+def lrn_path(c: int, n: int, dtype, k: float, alpha: float,
+             align: int = 16) -> str:
+    """The kernel's path for rows of ``c`` channels, a window of ``n``,
+    ``k`` and ``alpha`` as the kernel takes them (fp32), and x and y
+    whose addresses are multiples of ``align`` bytes (``lrn_bf16`` and
+    ``launch`` in csrc/lrn.cu): ``"vec8"`` (bf16 only, 8 channels a
+    thread, the power on the SFU: d >= k must be a normal number),
+    ``"vec4"`` (4 channels a thread) or ``"generic"``."""
+    if n > VEC_MAX_WINDOW:
+        return "generic"
+    k32, alpha32 = torch.tensor([k, alpha], dtype=torch.float32).tolist()
+    if (dtype == torch.bfloat16 and c % 8 == 0 and c <= VEC8_MAX_CHANNELS
+            and k32 >= torch.finfo(torch.float32).tiny and alpha32 >= 0
+            and align % 16 == 0):
+        return "vec8"
+    itemsize = torch.finfo(dtype).bits // 8
+    if c % 4 == 0 and c <= VEC_MAX_CHANNELS and align % (4 * itemsize) == 0:
+        return "vec4"
+    return "generic"
 
 
 def _lrn_forward(x, n, alpha, beta, k, backend):
