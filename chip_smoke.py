@@ -97,7 +97,18 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    poisoned step leaving both replicas' params, masters and velocity bit
    for bit as they were, the scale 2^15 -> 2^14 and one skip counted;
    then one timed and one traced window of 10 steps over the
-   preprocessed pool and the peak memory;
+   preprocessed pool and the peak memory.
+   Then the exchanges (``train_exchange``): the same fp32 net, 2 x 128,
+   over the preprocessed pool, each from a fresh state under delay=1
+   uncompressed, delay=1 bf16, delay=1 top-k at 0.01 and delay=0 bf16:
+   3 steps with the launch counts set to 0 before and read after (5
+   conv and 2 LRN per replica and step), the losses held against 3
+   steps under the plain policy, the consensus (the top-k and bf16
+   base, the delay=0 state) spread 0 after every exchange, and under
+   top-k each replica keeping k entries of every leaf (read as d - the
+   new residual); then one timed and one traced window of 10 steps for
+   each exchange and for delay=0 uncompressed, the exchange's device ms
+   booked under its ``exchange`` range, with the peak memory;
 9. im2col training phase: 3 steps at 2 x 32 under
    ``--conv-backend im2col_ref`` count the GEMM kernel's launches (5
    forward, 5 dw and 4 dx per replica and step: conv1's dx is not
@@ -215,9 +226,15 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    and 6 against the uninterrupted run; the LM's losses equal bit for
    bit); ``--arch rwkv6-7b --layers 1`` for 5 steps with a checkpoint
    after step 4, resumed to 5 (bit for bit), and ``--arch
-   recurrentgemma-9b --layers 3`` for 3 steps; the chains of child
-   processes (serve, speculative serve, tier, each train CLI's pair of
-   runs) run side by side, sharing the card;
+   recurrentgemma-9b --layers 3`` for 3 steps; the AlexNet train CLI
+   on the mesh engine (``--engine mesh``: two rank processes on the one
+   card, gloo) for 4 steps with a checkpoint after step 4, which the
+   one-process engine resumes to step 6, all six losses held against
+   the uninterrupted one-process run, then 3 steps of ``--exchange-delay
+   1 --exchange-compression topk`` on the mesh held against the same on
+   one process; the chains of child processes (serve, speculative
+   serve, tier, each train CLI's runs, the mesh runs) run side by
+   side, sharing the card;
 15. prints the card again, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -434,7 +451,7 @@ def device_busy(trace_path: str, family=kernel_family,
     a kernel or a copy ran.  A kernel launched inside a
     ``record_function`` range named in ``scopes`` (a CPU-side range,
     matched to the launch through its correlation id) is booked under
-    that name instead of its family."""
+    that name instead of its family, and so is a copy queued there."""
     with open(trace_path) as f:
         trace = json.load(f)["traceEvents"]
     events = [e for e in trace
@@ -453,8 +470,8 @@ def device_busy(trace_path: str, family=kernel_family,
                     break
     by, names = {}, {}
     for e in events:
-        fam = "copy" if e["cat"] != "kernel" else scoped.get(
-            e.get("args", {}).get("correlation")) or family(e["name"])
+        fam = scoped.get(e.get("args", {}).get("correlation")) or (
+            "copy" if e["cat"] != "kernel" else family(e["name"]))
         by[fam] = by.get(fam, 0.0) + e["dur"] / 1e3
         if e["cat"] == "kernel":
             key = e["name"][:100]
@@ -1178,7 +1195,7 @@ def sgd(numerics=None):
     return for_numerics(get_optimizer("sgd_momentum"), numerics)
 
 
-def init_state(cfg, seed):
+def init_state(cfg, seed, exchange=None):
     from repro_torch.core.steps import init_param_avg_state
     from repro_torch.models import alexnet
     from repro_torch.tree import tree_map
@@ -1189,7 +1206,7 @@ def init_state(cfg, seed):
 
     return init_param_avg_state(torch.Generator().manual_seed(seed), init_fn,
                                 sgd(cfg.numerics), REPLICAS,
-                                numerics=cfg.numerics)
+                                exchange=exchange, numerics=cfg.numerics)
 
 
 def alexnet_loss(cfg):
@@ -1216,7 +1233,7 @@ def session(loss, state, make_stream, steps, items_per_step, *,
     (it is consumed), so a second run from the same start takes a fresh
     state.  With ``spreads`` each step appends the replicas' spread
     after it; ``wrap(step)`` wraps the step; ``strategy`` may be an
-    ``Exchanger`` of the same schedule."""
+    ``Exchanger`` of the same schedule or an ``ExchangeConfig``."""
     from repro_torch.core.param_avg import replica_spread
     from repro_torch.core.steps import make_param_avg_step
     from repro_torch.optim import schedules
@@ -1354,19 +1371,22 @@ def train_phase(model_cfg, seed):
     prepped = [next(pre) for _ in pool]
     train_timing(alexnet_loss(cfg), state, lambda: itertools.cycle(prepped),
                  cfg.name, "preprocessed pool", items, scopes=("lrn_bwd",))
-    return launches
+    return launches, prepped
 
 
 def train_timing(loss, state, make_stream, config, stream, items, *,
                  windows=3, steps=10, family=kernel_family,
-                 tokens_per_item=None, scopes=(), numerics=None):
+                 tokens_per_item=None, scopes=(), numerics=None,
+                 strategy="all_reduce", out=None):
     """``windows`` sessions of 1 warm-up + ``steps`` timed steps: items
     (images or sequences; ``items`` per step) per second and step
     p50/p99 from the session's Table-1 summary, and tokens/s when
     ``tokens_per_item`` is given.  One more session of ``steps`` steps
     under ``torch.profiler`` gives the device's busy time per step by
     ``family``; the idle share of a window is 1 - busy per step / its
-    mean step time.  Returns the state."""
+    mean step time.  ``strategy`` is the exchange (``session``'s);
+    ``out`` (a dict) receives the emitted ``train_timing`` record.
+    Returns the state."""
     from torch.profiler import ProfilerActivity, profile
 
     rows = []
@@ -1374,7 +1394,8 @@ def train_timing(loss, state, make_stream, config, stream, items, *,
         for i in range(windows):
             path = os.path.join(tmp, f"w{i}.jsonl")
             res = session(loss, state, make_stream, steps + 1, items,
-                          metrics_path=path, numerics=numerics).run()
+                          metrics_path=path, numerics=numerics,
+                          strategy=strategy).run()
             state = res.state
             summ = res.summary
             rows.append({"window": i, "timed_steps": summ["timed_steps"],
@@ -1390,7 +1411,7 @@ def train_timing(loss, state, make_stream, config, stream, items, *,
                                             * tokens_per_item)
         sess = session(loss, state, make_stream, steps, items,
                        metrics_path=os.path.join(tmp, "traced.jsonl"),
-                       numerics=numerics)
+                       numerics=numerics, strategy=strategy)
         acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if scopes
                                           else [])
         with profile(activities=acts) as prof:
@@ -1415,16 +1436,20 @@ def train_timing(loss, state, make_stream, config, stream, items, *,
             "device_idle_share", "stage_wait_ms_mean"]
     if tokens_per_item:
         keys.append("tokens_per_s")
-    emit({"phase": "train_timing", "config": config, "stream": stream,
-          "numerics": "fp32" if numerics is None else numerics.describe(),
-          "replicas": REPLICAS, "items_per_step": items,
-          "windows": windows, "timed_steps_per_window": steps,
-          **{k: spread(k) for k in keys},
-          "traced_wall_s": prof_wall,
-          "device_busy_ms_per_step": busy_step,
-          "device_ms_per_step_by_family": {
-              k: v / steps for k, v in busy["ms_by_family"].items()},
-          "top_kernels_ms": busy["top_kernels"]})
+    record = {"phase": "train_timing", "config": config, "stream": stream,
+              "numerics": "fp32" if numerics is None
+              else numerics.describe(),
+              "replicas": REPLICAS, "items_per_step": items,
+              "windows": windows, "timed_steps_per_window": steps,
+              **{k: spread(k) for k in keys},
+              "traced_wall_s": prof_wall,
+              "device_busy_ms_per_step": busy_step,
+              "device_ms_per_step_by_family": {
+                  k: v / steps for k, v in busy["ms_by_family"].items()},
+              "top_kernels_ms": busy["top_kernels"]}
+    emit(record)
+    if out is not None:
+        out.update(record)
     return state
 
 
@@ -1605,6 +1630,170 @@ def im2col_phase(model_cfg, seed):
           "losses": losses, "fused_losses": fused, "loss_abs_err": errs,
           "wall_s": wall})
     return launches
+
+
+EXCHANGES = [  # the train_exchange phase's exchanges (ExchangeConfig)
+    dict(delay=1), dict(delay=1, compression="bf16"),
+    dict(delay=1, compression="topk", topk_frac=0.01),
+    dict(compression="bf16")]
+
+
+def topk_kept_check(exchanger, counts):
+    """``wrap`` for ``session``: around each step, the entries each
+    replica's top-k kept of every non-scalar leaf, read as d - the new
+    residual with d = (incoming - base) + residual taken before the step;
+    it must be k, or every nonzero of d where d has fewer.  Appends
+    (kept, k) totals to ``counts``."""
+    from repro_torch.tree import tree_leaves
+
+    def wrap(step):
+        def checked(st, batch):
+            aux = st.exchange
+            with torch.no_grad():
+                d = [(w.float() - b.float() + r) for w, b, r in zip(
+                    tree_leaves((st.params, st.opt_state)),
+                    tree_leaves(aux["base"]), tree_leaves(aux["residual"]))]
+            st, loss = step(st, batch)
+            kept_total = k_total = 0
+            with torch.no_grad():
+                for dl, res in zip(d, tree_leaves(aux["residual"])):
+                    if dl.dim() == 0:
+                        continue
+                    n = dl[0].numel()
+                    k = exchanger.topk_k(n)
+                    kept = (dl - res).reshape(dl.shape[0], -1).ne(0).sum(1)
+                    want = torch.clamp(dl.reshape(dl.shape[0], -1).ne(0)
+                                       .sum(1), max=k)
+                    if not torch.equal(kept, want):
+                        raise AssertionError(
+                            f"top-k kept {kept.tolist()} entries of a leaf "
+                            f"of {n}, want {want.tolist()} (k {k})")
+                    kept_total += int(kept.sum())
+                    k_total += k * dl.shape[0]
+            counts.append((kept_total, k_total))
+            return st, loss
+        return checked
+    return wrap
+
+
+def exchange_phase(model_cfg, seed, prepped):
+    """The faithful AlexNet at full width, 2 x 128, fp32, over the train
+    phase's preprocessed pool ``prepped``, under each exchange of
+    ``EXCHANGES`` from a fresh state: 3 steps with the kernels (launch
+    counts: 5 conv and 2 LRN per replica and step; the consensus base's
+    spread 0 after every exchange; under top-k each replica keeps k
+    entries of every leaf) and 3 under the plain policy (losses within
+    LOSS_TOL).  Then one timed and one traced window of 10 steps each
+    for every exchange and for the synchronous uncompressed baseline,
+    the exchange's device ms booked under its ``exchange`` range, and
+    each run's peak memory.  Returns {path: launches}."""
+    import dataclasses
+
+    from repro_torch.core.param_avg import ExchangeConfig, replica_spread
+    from repro_torch.kernels.common import KernelPolicy
+
+    cfg = dataclasses.replace(model_cfg, kernels=KernelPolicy("auto"))
+    plain_cfg = dataclasses.replace(model_cfg, kernels=KernelPolicy("plain"))
+    items = TRAIN_BATCH * REPLICAS
+    steps = 3
+    n_conv = len(cfg.convs)
+    n_lrn = sum(cs.lrn for cs in cfg.convs)
+
+    def stream():
+        return itertools.cycle(prepped)
+
+    by_path = {}
+    for kw in EXCHANGES:
+        ex = ExchangeConfig(**kw)
+        t0 = time.perf_counter()
+        spreads, kept = [], []
+        wrap = topk_kept_check(ex.exchanger(), kept) \
+            if ex.compression == "topk" else None
+
+        def consensus(st):
+            """The spread of what the exchange left replica-identical:
+            the base under a compressed delay=1, the state under delay=0
+            (an uncompressed delay=1 keeps no consensus apart)."""
+            if st.exchange is not None:
+                return replica_spread(st.exchange["base"])
+            if ex.delay == 0:
+                return replica_spread((st.params, st.opt_state))
+            return None
+
+        def both(step):
+            inner = wrap(step) if wrap else step
+
+            def checked(st, batch):
+                st, loss = inner(st, batch)
+                spreads.append(consensus(st))
+                return st, loss
+            return checked
+
+        sess = session(alexnet_loss(cfg), init_state(cfg, seed, ex), stream,
+                       steps, items, metrics_path=os.devnull, strategy=ex,
+                       wrap=both)
+        torch.cuda.synchronize()
+        zero_counts()
+        res = sess.run()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        want = want_counts(conv2d_fused=n_conv * REPLICAS * steps,
+                           lrn=n_lrn * REPLICAS * steps)
+        if launches != want:
+            raise AssertionError(f"{ex.describe()} launches {launches} != "
+                                 f"{want}")
+        losses = losses_of(res)
+        plain = losses_of(session(
+            alexnet_loss(plain_cfg), init_state(plain_cfg, seed, ex), stream,
+            steps, items, metrics_path=os.devnull, strategy=ex).run())
+        errs = [abs(a - b) for a, b in zip(losses, plain)]
+        if len(losses) != steps or not all(map(math.isfinite, losses)) or \
+                max(errs) > LOSS_TOL:
+            raise AssertionError(f"{ex.describe()} kernel vs plain losses "
+                                 f"{losses} / {plain}")
+        measured = [v for v in spreads if v is not None]
+        if any(measured):
+            raise AssertionError(f"{ex.describe()}: consensus spread "
+                                 f"{spreads}")
+        if ex.compression == "topk" and len(kept) != steps:
+            raise AssertionError("the top-k check did not run")
+        by_path[f"train_exchange/{ex.describe()}"] = launches
+        emit({"phase": "train_exchange", "config": cfg.name,
+              "exchange": ex.describe(), "replicas": REPLICAS,
+              "per_replica_batch": TRAIN_BATCH, "steps": steps,
+              "launches": launches, "losses": losses, "plain_losses": plain,
+              "loss_abs_err": errs, "consensus_spread": spreads,
+              "topk_kept_of_k": kept, "seconds": time.perf_counter() - t0})
+    rows = []
+    for kw in [dict()] + EXCHANGES:
+        ex = ExchangeConfig(**kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        record = {}
+        train_timing(alexnet_loss(cfg), init_state(cfg, seed, ex), stream,
+                     f"{cfg.name} {ex.describe()}", "preprocessed pool",
+                     items, windows=1, scopes=("lrn_bwd", "exchange"),
+                     strategy=ex, out=record)
+        fams = record["device_ms_per_step_by_family"]
+        rows.append({"exchange": ex.describe(),
+                     "step_ms_p50": record["step_ms_p50"]["median"],
+                     "images_per_s": record["images_per_s"]["median"],
+                     "device_busy_ms_per_step":
+                         record["device_busy_ms_per_step"],
+                     "exchange_ms_per_step": fams.get("exchange", 0.0),
+                     "exchange_share_of_busy": fams.get("exchange", 0.0)
+                     / record["device_busy_ms_per_step"],
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    base = rows[0]
+    for row in rows:
+        row["step_vs_delay0"] = row["step_ms_p50"] / base["step_ms_p50"]
+        row["peak_mem_vs_delay0_gb"] = row["peak_mem_gb"] \
+            - base["peak_mem_gb"]
+    emit({"phase": "exchange_timing", "config": cfg.name,
+          "replicas": REPLICAS, "per_replica_batch": TRAIN_BATCH,
+          "rows": rows})
+    return by_path
 
 
 def visible_pairs(s: int, causal: bool, window) -> int:
@@ -3820,29 +4009,106 @@ def _tier_cli():
     return seconds
 
 
+def _train_losses(args, what):
+    """The train CLI with ``args`` and a metrics trace: ({step: loss},
+    seconds, its header line)."""
+    from repro_torch.train_loop.metrics import read_jsonl
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "m.jsonl")
+        lines, seconds = _run_cli("repro_torch.launch.train",
+                                  args + ["--metrics-out", path])
+        if not lines or not lines[-1].startswith("done:"):
+            raise AssertionError(f"the {what} train CLI did not end in "
+                                 "'done:'")
+        losses = {r["step"]: r["loss"] for r in read_jsonl(path, "train")}
+    if not all(map(math.isfinite, losses.values())):
+        raise AssertionError(f"non-finite loss in the {what} run: {losses}")
+    return losses, seconds, lines[0]
+
+
+def _mesh_resumed(base):
+    """The train CLI on the mesh engine: two ranks on the one card (gloo
+    wire), 4 steps with a checkpoint after step 4, which the one-process
+    engine resumes to step 6.  Returns ({step: loss} of steps 1-6,
+    {run: seconds})."""
+    seconds = {}
+    with tempfile.TemporaryDirectory() as ck:
+        mesh, seconds["mesh"], head = _train_losses(
+            base + ["--engine", "mesh", "--steps", "4", "--ckpt-dir", ck,
+                    "--ckpt-every", "4"], "mesh")
+        if "engine=mesh backend=gloo " not in head:
+            raise AssertionError(f"the mesh CLI's header: {head!r}")
+        resumed, seconds["resumed_on_reference"], _ = _train_losses(
+            base + ["--steps", "6", "--ckpt-dir", ck, "--resume"],
+            "resumed mesh")
+    if sorted(mesh) != [1, 2, 3, 4] or sorted(resumed) != [5, 6]:
+        raise AssertionError(f"mesh / resumed steps {sorted(mesh)} / "
+                             f"{sorted(resumed)}")
+    return {**mesh, **resumed}, seconds
+
+
+def _topk_run(base, engine):
+    """3 steps of the delayed top-k exchange on ``engine``: ({step: loss},
+    seconds)."""
+    losses, seconds, _ = _train_losses(
+        base + ["--exchange-delay", "1", "--exchange-compression", "topk",
+                "--steps", "3", "--engine", engine], f"top-k {engine}")
+    if sorted(losses) != [1, 2, 3]:
+        raise AssertionError(f"top-k {engine} steps {sorted(losses)}")
+    return losses, seconds
+
+
 def cli_phase():
     """The serving CLI (alexnet; olmo-1b on the ring and the block pool;
     rwkv6-7b at 2 layers and recurrentgemma-9b at 3, full width, each
     drafting speculatively with its first layer; olmo-1b as a tier of two
     engine workers and a prefill worker) beside the training CLI: 6
-    steps with a checkpoint after step 4, resumed from it to 6."""
+    steps with a checkpoint after step 4, resumed from it to 6; the mesh
+    engine's run resumed on one process (``_mesh_resumed``), held against
+    that uninterrupted run; and the delayed top-k exchange on the mesh
+    and on one process (``_topk_run``), held against each other."""
     base = ["--arch", "alexnet", "--faithful", "--replicas", "2",
             "--batch", "64", "--log-every", "1"]
-    serve_s, spec_s, tier_s, (straight, resumed, seconds) = side_by_side(
-        _serve_clis, _spec_serve_clis, _tier_cli,
-        lambda: resume_runs(base, 4, 6, "AlexNet"))
+    serve_s, spec_s, tier_s, (straight, resumed, seconds), \
+        (mesh, mesh_s), (topk_mesh, s_mesh), (topk_one, s_one) = \
+        side_by_side(
+            _serve_clis, _spec_serve_clis, _tier_cli,
+            lambda: resume_runs(base, 4, 6, "AlexNet"),
+            lambda: _mesh_resumed(base),
+            lambda: _topk_run(base, "mesh"),
+            lambda: _topk_run(base, "reference"))
+    mesh_s.update(topk_mesh=s_mesh, topk_reference=s_one)
+    topk = {"mesh": topk_mesh, "reference": topk_one}
     lm_serve_s = {k: serve_s.pop(k) for k in ("ring", "block")}
     lm_serve_s.update(spec_s, tier=tier_s)
     seconds.update(serve=serve_s.pop("serve"),
-                   serve_bf16=serve_s.pop("serve_bf16"), serve_lm=lm_serve_s)
+                   serve_bf16=serve_s.pop("serve_bf16"), serve_lm=lm_serve_s,
+                   mesh=mesh_s)
     diffs = {s: abs(resumed[s] - straight[s]) for s in resumed}
     if max(diffs.values()) > LOSS_TOL:
         raise AssertionError(f"resumed vs uninterrupted losses {diffs}")
+    mesh_diffs = {s: abs(mesh[s] - straight[s]) for s in straight}
+    if max(mesh_diffs.values()) > LOSS_TOL:
+        raise AssertionError(f"mesh (+ resume) vs one-process losses "
+                             f"{mesh} / {straight}")
+    topk_diffs = {s: abs(topk["mesh"][s] - topk["reference"][s])
+                  for s in topk["reference"]}
+    if max(topk_diffs.values()) > LOSS_TOL:
+        raise AssertionError(f"top-k mesh vs one-process losses {topk}")
     emit({"phase": "cli", "seconds": seconds,
           "resumed_losses": [resumed[5], resumed[6]],
           "straight_losses": [straight[5], straight[6]],
           "abs_diff_by_step": diffs,
           "bit_exact_resume": all(v == 0.0 for v in diffs.values())})
+    emit({"phase": "cli_mesh", "backend": "gloo", "ranks": 2,
+          "losses": [mesh[s] for s in range(1, 7)],
+          "one_process_losses": [straight[s] for s in range(1, 7)],
+          "abs_diff_by_step": mesh_diffs,
+          "bit_equal": all(v == 0.0 for v in mesh_diffs.values()),
+          "topk_losses": topk, "topk_abs_diff_by_step": topk_diffs,
+          "topk_bit_equal": all(v == 0.0 for v in topk_diffs.values()),
+          "seconds": mesh_s})
 
 
 def main() -> int:
@@ -3897,8 +4163,11 @@ def main() -> int:
     mark("recurrence")
     by_path = {"serving": serving_phase(ALEXNET_FAITHFUL, args.seed)}
     mark("serving")
-    by_path["train"] = train_phase(ALEXNET_FAITHFUL, args.seed)
+    by_path["train"], prepped = train_phase(ALEXNET_FAITHFUL, args.seed)
     mark("train")
+    by_path.update(exchange_phase(ALEXNET_FAITHFUL, args.seed, prepped))
+    del prepped
+    mark("train_exchange")
     by_path["train_bf16"] = train_bf16_phase(ALEXNET_FAITHFUL, args.seed)
     mark("train_bf16")
     by_path["train_im2col"] = im2col_phase(ALEXNET_FAITHFUL, args.seed)

@@ -13,16 +13,16 @@ Two flavours, field for field the reference's (``repro.configs.alexnet``):
     LRN runs *after* pool1/pool2 with the Caffe constants ``size=5,
     alpha=1e-4, beta=0.75``.  FAITHFUL totals 60,965,224 params.
 
-``numerics`` carries the port's ``NumericsPolicy`` as the reference's
-config carries its own (``param_dtype(cfg)`` is the params' dtype); the
-reference's ``exchange`` field is left out until the port has the rest
-of the exchange (ROADMAP queue A item 4).
+``exchange`` and ``numerics`` carry the port's ``ExchangeConfig`` and
+``NumericsPolicy`` as the reference's config carries its own
+(``param_dtype(cfg)`` is the params' dtype).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
 
+from repro_torch.core.param_avg import ExchangeConfig
 from repro_torch.kernels.common import KernelPolicy
 from repro_torch.numerics import NumericsPolicy
 
@@ -65,6 +65,8 @@ class AlexNetConfig:
     lrn_k: float = 2.0
     # which implementation each kernel op runs (kernels/common.py)
     kernels: KernelPolicy = KernelPolicy()
+    # replica exchange policy (core.param_avg.ExchangeConfig)
+    exchange: ExchangeConfig = ExchangeConfig()
     # precision policy (repro_torch.numerics.NumericsPolicy)
     numerics: NumericsPolicy = NumericsPolicy()
     dtype: str = "float32"

@@ -1,11 +1,16 @@
-"""The train and eval steps (the counterpart of the reference engine
-of ``repro/core/steps.py``).
+"""The train, eval and serve steps (the counterpart of the reference
+engine of ``repro/core/steps.py``).
 
 ``make_param_avg_step`` is the paper's algorithm (Fig. 2): every replica
 runs its own forward, backward and optimizer update with no gradient
 communication, then the replicas exchange and average their params and
 their optimizer state.  State leaves carry a leading replica axis R and
 batches are (R, per_replica_batch, ...), as in the reference.
+``make_mesh_param_avg_step`` is the same algorithm as a program over a
+``torch.distributed`` group of R ranks, one replica each: a rank's
+leaves keep a leading axis of 1 and the exchange is a real collective
+(``param_avg.ReplicaGroup``).  ``make_grad_avg_step`` is the modern
+baseline: one param copy, the loss a mean over the global batch.
 
 The reference vmaps the replicas (``replica_exec="vmap"``).  A
 ``torch.autograd.Function`` that launches a hand-written kernel cannot be
@@ -20,7 +25,11 @@ the old one on one card.  Each replica's grads are applied to its slices
 as soon as its backward ends and then dropped, and the optimizer and the
 exchange run one leaf, and one ``param_avg.chunks`` block of it, at a
 time, so nothing of the size of the params is allocated beside them.
-The state passed in is consumed.
+The state passed in is consumed.  The one exception is ``delay=1``: its
+exchange averages the *incoming* state and grafts this step's progress
+onto that consensus, ``w' = avg(w) + (new - w)``, so a step that syncs
+keeps one copy of the incoming params and optimizer state until the
+graft (the reference keeps both as values of its program).
 
 ``numerics`` (a ``NumericsPolicy`` that is not the training default)
 engages mixed precision as the reference's step does: params and float
@@ -33,7 +42,8 @@ grads, so under loss scaling the R replicas' grads are held, in the
 params' dtype, until one finite flag ANDed over all of them is known;
 then each replica's update is written chunk by chunk, each chunk
 selected against its old value with ``torch.where`` on the flag, which
-stays on the device (the step reads nothing back).
+stays on the device (the step reads nothing back; the mesh engine ANDs
+the ranks' flags with an ``all_reduce(MIN)``).
 """
 from __future__ import annotations
 
@@ -41,9 +51,11 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+from torch.profiler import record_function
 
-from repro_torch.core.param_avg import ExchangeConfig, as_exchanger, \
-    chunks, replicate
+from repro_torch.core.param_avg import (ExchangeConfig, Exchanger,
+                                        ReplicaGroup, as_exchanger, chunks,
+                                        replicate)
 from repro_torch.numerics import (NumericsPolicy, cast_floats,
                                   init_loss_scale_state,
                                   next_loss_scale_state)
@@ -54,43 +66,85 @@ from repro_torch.tree import tree_leaves, tree_map
 @dataclasses.dataclass
 class TrainState:
     """``params`` and ``opt_state`` are trees of stacked (R, ...) tensors;
-    ``step`` counts the updates taken.  ``numerics`` is the loss-scale
-    state (``numerics.init_loss_scale_state``: the scale, the clean-step
-    counter and the skipped-step count, 0-d device tensors), None unless
-    the policy scales the loss."""
+    ``step`` counts the updates taken.  ``exchange`` is the delayed
+    compressed exchange's state (``init_exchange_state``: the
+    replica-identical consensus ``base`` the deltas are taken against and
+    the per-replica error-feedback ``residual``), None for the
+    synchronous path and for an uncompressed ``delay=1``.  ``numerics``
+    is the loss-scale state (``numerics.init_loss_scale_state``: the
+    scale, the clean-step counter and the skipped-step count, 0-d device
+    tensors), None unless the policy scales the loss."""
     params: Any
     opt_state: Any
     step: int = 0
+    exchange: Any = None
     numerics: Any = None
+
+
+def init_exchange_state(params_r, opt_r, exchanger: Exchanger,
+                        delay: int = 0):
+    """The delayed compressed exchange's state (None when the exchange is
+    stateless): ``base`` a copy of the initial replicated state (every
+    replica starts identical, so it IS the consensus), ``residual`` fp32
+    zeros (0-d for 0-d leaves: nothing dropped yet)."""
+    if delay == 0 or not exchanger.is_stateful \
+            or exchanger.strategy == "none":
+        return None
+    tree = (params_r, opt_r)
+    return {"base": tree_map(torch.clone, tree),
+            "residual": tree_map(lambda x: torch.zeros(
+                x.shape, dtype=torch.float32, device=x.device), tree)}
 
 
 def init_param_avg_state(generator, init_fn: Callable, optimizer: Optimizer,
                          n_replicas: int, *,
+                         exchange: Optional[ExchangeConfig] = None,
                          numerics: Optional[NumericsPolicy] = None
                          ) -> TrainState:
     """``init_fn(generator)`` -> one replica's params tree; every replica
     starts from the same copy (the paper initializes both GPUs' models
     identically).  The optimizer state is initialized on one replica and
     replicated, as the reference's vmapped init, so bookkeeping scalars
-    (AdamW's count) carry the replica axis too.  ``numerics`` gives the
-    loss-scale state, on the params' device."""
+    (AdamW's count) carry the replica axis too.  ``exchange`` gives the
+    delayed compressed exchange its state, ``numerics`` the loss-scale
+    state, on the params' device.  The mesh engine's rank state is this
+    with ``n_replicas=1`` (every replica starts the same)."""
     params = init_fn(generator)
     opt_state = replicate(optimizer.init(params), n_replicas)
+    params = replicate(params, n_replicas)
+    aux = None
+    if exchange is not None:
+        aux = init_exchange_state(params, opt_state, exchange.exchanger(),
+                                  exchange.delay)
     dev = tree_leaves(params)[0].device
-    return TrainState(replicate(params, n_replicas), opt_state, 0,
+    return TrainState(params, opt_state, 0, aux,
                       init_loss_scale_state(numerics, dev))
 
 
-def _per_replica_grads(loss_fn: Callable, params, batch, compute_dtype=None,
-                       scale=None):
-    """(r, loss, grads as a list of leaves) for each replica in turn.
-    ``compute_dtype`` casts the float params and batch leaves at the loss
-    boundary; ``scale`` multiplies the loss inside the differentiated
-    function (the grads and the loss come out scaled)."""
-    n_rep = tree_leaves(params)[0].shape[0]
-    for r in range(n_rep):
-        p = tree_map(lambda x: x[r].detach().requires_grad_(), params)
-        b = tree_map(lambda x: x[r], batch)
+def init_grad_avg_state(generator, init_fn: Callable, optimizer: Optimizer,
+                        *, numerics: Optional[NumericsPolicy] = None
+                        ) -> TrainState:
+    """The grad-avg baseline's state: one params copy, no replica axis."""
+    params = init_fn(generator)
+    dev = tree_leaves(params)[0].device
+    return TrainState(params, optimizer.init(params), 0, None,
+                      init_loss_scale_state(numerics, dev))
+
+
+def _loss_and_grads(loss_fn: Callable, params, batch, compute_dtype=None,
+                    scale=None, microbatch: int = 1):
+    """(loss, grads as a list of leaves) of one replica: ``params`` its
+    leaves, ``batch`` its batch.  ``compute_dtype`` casts the float params
+    and batch leaves at the loss boundary; ``scale`` multiplies the loss
+    inside the differentiated function (the grads and the loss come out
+    scaled).
+
+    ``microbatch`` m > 1 accumulates the grads of m slices of the batch
+    in fp32 (the grads come out fp32) and returns the mean loss and
+    grads, as the reference's ``_make_loss_and_grad``: slice i takes rows
+    i, i + m, i + 2m, ... (its ``(b/m, m)`` split with m moved first)."""
+    def one(b):
+        p = tree_map(lambda x: x.detach().requires_grad_(), params)
         with torch.enable_grad():
             if compute_dtype is None:
                 loss = loss_fn(p, b)
@@ -100,7 +154,33 @@ def _per_replica_grads(loss_fn: Callable, params, batch, compute_dtype=None,
             if scale is not None:
                 loss = loss * scale.to(loss.dtype)
             grads = list(torch.autograd.grad(loss, tree_leaves(p)))
-        yield r, loss.detach(), grads
+        return loss.detach(), grads
+
+    if microbatch == 1:
+        return one(batch)
+    lsum = None
+    gsum = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+            for x in tree_leaves(params)]
+    for i in range(microbatch):
+        loss, grads = one(tree_map(lambda x: x[i::microbatch], batch))
+        # 0 + l0 is l0: the reference's fp32 sum from zero, in its order
+        lsum = loss.float() if lsum is None else lsum + loss.float()
+        for acc, g in zip(gsum, grads):
+            acc += g.float()
+    inv = 1.0 / microbatch
+    return lsum * inv, [g * inv for g in gsum]
+
+
+def _per_replica_grads(loss_fn: Callable, params, batch, compute_dtype=None,
+                       scale=None, microbatch: int = 1):
+    """(r, loss, grads as a list of leaves) for each replica in turn."""
+    n_rep = tree_leaves(params)[0].shape[0]
+    for r in range(n_rep):
+        loss, grads = _loss_and_grads(
+            loss_fn, tree_map(lambda x: x[r], params),
+            tree_map(lambda x: x[r], batch), compute_dtype, scale,
+            microbatch)
+        yield r, loss, grads
 
 
 def _is_shaped_like(tree, params) -> bool:
@@ -182,23 +262,62 @@ def _grads_finite(grads, inv_scale) -> torch.Tensor:
     return torch.stack(flags).all()
 
 
-def make_param_avg_step(loss_fn: Callable, optimizer: Optimizer,
-                        schedule: Callable, *, strategy="all_reduce",
-                        sync_every: int = 1,
-                        numerics: Optional[NumericsPolicy] = None):
-    """``loss_fn(params, batch)`` -> scalar; returns ``step(state, batch)
-    -> (state, mean loss)``, which updates ``state``'s tensors in place
-    and returns them (see the module's docstring).  ``strategy`` is a
-    name, an ``Exchanger`` or an ``ExchangeConfig`` (which then supplies
-    ``sync_every``).  ``numerics`` engages the policy's compute-dtype
-    cast and loss scaling (pair it with ``optimizers.for_numerics`` for
-    the fp32 masters); the default or fp32 policy leaves the step
-    bit-equal to one built without it."""
-    if isinstance(strategy, ExchangeConfig):
-        sync_every = strategy.sync_every
-    exchanger = as_exchanger(strategy)
+def _delayed_exchange_(exchanger: Exchanger, prev, live, aux) -> None:
+    """The one-step-stale exchange (delay=1), in place.  ``prev`` is the
+    step's incoming (params, opt_state), copied before the update;
+    ``live`` the updated state.  The exchange averages the incoming state
+    (which does not depend on this step's forward and backward) and
+    grafts the local progress onto that consensus::
+
+        w_{t+1} = avg(w_t) + (new_t - w_t)
+
+    in each leaf's dtype; 0-d leaves take the local value.  With a
+    stateful (compressed) exchanger the consensus comes from
+    ``Exchanger.delta`` against ``aux["base"]`` with the error-feedback
+    ``aux["residual"]``, and both roll forward in place.  Dense
+    exchanges go one ``chunks`` block at a time; topk selects over each
+    replica's whole leaf."""
+    stateful = exchanger.is_stateful
+    leaves = [tree_leaves(t) for t in (prev, live)]
+    if stateful:
+        leaves += [tree_leaves(aux["base"]), tree_leaves(aux["residual"])]
+    for w, n, *state in zip(*leaves, strict=True):
+        if w.dim() == 0:
+            continue
+        if exchanger.compression == "topk":
+            parts = [[w, n, *state]]
+        else:
+            parts = zip(*(chunks(t) for t in (w, n, *state)))
+        for wc, nc, *sc in parts:
+            if stateful:
+                a, res = exchanger.delta(wc, *sc)
+                sc[0].copy_(a)
+                sc[1].copy_(res)
+            else:
+                a = exchanger.average_leaf(wc)
+            nc.copy_(a + (nc - wc))
+
+
+def _check_delay(exchanger: Exchanger, delay: int) -> None:
+    if delay not in (0, 1):
+        raise ValueError(f"delay must be 0 or 1, got {delay}")
+    if exchanger.is_stateful and delay == 0 \
+            and exchanger.compression == "topk":
+        raise ValueError("topk compression requires delay=1 (its "
+                         "base+residual state rides the delayed exchange)")
+
+
+def _build_step(loss_fn: Callable, optimizer: Optimizer, schedule: Callable,
+                exchanger: Exchanger, sync_every: int, microbatch: int,
+                delay: int, numerics: Optional[NumericsPolicy]):
+    """The step both param-avg engines run over their (R, ...) or (1, ...)
+    leaves; ``exchanger.group`` makes it the mesh engine's."""
+    _check_delay(exchanger, delay)
     if sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+    if microbatch < 1:
+        raise ValueError(f"microbatch must be >= 1, got {microbatch}")
+    group = exchanger.group
     active = numerics is not None and not numerics.is_training_default
     scaling = active and numerics.loss_scale != "none"
     cdt = (numerics.compute_dtype or numerics.param_dtype) if active \
@@ -208,9 +327,23 @@ def make_param_avg_step(loss_fn: Callable, optimizer: Optimizer,
         lr = schedule(state.step)
         scale = state.numerics["scale"] if scaling else None
         inv = None if scale is None else 1.0 / scale
+        # every rank holds the same step counter, so the ranks skip (or
+        # run) the collectives together
+        sync = exchanger.strategy != "none" and (
+            sync_every == 1 or (state.step + 1) % sync_every == 0)
+        prev = None
+        if delay == 1 and sync:
+            if exchanger.is_stateful and state.exchange is None:
+                raise ValueError("the compressed delay=1 exchange needs "
+                                 "its base and residual: init the state "
+                                 "with init_param_avg_state(..., "
+                                 "exchange=)")
+            with record_function("exchange"), torch.no_grad():
+                prev = tree_map(torch.clone,
+                                (state.params, state.opt_state))
         losses, held = [], []
-        for r, loss, grads in _per_replica_grads(loss_fn, state.params,
-                                                 batch, cdt, scale):
+        for r, loss, grads in _per_replica_grads(
+                loss_fn, state.params, batch, cdt, scale, microbatch):
             losses.append(loss if inv is None else loss * inv)
             if scaling:
                 held.append(grads)     # the skip needs every replica's
@@ -225,32 +358,161 @@ def make_param_avg_step(loss_fn: Callable, optimizer: Optimizer,
                 # together or not at all
                 finite = torch.stack([_grads_finite(g, inv)
                                       for g in held]).all()
+                if group is not None:
+                    finite = group.all_true(finite)
                 for r, grads in enumerate(held):
                     update_replica_(optimizer, grads, state.params,
                                     state.opt_state, r, lr, finite=finite,
                                     inv_scale=inv)
                 ns = next_loss_scale_state(numerics, ns, finite)
         # exchange & average params AND optimizer state (paper fn. 3)
-        if sync_every == 1 or (state.step + 1) % sync_every == 0:
-            with torch.no_grad():
-                exchanger.average_((state.params, state.opt_state))
+        if sync:
+            with record_function("exchange"), torch.no_grad():
+                if delay == 0:
+                    exchanger.average_((state.params, state.opt_state))
+                else:
+                    _delayed_exchange_(exchanger, prev,
+                                       (state.params, state.opt_state),
+                                       state.exchange)
+            del prev
+        loss = torch.stack(losses).mean()
+        if group is not None:
+            loss = group.mean(loss)
         return (TrainState(state.params, state.opt_state, state.step + 1,
-                           ns),
-                torch.stack(losses).mean())
+                           state.exchange, ns), loss)
 
     return step
 
 
-def make_eval_step(metric_fn: Callable):
-    """``metric_fn(params, batch)`` -> dict of scalar metrics, on the
-    averaged model (the mean over the replica axis, the ensemble the
-    paper reports); batches carry no replica axis."""
+def make_param_avg_step(loss_fn: Callable, optimizer: Optimizer,
+                        schedule: Callable, *, strategy="all_reduce",
+                        sync_every: int = 1, microbatch: int = 1,
+                        delay: int = 0,
+                        numerics: Optional[NumericsPolicy] = None):
+    """The axis-0 engine.  ``loss_fn(params, batch)`` -> scalar; returns
+    ``step(state, batch) -> (state, mean loss)``, which updates
+    ``state``'s tensors in place and returns them (see the module's
+    docstring).  ``strategy`` is a name, an axis-0 ``Exchanger`` or an
+    ``ExchangeConfig`` (which then supplies ``delay`` and
+    ``sync_every``).  ``delay=1`` is the one-step-stale exchange;
+    ``microbatch`` > 1 accumulates each replica's grads over that many
+    slices of its batch.  ``numerics`` engages the policy's
+    compute-dtype cast and loss scaling (pair it with
+    ``optimizers.for_numerics`` for the fp32 masters); the default or
+    fp32 policy leaves the step bit-equal to one built without it."""
+    if isinstance(strategy, ExchangeConfig):
+        sync_every = strategy.sync_every
+        delay = strategy.delay
+    exchanger = as_exchanger(strategy)
+    if exchanger.is_mesh:
+        raise ValueError("make_param_avg_step is the axis-0 engine; use "
+                         "make_mesh_param_avg_step for a mesh-bound "
+                         "Exchanger")
+    return _build_step(loss_fn, optimizer, schedule, exchanger, sync_every,
+                       microbatch, delay, numerics)
+
+
+def make_mesh_param_avg_step(loss_fn: Callable, optimizer: Optimizer,
+                             schedule: Callable, *, group: ReplicaGroup,
+                             strategy="all_reduce", sync_every: int = 1,
+                             microbatch: int = 1, delay: int = 0,
+                             numerics: Optional[NumericsPolicy] = None):
+    """The mesh engine: the same step on this rank's replica (state
+    leaves and the batch keep a leading axis of 1), with the exchange a
+    collective over ``group`` (``param_avg.ReplicaGroup``), the
+    loss-scaling finite flag ANDed over the ranks by an
+    ``all_reduce(MIN)`` and the returned loss the ranks' mean.
+    ``sync_every`` skips the collectives on the gated-off steps of every
+    rank alike.  One flat group: the reference's two-axis
+    ``('pod', 'data')`` layout is not ported (ROADMAP queue A item 12)."""
+    if isinstance(strategy, ExchangeConfig):
+        sync_every = strategy.sync_every
+        delay = strategy.delay
+    step = _build_step(loss_fn, optimizer, schedule,
+                       as_exchanger(strategy, group), sync_every,
+                       microbatch, delay, numerics)
+
+    def mesh_step(state: TrainState, batch):
+        r = tree_leaves(batch)[0].shape[0]
+        if r != 1:
+            raise ValueError(f"the mesh engine runs one replica per rank: "
+                             f"the batch carries {r}")
+        return step(state, batch)
+
+    return mesh_step
+
+
+def make_grad_avg_step(loss_fn: Callable, optimizer: Optimizer,
+                       schedule: Callable, *,
+                       numerics: Optional[NumericsPolicy] = None):
+    """The modern baseline: one params copy (``init_grad_avg_state``), the
+    loss a mean over the global batch, so the grads are the batch's
+    mean.  The step is the param-avg step at R = 1 on views of the state
+    with a replica axis of 1 (no exchange), so it updates in place and
+    keeps the same numerics contract."""
+    inner = _build_step(loss_fn, optimizer, schedule, Exchanger("none"), 1,
+                        1, 0, numerics)
+
+    def up(tree):
+        return tree_map(lambda x: x.unsqueeze(0), tree)
+
+    def step(state: TrainState, batch):
+        out, loss = inner(TrainState(up(state.params), up(state.opt_state),
+                                     state.step, None, state.numerics),
+                          up(batch))
+        return TrainState(state.params, state.opt_state, out.step,
+                          state.exchange, out.numerics), loss
+
+    return step
+
+
+def make_eval_step(metric_fn: Callable, *, replica_axis: bool = True):
+    """``metric_fn(params, batch)`` -> dict of scalar metrics.  With
+    ``replica_axis`` (the param-avg engines) on the averaged model: the
+    fp32 mean over the replica axis, cast back (the ensemble the paper
+    reports).  Batches carry no replica axis."""
 
     def eval_step(params, batch):
         with torch.no_grad():
-            return metric_fn(tree_map(lambda x: x.mean(0), params), batch)
+            if replica_axis:
+                params = tree_map(
+                    lambda x: x.float().mean(0).to(x.dtype), params)
+            return metric_fn(params, batch)
 
     return eval_step
+
+
+def make_serve_step(decode_fn: Callable):
+    """``decode_fn(params, cache, tokens, pos)`` -> (logits, cache); the
+    greedy serving step feeds back the argmax token."""
+
+    def step(params, cache, tokens, pos):
+        logits, cache = decode_fn(params, cache, tokens, pos)
+        next_tok = logits[:, -1:].argmax(dim=-1).to(tokens.dtype)
+        return next_tok, cache
+
+    return step
+
+
+def local_state(state: TrainState, rank: int) -> TrainState:
+    """Rank ``rank``'s (1, ...) rows of an (R, ...) state, as contiguous
+    copies; 0-d leaves and the step as they are."""
+    return tree_map(lambda x: x[rank:rank + 1].clone()
+                    if torch.is_tensor(x) and x.dim() else x, state)
+
+
+def gather_state(state: TrainState, group: ReplicaGroup):
+    """Every rank's (1, ...) rows gathered into the one-process engine's
+    (R, ...) layout, on the host of rank 0 (None on the others); 0-d
+    leaves and the step are rank 0's.  Every rank must call it."""
+    def one(x):
+        if x.dim() == 0:
+            return x.cpu()
+        parts = group.all_gather(x)
+        return torch.cat([p.cpu() for p in parts]) if group.rank == 0 \
+            else None
+    out = tree_map(lambda x: one(x) if torch.is_tensor(x) else x, state)
+    return out if group.rank == 0 else None
 
 
 def reshape_for_replicas(batch, n_replicas: int):

@@ -6,9 +6,19 @@ olmo-1b``, ``--arch rwkv6-7b``, ``--arch recurrentgemma-9b``, ...).
 Builds the model, loss and data streams, the optimizer (SGD momentum or
 AdamW), the LR controller and the exchange, and hands the loop to
 ``repro_torch.train_loop.TrainSession`` (checkpoint/resume, eval +
-plateau LR, Table-1 metrics).  The R replicas live on the one device
-with a leading replica axis and run one after another; after every
-update they exchange and average their weights and optimizer state.
+plateau LR, Table-1 metrics).  On the reference engine the R replicas
+live on the one device with a leading replica axis and run one after
+another; after every update they exchange and average their weights and
+optimizer state.  ``--engine mesh`` runs them as R processes, one
+replica each, that exchange through ``torch.distributed`` collectives
+(NCCL when each rank has a card of its own, gloo when they share one or
+run on the CPU; the header line names it); the CLI starts the R ranks
+itself, and ``--engine auto`` picks the mesh when ``--replicas`` equals
+the number of cards and is above 1.  ``--exchange-delay 1`` exchanges
+the incoming state one step stale and grafts the update onto it;
+``--exchange-compression bf16`` halves the wire, ``topk`` (with
+``--exchange-delay 1``) sends the ``--topk-frac`` largest entries of
+each leaf's delta from the consensus, with error feedback.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch alexnet \\
         --faithful --replicas 2 --batch 256 --steps 20
@@ -22,6 +32,10 @@ update they exchange and average their weights and optimizer state.
     PYTHONPATH=src python -m repro_torch.launch.train --arch alexnet \\
         --smoke --device cpu --steps 100 --ckpt-dir ck --ckpt-every 10 \\
         --resume
+    # two ranks over gloo, the overlapped exchange with a top-k wire:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch alexnet \\
+        --faithful --smoke --device cpu --replicas 2 --batch 8 \\
+        --engine mesh --exchange-delay 1 --exchange-compression topk
 
 An LM arch trains at its published width in its config's dtype (bf16
 params for the zoo, fp32 optimizer state) on ``markov_lm`` tokens;
@@ -39,14 +53,16 @@ optimizer state, which the exchange averages, and dynamic loss scaling
 that skips a non-finite step on every replica at once (docs/numerics.md
 has the contract; the README says where the port differs).  The im2col
 conv route is fp32 only: its first forward raises under it (ROADMAP
-queue A item 6, A6b).  The moe, vlm and encdec families, the mesh engine, model
-parallelism and the overlapped / compressed exchange are not ported yet
-and raise.
+queue A item 6, A6b).  The moe, vlm and encdec families and model
+parallelism are not ported yet and raise; the mesh engine is one flat
+group (the reference's two-axis ``('pod', 'data')`` layout is queue A
+item 12).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 from typing import Callable
 
 import torch
@@ -55,13 +71,15 @@ from repro_torch import models
 from repro_torch.configs import (ALEXNET, ALEXNET_FAITHFUL,
                                  ALEXNET_FAITHFUL_SMOKE, ALEXNET_SMOKE, ARCHS,
                                  reduced)
-from repro_torch.core.param_avg import ExchangeConfig, replica_spread
+from repro_torch.core.param_avg import (ExchangeConfig, mesh_spread,
+                                        replica_spread)
 from repro_torch.core.steps import (init_param_avg_state, make_eval_step,
+                                    make_mesh_param_avg_step,
                                     make_param_avg_step, reshape_for_replicas)
 from repro_torch.data import synthetic
 from repro_torch.data.preprocess import make_image_preprocess
 from repro_torch.kernels.common import BACKENDS, KernelPolicy, device_of
-from repro_torch.launch import not_ported
+from repro_torch.launch import mesh, not_ported
 from repro_torch.models import alexnet, transformer
 from repro_torch.numerics import (KV_CACHE_DTYPES, dtype_name,
                                   fp32_numerics, get_policy, param_dtype)
@@ -116,17 +134,25 @@ def build_parser():
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--engine", default="auto",
                     choices=["auto", "mesh", "reference"],
-                    help="reference: a leading replica axis on one device "
-                    "(auto picks it); the mesh engine is not ported")
+                    help="mesh: one process per replica, exchanging "
+                    "through torch.distributed collectives; reference: a "
+                    "leading replica axis in one process; auto: mesh when "
+                    "--replicas equals the number of cards and is above 1")
     ap.add_argument("--strategy", default="all_reduce",
                     choices=["all_reduce", "ring", "pairwise", "none"])
     ap.add_argument("--sync-every", type=int, default=1)
-    ap.add_argument("--exchange-delay", type=int, default=0, choices=[0, 1])
+    ap.add_argument("--exchange-delay", type=int, default=0, choices=[0, 1],
+                    help="0: exchange after the update (the paper's path); "
+                    "1: exchange the incoming state one step stale and "
+                    "graft the update onto it")
     ap.add_argument("--exchange-compression", default="none",
-                    choices=["none", "bf16", "topk"])
+                    choices=["none", "bf16", "topk"],
+                    help="bf16 halves the wire; topk sends the largest "
+                    "entries of the delta from the consensus with "
+                    "error-feedback residuals (needs --exchange-delay 1)")
     ap.add_argument("--topk-frac", type=float, default=0.01,
                     help="kept fraction per leaf for --exchange-compression "
-                    "topk (compression is not ported)")
+                    "topk (1.0 = identity, bit-equal to none)")
     ap.add_argument("--replica-exec", default="vmap",
                     choices=["vmap", "scan"],
                     help="the reference's batched (vmap) or sequential "
@@ -196,9 +222,6 @@ def check_ported(args) -> None:
     if args.model_parallel != 1:
         raise not_ported("--model-parallel", "queue A item 12 (the model "
                          "axis needs two or more GPUs)")
-    if args.engine == "mesh":
-        raise not_ported("--engine mesh", "queue A item 4 (the "
-                         "torch.distributed engine)")
 
 
 def numerics_policy(args):
@@ -307,6 +330,23 @@ def make_controller(args):
         threshold=args.plateau_threshold)
 
 
+def pick_engine(args, dev, error) -> str:
+    """``--engine``, with ``auto`` resolved as the reference's CLI does:
+    the mesh when the replicas match the cards one to one, and there are
+    more than one."""
+    engine = args.engine
+    if engine == "auto":
+        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+        engine = "mesh" if (n_dev > 1 and args.replicas == n_dev
+                            and args.replica_exec == "vmap") \
+            else "reference"
+    if engine == "mesh" and args.replica_exec == "scan":
+        error("--replica-exec scan is a reference-engine execution mode "
+              "(the mesh engine runs one replica per device); use "
+              "--engine reference")
+    return engine
+
+
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -319,60 +359,123 @@ def main(argv=None):
     if args.replicas < 1 or args.batch % args.replicas:
         ap.error(f"--batch {args.batch} must split over --replicas "
                  f"{args.replicas}")
-    exch = ExchangeConfig(strategy=args.strategy,
-                          compression=args.exchange_compression,
-                          delay=args.exchange_delay,
-                          sync_every=args.sync_every)
+    try:
+        exch = ExchangeConfig(strategy=args.strategy,
+                              compression=args.exchange_compression,
+                              topk_frac=args.topk_frac,
+                              delay=args.exchange_delay,
+                              sync_every=args.sync_every)
+    except ValueError as e:
+        ap.error(str(e))
     dev = device_of(args.device)
+    cfg = dataclasses.replace(build_cfg(args, ap.error), exchange=exch)
+    engine = pick_engine(args, dev, ap.error)
+    n_rep = args.replicas
+    group = None
+    if engine == "mesh":
+        ranked = mesh.rank_from_env()
+        if ranked is None:
+            # the launcher: start the R ranks of this command line
+            mesh.spawn_ranks("repro_torch.launch.train",
+                             list(sys.argv[1:] if argv is None else argv),
+                             n_rep)
+            return None
+        rank, world, init = ranked
+        if world != n_rep:
+            ap.error(f"rank {rank} of {world} for --replicas {n_rep}")
+        dev = mesh.rank_device(rank, dev)
+        group = mesh.init_replica_group(rank, world, init, dev)
+    try:
+        return train(args, cfg, exch, dev, engine, group)
+    finally:
+        if group is not None:
+            torch.distributed.destroy_process_group()
+
+
+def train(args, cfg, exch, dev, engine, group):
+    """One process's run: the whole of the reference engine's, or one
+    rank's of the mesh engine's (``group``)."""
     fp32_numerics(dev)
-    cfg = build_cfg(args, ap.error)
     build = (build_alexnet if args.arch == "alexnet" else build_lm)(
         args, cfg, dev)
     n_rep = args.replicas
+    rank = 0 if group is None else group.rank
 
     npol = cfg.numerics
     opt = for_numerics(get_optimizer(args.optimizer), npol)
+    # a rank holds one replica: every replica starts the same
     state = init_param_avg_state(torch.Generator().manual_seed(args.seed),
-                                 build.init, opt, n_rep, numerics=npol)
+                                 build.init, opt,
+                                 n_rep if group is None else 1,
+                                 exchange=exch, numerics=npol)
     policy = cfg.kernels.describe()
     n_params = sum(x[0].numel() for x in tree_leaves(state.params))
+    if group is None:
+        def build_step(sched):
+            return make_param_avg_step(build.loss, opt, sched,
+                                       strategy=exch, numerics=npol)
+
+        def rows(b):
+            return reshape_for_replicas(b, n_rep)
+        eval_step = make_eval_step(build.eval_metric_fn)
+    else:
+        def build_step(sched):
+            return make_mesh_param_avg_step(build.loss, opt, sched,
+                                            group=group, strategy=exch,
+                                            numerics=npol)
+
+        def rows(b):
+            # every rank draws the same host batch and keeps its row
+            return tree_map(lambda x: x[rank:rank + 1],
+                            reshape_for_replicas(b, n_rep))
+        inner = make_eval_step(build.eval_metric_fn)
+
+        def eval_step(params, batch):
+            # the averaged model: the ranks' fp32 mean, cast back
+            return inner(tree_map(lambda x: group.mean(x.float()).to(
+                x.dtype), params), batch)
     session = TrainSession(
-        state=state,
-        build_step=lambda sched: make_param_avg_step(
-            build.loss, opt, sched, strategy=exch, numerics=npol),
-        make_stream=lambda: map(lambda b: reshape_for_replicas(b, n_rep),
-                                build.make_stream()),
+        state=state, build_step=build_step,
+        make_stream=lambda: map(rows, build.make_stream()),
         controller=make_controller(args), steps=args.steps, device=dev,
-        eval_step=make_eval_step(build.eval_metric_fn)
-        if args.eval_every else None,
+        eval_step=eval_step if args.eval_every else None,
         make_eval_batches=build.make_eval_batches,
         eval_every=args.eval_every, eval_batches=args.eval_batches,
         plateau_metric=build.plateau_metric, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, resume=args.resume,
         prefetch=args.prefetch, staging=args.staging,
         log_every=args.log_every, images_per_step=args.batch,
-        metrics_path=args.metrics_out,
+        metrics_path=args.metrics_out, group=group,
+        # no "engine": a checkpoint of either engine resumes on the other
         run_meta={"kernels": policy, "numerics": npol.describe(),
-                  "engine": "reference", "strategy": args.strategy,
+                  "strategy": args.strategy,
                   "exchange": exch.describe(), "staging": args.staging,
                   "device": dev.type})
     n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    print(f"arch={cfg.name} replicas={n_rep} devices={n_dev} "
-          + ("" if args.arch == "alexnet" else
-             f"layers={cfg.n_layers} d_model={cfg.d_model} "
-             f"seq_len={args.seq_len} optimizer={args.optimizer} "
-             f"params={n_params} "
-             f"dtype={dtype_name(param_dtype(cfg))} ")
-          + 
-          f"model_parallel=1 engine=reference exchange={exch.describe()} "
-          f"replica_exec=sequential staging={args.staging} "
-          f"kernels={policy} numerics={npol.describe()} device={dev.type} "
-          f"({name})" + (f" resume_from={args.ckpt_dir}" if args.resume
-                         else ""), flush=True)
+    wire = "" if group is None else \
+        f" backend={torch.distributed.get_backend()}"
+    if rank == 0:
+        print(f"arch={cfg.name} replicas={n_rep} devices={n_dev} "
+              + ("" if args.arch == "alexnet" else
+                 f"layers={cfg.n_layers} d_model={cfg.d_model} "
+                 f"seq_len={args.seq_len} optimizer={args.optimizer} "
+                 f"params={n_params} "
+                 f"dtype={dtype_name(param_dtype(cfg))} ")
+              + f"model_parallel=1 engine={engine}{wire} "
+              f"exchange={exch.describe()} "
+              f"replica_exec={'sequential' if group is None else 'ranks'} "
+              f"staging={args.staging} "
+              f"kernels={policy} numerics={npol.describe()} "
+              f"device={dev.type} ({name})"
+              + (f" resume_from={args.ckpt_dir}" if args.resume else ""),
+              flush=True)
     result = session.run()
-    spread = replica_spread(result.state.params)
+    spread = replica_spread(result.state.params) if group is None else \
+        mesh_spread(result.state.params, group)
+    if rank:
+        return result
     summ = result.summary
     unit = "images" if args.arch == "alexnet" else "sequences"
     through = (f"; {unit}/sec {summ['images_per_sec']} "

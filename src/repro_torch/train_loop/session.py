@@ -22,6 +22,12 @@ and makes it deterministic under kill/resume:
 * **Schedule**: the LR controller's decision state rides in the manifest
   meta, so a resumed session drops the LR at the same step.
 * **Eval**: stateless by construction (``train_loop.eval``).
+* **Mesh engine** (``group``, one replica per rank): every rank runs
+  the session on its (1, ...) rows of the state and its row of each
+  batch; rank 0 alone logs and writes metrics.  A checkpoint gathers the
+  ranks' rows into the one-process engine's (R, ...) layout on rank 0,
+  and a restore hands each rank its row, so ``--resume`` crosses
+  engines both ways.
 
 Bit-exact resume also needs the step itself to be deterministic: on the
 CPU it is; on a GPU the library's conv-grad must run deterministic
@@ -38,11 +44,15 @@ import dataclasses
 import time
 from typing import Any, Callable, Optional
 
+import torch
+
 from repro_torch import checkpoint
+from repro_torch.core.steps import gather_state, local_state
 from repro_torch.data.pipeline import make_loader, to_device
 from repro_torch.optim import schedules
 from repro_torch.train_loop.eval import run_eval, take
 from repro_torch.train_loop.metrics import MetricsWriter
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -75,6 +85,7 @@ class TrainSession:
       images_per_step: global batch items per step (Table 1's unit).
       run_meta: rides in the checkpoint manifest; resume warns when the
         resumed run's differs.
+      group: the mesh engine's ``ReplicaGroup`` (None: one process).
     """
 
     def __init__(self, *, state, build_step: Callable, make_stream: Callable,
@@ -85,7 +96,7 @@ class TrainSession:
                  resume: bool = False, prefetch: int = 2,
                  staging: str = "queue", log_every: int = 10,
                  images_per_step: int = 0, metrics_path: Optional[str] = None,
-                 run_meta: Optional[dict] = None):
+                 run_meta: Optional[dict] = None, group=None):
         if resume and not ckpt_dir:
             raise ValueError("--resume needs a checkpoint directory")
         self.state = state
@@ -111,6 +122,8 @@ class TrainSession:
         self.images_per_step = images_per_step
         self.metrics_path = metrics_path
         self.run_meta = run_meta or {}
+        self.group = group
+        self.lead = group is None or group.rank == 0   # logs and writes
         self._ff_batches = 0          # train batches to skip on resume
         self._eval_cache = None       # the eval batches never change
 
@@ -119,15 +132,22 @@ class TrainSession:
         step = checkpoint.latest_step(self.ckpt_dir) if self.resume else None
         if step is None:
             return 0
-        self.state = checkpoint.restore(self.ckpt_dir, step, self.state,
-                                        device=self.device)
+        if self.group is None:
+            self.state = checkpoint.restore(self.ckpt_dir, step, self.state,
+                                            device=self.device)
+        else:
+            full = checkpoint.restore(self.ckpt_dir, step, self.state,
+                                      device="cpu")
+            self.state = tree_map(
+                lambda x: x.to(self.device) if torch.is_tensor(x) else x,
+                local_state(full, self.group.rank))
         meta = checkpoint.load_meta(self.ckpt_dir, step) or {}
         if "controller" in meta:
             self.controller.load_state_dict(meta["controller"])
         saved = meta.get("run_meta") or {}
         drift = {k: (saved.get(k), v) for k, v in self.run_meta.items()
                  if k in saved and saved.get(k) != v}
-        if drift:
+        if drift and self.lead:
             print("WARNING: resuming under a different configuration than "
                   "the checkpoint was written with — the continued loss "
                   "trace will NOT be bit-exact: "
@@ -138,8 +158,12 @@ class TrainSession:
         return step
 
     def _save(self, step: int):
+        state = self.state if self.group is None else \
+            gather_state(self.state, self.group)
+        if not self.lead:
+            return
         checkpoint.save(
-            self.ckpt_dir, step, self.state,
+            self.ckpt_dir, step, state,
             meta={"controller": self.controller.state_dict(),
                   "batches_consumed": step,
                   "plateau_metric": self.plateau_metric,
@@ -157,6 +181,7 @@ class TrainSession:
         result.evals.append((step, avg))
         if dropped:
             result.lr_drops.append(step)
+        if dropped and self.lead:
             print(f"step {step:5d} eval "
                   f"{self.plateau_metric}={avg[self.plateau_metric]:.4f} "
                   f"plateaued -> lr {self.controller.lr:.2e}", flush=True)
@@ -166,12 +191,14 @@ class TrainSession:
         start = self._try_restore() if self.ckpt_dir else 0
         result = SessionResult(start, start, self.state, [], [], [], {})
         if start >= self.steps:
-            print(f"checkpoint at step {start} >= --steps {self.steps}; "
-                  "nothing to do", flush=True)
+            if self.lead:
+                print(f"checkpoint at step {start} >= --steps "
+                      f"{self.steps}; nothing to do", flush=True)
             return result
 
         writer = MetricsWriter(
-            self.metrics_path, images_per_step=self.images_per_step,
+            self.metrics_path if self.lead else None,
+            images_per_step=self.images_per_step,
             resume_step=start if start else None)
         loader = None
         warming = True                    # the first step builds kernels
@@ -216,7 +243,7 @@ class TrainSession:
                                  skipped_steps=int(ns["skipped"])
                                  if ns is not None else None)
                 warming = False
-                if at_log:
+                if at_log and self.lead:
                     print(f"step {i + 1:5d} loss {loss_f:.4f} "
                           f"({(time.perf_counter() - t_session) / (i + 1 - start):.3f}"
                           "s/step)", flush=True)

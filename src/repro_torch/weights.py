@@ -20,8 +20,10 @@ parameter-averaging ``TrainState`` of either: params (in the config's
 ``param_dtype``, bf16 under the bf16 numerics preset) and the optimizer
 state (``{"velocity"}`` for SGD, ``{"mu", "nu", "count"}`` for AdamW,
 fp32, under ``{"master": fp32 masters, "inner": ...}`` with master
-weights) with a leading replica axis R, the step, and the loss-scale
-state (``numerics``: scale, good_steps, skipped) when there is one.
+weights) with a leading replica axis R, the step, the delayed
+exchange's state (``exchange``: ``base`` and fp32 ``residual``) and the
+loss-scale state (``numerics``: scale, good_steps, skipped) when there
+are.
 
 ``decode_state_from_reference`` / ``decode_state_to_reference`` carry a
 serving ``DecodeState`` (the stacked ring KV cache, or the block pool,
@@ -175,6 +177,36 @@ def _opt_from_reference(src, params_tree, n_rep, dev, path="opt_state"):
     return out
 
 
+def _exchange_from_reference(aux, params, opt_state, dev):
+    """The delayed exchange's state (None, or ``base`` shaped and typed
+    like (params, opt_state) and ``residual`` fp32 of the same shapes),
+    each leaf checked against the converted state."""
+    if aux is None:
+        return None
+
+    def like(src, tmpl, dtype, path):
+        if isinstance(tmpl, dict):
+            return {k: like(src[k], v, dtype, f"{path}/{k}")
+                    for k, v in tmpl.items()}
+        if isinstance(tmpl, (list, tuple)):
+            if len(src) != len(tmpl):
+                raise ValueError(f"{path}: {len(src)} entries, expected "
+                                 f"{len(tmpl)}")
+            return type(tmpl)(like(a, b, dtype, f"{path}/{i}")
+                              for i, (a, b) in enumerate(zip(src, tmpl)))
+        arr = np.asarray(src)
+        want = dtype_name(dtype or tmpl.dtype)
+        if tuple(arr.shape) != tuple(tmpl.shape) or arr.dtype.name != want:
+            raise ValueError(f"{path}: got {arr.dtype.name}{arr.shape}, "
+                             f"expected {want}{tuple(tmpl.shape)}")
+        return to_torch(arr, dev)
+
+    tree = (params, opt_state)
+    return {"base": like(aux["base"], tree, None, "exchange/base"),
+            "residual": like(aux["residual"], tree, torch.float32,
+                             "exchange/residual")}
+
+
 def _numerics_from_reference(ns, dev):
     """The loss-scale state (None, or fp32 scale and int32 counters)."""
     if ns is None:
@@ -195,8 +227,9 @@ def _numerics_from_reference(ns, dev):
 def state_from_reference(state, cfg, *, device=None) -> TrainState:
     """The port's ``TrainState`` on ``device`` for the reference's (any
     object with ``params``, ``opt_state`` and ``step``, and optionally
-    ``numerics``): R replicas' params, optimizer state (masters
-    included) and loss-scale state, copied bit for bit."""
+    ``exchange`` and ``numerics``): R replicas' params, optimizer state
+    (masters included), the delayed exchange's base and residual and the
+    loss-scale state, copied bit for bit."""
     if cfg.family != "conv":
         return _lm_state_from_reference(state, cfg, device)
     dev = device_of(device)
@@ -218,9 +251,12 @@ def state_from_reference(state, cfg, *, device=None) -> TrainState:
                         zip(src[g], shapes[g], strict=True))]
                 for g in ("convs", "fcs")}
 
-    return TrainState(tree(state.params, param_dtype(cfg)),
-                      _opt_from_reference(state.opt_state, tree, n_rep, dev),
-                      int(np.asarray(state.step)),
+    params = tree(state.params, param_dtype(cfg))
+    opt = _opt_from_reference(state.opt_state, tree, n_rep, dev)
+    return TrainState(params, opt, int(np.asarray(state.step)),
+                      _exchange_from_reference(
+                          getattr(state, "exchange", None), params, opt,
+                          dev),
                       _numerics_from_reference(
                           getattr(state, "numerics", None), dev))
 
@@ -237,6 +273,9 @@ def _lm_state_from_reference(state, cfg, device) -> TrainState:
         lambda src, dt, path: _convert(src, shapes, dt, dev, path), n_rep,
         dev)
     return TrainState(params, opt, int(np.asarray(state.step)),
+                      _exchange_from_reference(
+                          getattr(state, "exchange", None), params, opt,
+                          dev),
                       _numerics_from_reference(
                           getattr(state, "numerics", None), dev))
 
@@ -247,6 +286,7 @@ def state_to_reference(state: TrainState) -> dict:
     return {"params": tree_map(to_numpy, state.params),
             "opt_state": tree_map(to_numpy, state.opt_state),
             "step": np.asarray(state.step, np.int32),
+            "exchange": tree_map(to_numpy, state.exchange),
             "numerics": tree_map(to_numpy, state.numerics)}
 
 

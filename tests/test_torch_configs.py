@@ -8,10 +8,10 @@ from repro_torch.configs import alexnet as port_cfgs
 
 NAMES = ["CONFIG", "SMOKE", "FAITHFUL", "FAITHFUL_SMOKE"]
 # fields of the reference the port leaves out until it has their slices
-NOT_PORTED = {"exchange"}
+NOT_PORTED = set()
 # the port's policy types are its own (backends auto|plain|cuda; torch
 # dtypes), compared field by field below
-OWN_TYPE = {"kernels", "numerics"}
+OWN_TYPE = {"kernels", "exchange", "numerics"}
 
 
 def _fields(cfg):
@@ -29,8 +29,9 @@ def test_config_fields_match_reference(name):
                 [dataclasses.asdict(c) for c in ref.convs]
         else:
             assert getattr(port, f) == getattr(ref, f), f
-    assert dataclasses.asdict(port.numerics) == \
-        dataclasses.asdict(ref.numerics)
+    for f in ("exchange", "numerics"):
+        assert dataclasses.asdict(getattr(port, f)) == \
+            dataclasses.asdict(getattr(ref, f)), f
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -308,7 +308,7 @@ def test_loss_scaled_step_matches_reference_and_skips_the_poisoned_step():
     state = steps.TrainState(
         tree_map(weights.to_torch, _host(jstate.params)),
         tree_map(weights.to_torch, _host(jstate.opt_state)), 0,
-        numerics.init_loss_scale_state(BF16))
+        numerics=numerics.init_loss_scale_state(BF16))
     ulps = []
 
     class UlpChecked(param_avg.Exchanger):

@@ -90,16 +90,26 @@ def test_exchange_strategies_match_reference(strategy, r):
 
 
 def test_exchange_options_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        param_avg.ExchangeConfig(delay=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        param_avg.ExchangeConfig(compression="bf16")
-    with pytest.raises(ValueError, match="unknown strategy"):
-        param_avg.ExchangeConfig(strategy="gossip")
+    """The overlapped exchange and its compressions are ported: the
+    port's ``ExchangeConfig`` takes and refuses what the reference's
+    does, with the same messages, and describes itself the same way."""
+    for kw in (dict(), dict(sync_every=2), dict(delay=1),
+               dict(delay=1, compression="bf16"), dict(compression="bf16"),
+               dict(delay=1, compression="topk", topk_frac=0.05),
+               dict(strategy="ring", delay=1, sync_every=3)):
+        assert param_avg.ExchangeConfig(**kw).describe() == \
+            jax_pa.ExchangeConfig(**kw).describe()
+    for kw in (dict(delay=2), dict(sync_every=0), dict(strategy="gossip"),
+               dict(compression="zip"), dict(compression="topk"),
+               dict(compression="topk", delay=1, topk_frac=0.0),
+               dict(compression="topk", delay=1, strategy="ring")):
+        with pytest.raises(ValueError) as want:
+            jax_pa.ExchangeConfig(**kw)
+        with pytest.raises(ValueError) as got:
+            param_avg.ExchangeConfig(**kw)
+        assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="power-of-two"):
         param_avg.Exchanger("pairwise").average(torch.zeros(3, 2))
-    assert param_avg.ExchangeConfig(sync_every=2).describe() == \
-        jax_pa.ExchangeConfig(sync_every=2).describe()
 
 
 @pytest.mark.parametrize("sync_every", [1, 2])
@@ -267,16 +277,48 @@ def test_plateau_schedule_drives_eval(tmp_path):
 @pytest.mark.parametrize("extra,match", [
     (["--arch", "mixtral-8x7b"], "ROADMAP.md queue A item 8"),
     (["--model-parallel", "2"], "ROADMAP.md queue A item 12"),
-    (["--engine", "mesh"], "ROADMAP.md queue A item 4"),
+    # the mesh engine (queue A item 4) is ported: two gloo ranks train,
+    # and the reference engine resumes from their checkpoint
+    (["--engine", "mesh"], "runs"),
     # the numerics policy (queue A item 6) is ported: the bf16 preset runs
     (["--numerics", "bf16"], None),
-    (["--exchange-delay", "1"], "ROADMAP.md queue A"),
-    (["--exchange-compression", "topk"], "ROADMAP.md queue A"),
+    # the overlapped exchange (A4) is ported: it runs, with a top-k wire
+    (["--exchange-delay", "1", "--exchange-compression", "topk"], "runs"),
+    # ... and top-k without the delay is the reference's usage error
+    (["--exchange-compression", "topk"], "usage"),
     # ... but not the im2col route's GEMM in bf16 (A6b)
     (["--numerics", "bf16", "--conv-backend", "im2col_ref"],
      r"ROADMAP.md queue A item 6 \(A6b"),
 ])
-def test_cli_refuses_what_is_not_ported(extra, match):
+def test_cli_refuses_what_is_not_ported(extra, match, tmp_path, capfd):
+    if match == "runs":
+        ck, a, b = (str(tmp_path / n) for n in ("ck", "a.jsonl", "b.jsonl"))
+        train_cli.main(CLI + ["--steps", "2", "--ckpt-dir", ck,
+                              "--ckpt-every", "2", "--metrics-out", a]
+                       + extra)
+        header = capfd.readouterr().out.splitlines()[0]
+        engine = "mesh backend=gloo" if "mesh" in extra else "reference"
+        assert f"engine={engine} " in header
+        losses = [r["loss"] for r in read_jsonl(a, "train")]
+        assert len(losses) == 2 and all(map(math.isfinite, losses))
+        # the one-process engine picks the run up at step 2
+        flags = [f for f in extra if f not in ("--engine", "mesh")]
+        res = train_cli.main(CLI + ["--steps", "3", "--ckpt-dir", ck,
+                                    "--resume", "--metrics-out", b] + flags)
+        assert (res.start_step, res.final_step) == (2, 3)
+        if "mesh" in extra:
+            # the two ranks' losses are the one-process engine's
+            c = str(tmp_path / "c.jsonl")
+            train_cli.main(CLI + ["--steps", "2", "--metrics-out", c])
+            assert [r["loss"] for r in read_jsonl(c, "train")] == losses
+        return
+    if match == "usage":
+        with pytest.raises(ValueError) as want:
+            jax_pa.ExchangeConfig(compression="topk")
+        with pytest.raises(SystemExit):
+            train_cli.main(CLI + ["--steps", "1"] + extra)
+        assert str(want.value) in capfd.readouterr().err
+        return
     if match is None:
         res = train_cli.main(CLI + ["--steps", "2"] + extra)
         assert res.final_step == 2
