@@ -29,6 +29,12 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    bit-equal, timed beside the plain version, the entry's mma_sync body,
    cuDNN's bf16 conv on channels-last and ``F.local_response_norm`` in
    bf16 (yardsticks only) and the bound (989 TFLOP/s bf16 or 3.35 TB/s);
+   then ``matmul_bias``'s bf16 entry (``gemm_bf16``) at Mixtral's expert
+   products at capacity 640 (forward, dx, dw), the decode products at M
+   = 16 and AlexNet's 14 im2col products at batch 32, each element within
+   one bf16 ulp of the plain version (or 1e-5 of max |y| near zero),
+   the differing elements counted, two calls bit-equal, timed beside the
+   plain version, ``torch.matmul`` in bf16 (a yardstick) and the bound;
 4. flash kernel phase: the flash-attention forward, dq and dk/dv kernels
    against their plain versions (fp32: 2e-4 forward, 2e-3 grads; bf16:
    3e-2) at the LM training shape (B=4, H=16, S=2048, hd=128, causal) and
@@ -112,7 +118,9 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
 9. im2col training phase: 3 steps at 2 x 32 under
    ``--conv-backend im2col_ref`` count the GEMM kernel's launches (5
    forward, 5 dw and 4 dx per replica and step: conv1's dx is not
-   needed) and hold the losses against the fused backend;
+   needed) and hold the losses against the fused backend; then the same
+   under the bf16 preset on the bf16 GEMM entry, against the fused bf16
+   conv (2e-2);
 10. LM training phase: ``TrainSession`` trains ``olmo-1b`` at full width
    (16 layers, d_model 2048, bf16 params, fp32 velocity), 2 replicas x 4
    sequences x 2048 tokens, SGD momentum, every-step all-reduce, on
@@ -188,6 +196,19 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    each flash kernel per attn layer), spread 0 after every step, the
    peak memory, three timed windows of 3 steps and a traced one (device
    ms by family, the WKV backward's plain recompute booked apart);
+   Then Mixtral-8x7B (``moe_serving``, ``moe_train``): serving at full
+   width and 16 of its 32 layers in bf16 (8 slots, capacity 2048,
+   prompts of 256-1024, 32 new tokens): first a 2-layer bf16 prefill on
+   the ``matmul="kernel"`` route (48 GEMM launches) anchored to fp32
+   beside the batched product; one wave on the ring and one on the block
+   pool (full attention) with 16 ``flash_fwd`` per prefill and 16 decode
+   launches per tick; a timed window of 16 requests, one traced of 8
+   (idle share, device ms by family) and a speculative wave drafting 4
+   tokens with the first 2 layers; training at full width and 2 of 32
+   layers, 2 x 2048 tokens, bf16 params, fp32 velocity: 4 steps on the
+   batched product, then 3 on the GEMM kernel from a fresh state of the
+   same seed (288 GEMM launches a step), the losses within 2e-2, step
+   p50, tokens/s and peak memory of each;
 13. tier phase: ``olmo-1b`` as a multi-process tier on the card, 2 engine
    workers of 8 slots (capacity 2048) and a prefill worker, each a
    ``python -m repro_torch.launch.serve --role ...`` process on the
@@ -232,9 +253,10 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    one-process engine resumes to step 6, all six losses held against
    the uninterrupted one-process run, then 3 steps of ``--exchange-delay
    1 --exchange-compression topk`` on the mesh held against the same on
-   one process; the chains of child processes (serve, speculative
-   serve, tier, each train CLI's runs, the mesh runs) run side by
-   side, sharing the card;
+   one process; ``--arch mixtral-8x7b`` trained at 1 layer (2 x 2 x
+   256, 3 steps) and served at 2 layers; the chains of child processes
+   (serve, speculative serve, tier, each train CLI's runs, the mesh
+   runs, Mixtral's) run side by side, sharing the card;
 15. prints the card again, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -431,6 +453,7 @@ def lm_family(name: str) -> str:
                                   "decode_merge")),
                       ("flash_dq", ("flash_dq_kernel",)),
                       ("flash_dkv", ("flash_dkv_kernel",)),
+                      ("matmul_bias", ("matmul_bias",)),
                       ("gemm", ("gemm", "nvjet", "xmma", "cutlass",
                                 "cublas")),
                       ("embed_xent", ("embedding", "indexselect",
@@ -1281,6 +1304,7 @@ def launch_counts():
         ("wkv_fwd", wkv_fwd), ("rglru_fwd", rglru_fwd))}
     out["conv2d_fused_bf16"] = (conv2d_fused, "launches_bf16")
     out["lrn_bf16"] = (lrn, "launches_bf16")
+    out["matmul_bias_bf16"] = (matmul_bias, "launches_bf16")
     return out
 
 
@@ -2835,10 +2859,10 @@ def lm_serve_parity(seed):
     del params
 
 
-def lm_serve_counts(params, cfg, prompts, block_size):
-    """One wave of SERVE_SLOTS requests with the launch counts set to 0
-    just before and read just after: n_layers flash_fwd launches per
-    prefill and n_layers decode launches per tick."""
+def lm_serve_counts(params, cfg, prompts, block_size, new=SERVE_NEW):
+    """One wave of SERVE_SLOTS requests of ``new`` tokens with the launch
+    counts set to 0 just before and read just after: n_layers flash_fwd
+    launches per prefill and n_layers decode launches per tick."""
     from repro_torch.serving import Request, ServingEngine
 
     # the pool holds every slot's blocks and its tail snapshot, so the
@@ -2849,7 +2873,7 @@ def lm_serve_counts(params, cfg, prompts, block_size):
     eng = ServingEngine(params, cfg, slots=SERVE_SLOTS,
                         capacity=SERVE_CAPACITY, block_size=block_size,
                         num_blocks=nb)
-    reqs = [Request(prompt=p, max_new_tokens=SERVE_NEW)
+    reqs = [Request(prompt=p, max_new_tokens=new)
             for p in prompts[:SERVE_SLOTS]]
     torch.cuda.synchronize()
     zero_counts()
@@ -2865,8 +2889,9 @@ def lm_serve_counts(params, cfg, prompts, block_size):
     want.update(flash_fwd=cfg.n_layers * prefills)
     want[decode] = cfg.n_layers * eng.decode_steps
     if launches != want:
-        raise AssertionError(f"LM serving launches {launches} != {want}")
-    if any(len(r.tokens) != SERVE_NEW for r in res):
+        raise AssertionError(f"{cfg.name} serving launches {launches} != "
+                             f"{want}")
+    if any(len(r.tokens) != new for r in res):
         raise AssertionError("every request must get its new tokens")
     return {"block_size": block_size, "launches": launches,
             "prefills": prefills, "prefills_skipped": skipped,
@@ -3874,6 +3899,506 @@ def _tier_checks(seed, fp32, bf16, a, c, t_start):
             "launches": launches}
 
 
+# ------------------------------------------------ the moe family (A8b) ----
+
+MOE_ARCH = "mixtral-8x7b"
+MOE_SERVE_LAYERS = 16          # of 32: 47 GB of bf16 weights on 80 GB
+MOE_PARITY_LAYERS = 2
+MOE_TRAIN_LAYERS = 2           # of 32: two replicas' state is 23 GB a layer
+MOE_TRAIN_SEQ = 2048           # tokens per replica
+MOE_SERVE_NEW = 32
+MOE_SERVE_REQUESTS = 16        # the timed and the traced windows
+MOE_DRAFT_LAYERS = 2
+MOE_TRAIN_STEPS = 3            # a route's steps; the einsum route runs one
+                               # more first, untimed
+GEMM_BF16_ATOL = 1e-5          # of max |y|: near-zero outputs (see below)
+
+
+def mixtral_gemm_cases(cfg, cap):
+    """(group, product, M, K, N, trans_a, trans_b, launches per expert in
+    a replica's training step) of the expert FFN's GEMMs at capacity
+    ``cap``: the forward of w_in and w_gate ((C, d) @ (d, f), twice) and
+    w_out ((C, f) @ (f, d)), then each one's dx = dy @ w^T and dw = x^T @
+    dy."""
+    d, f = cfg.d_model, cfg.d_ff
+    return [("mixtral", "fwd w_in/w_gate", cap, d, f, False, False, 2),
+            ("mixtral", "fwd w_out", cap, f, d, False, False, 1),
+            ("mixtral", "dx w_in/w_gate", cap, f, d, False, True, 2),
+            ("mixtral", "dw w_in/w_gate", d, cap, f, True, False, 2),
+            ("mixtral", "dx w_out", cap, d, f, False, True, 1),
+            ("mixtral", "dw w_out", f, cap, d, True, False, 1)]
+
+
+def gemm_bf16_phase(gen):
+    """``matmul_bias``'s bf16 entry at the products the main paths give
+    it: Mixtral's expert FFN at C = 640 (2048 tokens x top-2 x 1.25 / 8;
+    forward, dx and dw), a decode tick's products at M = 16 (8 slots x
+    top-2, dropless), and AlexNet's 14 im2col products at batch 32, bf16
+    operands.  Each against the plain version (fp32 sum, one rounding):
+    every element within one bf16 ulp, or, near zero, within
+    GEMM_BF16_ATOL of max |y| (where a bf16 ulp is below the fp32 sums'
+    own error); the count of elements that differ (``bf16_flips``); two
+    calls bit-equal.  Timed beside the plain version, ``torch.matmul`` in
+    bf16 (+ bias, ReLU; a yardstick only) and the bound, max(2MNK / 989
+    TFLOP/s, bytes / 3.35 TB/s).  The totals sum one expert's 9 products
+    of a training step (the main path)."""
+    from repro_torch.configs import ALEXNET_FAITHFUL, ARCHS
+    from repro_torch.kernels.conv2d import ops as conv_ops
+    from repro_torch.kernels.conv2d.ref import matmul_bias_ref
+    from repro_torch.models.moe import capacity
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mix = ARCHS[MOE_ARCH]
+    cap = capacity(MOE_TRAIN_SEQ, mix.moe.top_k, mix.moe.capacity_factor,
+                   mix.moe.n_experts)
+    cases = mixtral_gemm_cases(mix, cap)
+    cases += [("decode", "fwd w_in/w_gate", 16, mix.d_model, mix.d_ff,
+               False, False, 0),
+              ("decode", "fwd w_out", 16, mix.d_ff, mix.d_model, False,
+               False, 0)]
+    cases += [(f"alexnet {layer}", product, m, k, n, ta, tb, 0)
+              for layer, product, m, k, n, ta, tb in gemm_cases(
+                  ALEXNET_FAITHFUL, IM2COL_BATCH)]
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "max_abs_err": 0.0, "flops": 0.0, "bytes": 0.0}
+    for group, product, m, k, n, ta, tb, per_expert in cases:
+        a = torch.randn((k, m) if ta else (m, k), generator=gen,
+                        device=dev).to(bf)
+        b = (torch.randn((n, k) if tb else (k, n), generator=gen,
+                         device=dev) * k ** -0.5).to(bf)
+        a, b = (a.t() if ta else a), (b.t() if tb else b)
+        relu = group.startswith("alexnet") and product == "forward"
+        bias = (torch.randn((n,), generator=gen, device=dev).to(bf)
+                if relu else None)
+        what = f"matmul_bias_bf16 {group} {product}"
+        with torch.inference_mode():
+            got = conv_ops.matmul_bias(a, b, bias, relu=relu, backend="cuda")
+            torch.cuda.synchronize()
+            want = matmul_bias_ref(a, b, bias, relu)
+            g, w = got.float(), want.float()
+            err = (g - w).abs()
+            ulp = torch.where(w == 0, torch.full_like(w, 2.0 ** -133),
+                              2.0 ** (torch.floor(torch.log2(w.abs())) - 7))
+            top = w.abs().max().item()
+            beyond = int(((err > ulp * 1.0001)
+                          & (err > GEMM_BF16_ATOL * top)).sum().item())
+            if beyond or not torch.isfinite(g).all():
+                raise AssertionError(f"{what}: {beyond} elements beyond one "
+                                     f"bf16 ulp (max |err| "
+                                     f"{err.max().item():.3e})")
+            flips = bf16_flips(got, want)
+            split = conv_ops.gemm_split(m, n, k, sms, bf)
+            if not torch.equal(got, conv_ops.matmul_bias(
+                    a, b, bias, relu=relu, backend="cuda")):
+                raise AssertionError(f"{what}: two calls differ (split "
+                                     f"{split})")
+
+            def library():
+                y = torch.matmul(a, b)
+                if bias is not None:
+                    y = y + bias
+                return torch.relu(y) if relu else y
+
+            lib_flips = bf16_flips(library(), want)
+            k_ms = time_ms(lambda: conv_ops.matmul_bias(
+                a, b, bias, relu=relu, backend="cuda"), reps=10)
+            p_ms = time_ms(lambda: matmul_bias_ref(a, b, bias, relu),
+                           reps=10)
+            l_ms = time_ms(library, reps=10)
+        flops = 2.0 * m * n * k
+        nbytes = 2.0 * (m * k + k * n + m * n + (n if bias is not None
+                                                 else 0))
+        bound, bound_by = _bound(flops, nbytes, BF16_PEAK)
+        row = {"phase": "kernel", "kernel": "matmul_bias_bf16",
+               "group": group, "product": product, "m": m, "k": k, "n": n,
+               "trans_a": ta, "trans_b": tb, "relu": relu,
+               "launches_per_expert_step": per_expert,
+               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "library": "torch.matmul in bf16 (+ bias, ReLU)",
+               "bound_ms": bound, "bound_by": bound_by,
+               "assumes": "989 TFLOP/s bf16 tensor cores, 3.35 TB/s",
+               "flops": flops, "bytes": nbytes,
+               "tflops": flops / (k_ms * 1e-3) / 1e12,
+               "share_of_bound": bound / k_ms,
+               "blocks": (-(-m // conv_ops.GEMM_BF16_BM)
+                          * -(-n // conv_ops.GEMM_BF16_BN) * split),
+               "split": split, "max_err": err.max().item(),
+               "bf16_flips": flips, "library_flips": lib_flips}
+        emit(row)
+        tot["max_abs_err"] = max(tot["max_abs_err"], row["max_err"])
+        for key, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                         ("bound_ms", "bound_ms"),
+                         ("library_ms", "library_ms"), ("flops", "flops"),
+                         ("bytes", "bytes")):
+            tot[key] += per_expert * row[src]
+        del a, b, got, want, g, w, err, ulp
+    tot["bound_by"] = _bound(tot["flops"], tot["bytes"], BF16_PEAK)[1]
+    tot["tolerance"] = (f"1 bf16 ulp, or {GEMM_BF16_ATOL} x max |y| near "
+                        "zero")
+    tot["library"] = "torch.matmul in bf16"
+    return {"matmul_bias_bf16": tot}
+
+
+def moe_layers(cfg) -> int:
+    from repro_torch.models import transformer
+    return transformer.layer_kinds(cfg).count("moe")
+
+
+def moe_serve_parity(seed):
+    """Mixtral at full width and MOE_PARITY_LAYERS layers in bf16: the
+    prefill's logits on the ``matmul`` opt-in (the bf16 GEMM kernel) and
+    on the library's batched product, each held to the same weights'
+    fp32 logits (``anchored_check``), with the GEMM's launches counted:
+    3 per expert and moe layer in one forward."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.tree import tree_map
+
+    base = dataclasses.replace(ARCHS[MOE_ARCH], n_layers=MOE_PARITY_LAYERS)
+    cfg = dataclasses.replace(base, kernels=KernelPolicy("auto"))
+    kcfg = dataclasses.replace(base, kernels=KernelPolicy("auto",
+                                                          matmul="kernel"))
+    cfg32 = dataclasses.replace(base, dtype="float32",
+                                kernels=KernelPolicy("auto"))
+    params = models.init(cfg, torch.Generator().manual_seed(seed),
+                         device="cuda")
+    prompts = serve_prompts(cfg.vocab_size, SERVE_SLOTS, seed + 61)
+    b = SERVE_SLOTS
+    out, counts = {}, {}
+    with torch.inference_mode():
+        toks = torch.zeros((b, SERVE_PROMPT[1]), dtype=torch.long,
+                           device="cuda")
+        lengths = torch.tensor([len(p) for p in prompts], device="cuda")
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = torch.as_tensor(p)
+        last = lengths - 1
+        for name, c, prm in (("einsum", cfg, params), ("kernel", kcfg,
+                                                       params)):
+            torch.cuda.synchronize()
+            zero_counts()
+            logits, _ = models.prefill(prm, c, toks, SERVE_CAPACITY,
+                                       length=lengths)
+            torch.cuda.synchronize()
+            counts[name] = read_counts()
+            out[name] = logits[torch.arange(b), last].float()
+            del logits
+        params32 = tree_map(lambda t: t.float(), params)
+        del params, prm
+        logits, _ = models.prefill(params32, cfg32, toks, SERVE_CAPACITY,
+                                   length=lengths)
+        out["fp32"] = logits[torch.arange(b), last].float()
+        del logits, params32
+    n_moe = moe_layers(cfg)
+    gemm = 3 * cfg.moe.n_experts * n_moe
+    for name, want in (("einsum", want_counts(flash_fwd=cfg.n_layers)),
+                       ("kernel", want_counts(flash_fwd=cfg.n_layers,
+                                              matmul_bias_bf16=gemm))):
+        if counts[name] != want:
+            raise AssertionError(f"mixtral {name} prefill launches "
+                                 f"{counts[name]} != {want}")
+    check = anchored_check("mixtral bf16 prefill, GEMM kernel vs batched "
+                           "product", out["kernel"], out["einsum"],
+                           out["fp32"])
+    emit({"phase": "moe_serve_parity", "config": cfg.name,
+          "layers": MOE_PARITY_LAYERS, "d_model": cfg.d_model,
+          "dtype": cfg.dtype, "rows": b, "prompt_tokens": list(SERVE_PROMPT),
+          "capacity_factor": cfg.moe.capacity_factor,
+          "kernel_route_launches": counts["kernel"],
+          "gemm_launches_per_prefill": gemm,
+          "tolerance": f"kernel's relative L2 to fp32 <= {BF16_NOISE_RATIO}"
+          " x the batched product's", **check})
+    return counts["kernel"]
+
+
+def moe_serve_phase(seed):
+    """Mixtral-8x7B at full width and MOE_SERVE_LAYERS of its 32 layers
+    in bf16 (47 GB of weights), 8 slots, capacity 2048, greedy, prompts
+    of 256-1024 tokens, MOE_SERVE_NEW new tokens, the default route (the
+    library's batched expert product; prefill at the configured capacity
+    factor, decode dropless).  The 2-layer GEMM-kernel parity runs
+    first.  One wave on the ring and one on the block pool (full
+    attention: the window of 4096 lies beyond the capacity of 2048, so
+    no token sees it, and the pool, like the reference's, takes no
+    window) with the launch counts read around each (no GEMM kernel on
+    the default route).  Then a timed window of
+    MOE_SERVE_REQUESTS requests from 8 closed-loop clients, one more
+    under ``torch.profiler`` (device ms a tick, idle share), and one
+    speculative wave drafting SPEC_TOKENS tokens with the first
+    MOE_DRAFT_LAYERS layers."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import models
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.spec_decode import truncated_draft
+
+    seconds, t_phase = {}, time.perf_counter()
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t_phase
+
+    parity = moe_serve_parity(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lap("parity")
+    cfg = dataclasses.replace(ARCHS[MOE_ARCH], n_layers=MOE_SERVE_LAYERS,
+                              kernels=KernelPolicy("auto"))
+    params = models.init(cfg, torch.Generator().manual_seed(seed),
+                         device="cuda")
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    prompts = serve_prompts(cfg.vocab_size, 2 * SERVE_SLOTS, seed + 67)
+    lap("setup")
+    ring = lm_serve_counts(params, cfg, prompts, 0, MOE_SERVE_NEW)
+    block = lm_serve_counts(params, dataclasses.replace(
+        cfg, sliding_window=None), prompts, 16, MOE_SERVE_NEW)
+    lap("waves")
+    engine = ServingEngine(params, cfg, slots=SERVE_SLOTS,
+                           capacity=SERVE_CAPACITY)
+    wall, res = lm_closed_loop(engine, prompts, MOE_SERVE_REQUESTS,
+                               SERVE_SLOTS, new=MOE_SERVE_NEW)
+    timed = serve_metrics(wall, res)
+    ticks0 = engine.decode_steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prof_wall, _ = lm_closed_loop(engine, prompts, SERVE_SLOTS,
+                                      SERVE_SLOTS, new=MOE_SERVE_NEW)
+    ticks = engine.decode_steps - ticks0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "moe_serve_trace.json")
+        prof.export_chrome_trace(path)
+        busy = device_busy(path, lm_family)
+    del engine
+    lap("timed")
+    dcfg, dparams = truncated_draft(cfg, params, MOE_DRAFT_LAYERS)
+    eng = ServingEngine(params, cfg, slots=SERVE_SLOTS,
+                        capacity=SERVE_CAPACITY, draft_params=dparams,
+                        draft_cfg=dcfg, spec_tokens=SPEC_TOKENS)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    sres = eng.run([Request(prompt=p, max_new_tokens=MOE_SERVE_NEW)
+                    for p in prompts[:SERVE_SLOTS]])
+    torch.cuda.synchronize()
+    spec_wall = time.perf_counter() - t0
+    spec_launches = read_counts()
+    want = want_counts(
+        flash_fwd=(cfg.n_layers + dcfg.n_layers) * SERVE_SLOTS,
+        decode_ring=SPEC_TOKENS * dcfg.n_layers * eng.dispatches)
+    if spec_launches != want:
+        raise AssertionError(f"mixtral spec serving launches "
+                             f"{spec_launches} != {want}")
+    if any(len(r.tokens) != MOE_SERVE_NEW for r in sres):
+        raise AssertionError("every spec request must get its new tokens")
+    spec = {**serve_metrics(spec_wall, sres), "dispatches": eng.dispatches,
+            "accepted": eng.spec_accepted, "proposed": eng.spec_proposed,
+            "launches": spec_launches}
+    del eng, dparams
+    lap("spec")
+    emit({"phase": "moe_serving", "config": cfg.name,
+          "layers": cfg.n_layers, "of_layers": ARCHS[MOE_ARCH].n_layers,
+          "d_model": cfg.d_model, "experts": cfg.moe.n_experts,
+          "top_k": cfg.moe.top_k, "dtype": cfg.dtype,
+          "params": cfg.n_params(), "weights_gb": weights_gb,
+          "slots": SERVE_SLOTS, "capacity": SERVE_CAPACITY,
+          "prompt_tokens": list(SERVE_PROMPT), "new_tokens": MOE_SERVE_NEW,
+          "waves": [ring, block],
+          "timed_window": {"requests": MOE_SERVE_REQUESTS, **timed,
+                           "device_idle_share":
+                           1.0 - busy["busy_ms"] / 1e3 / prof_wall},
+          "profiled_wall_s": prof_wall, "profiled_ticks": ticks,
+          "profiled_idle_share": 1.0 - busy["busy_ms"] / 1e3 / prof_wall,
+          # the window's 8 prefills are in the busy time too
+          "device_ms_per_tick_with_prefills": busy["busy_ms"] / max(ticks,
+                                                                    1),
+          "device_busy_ms": busy["busy_ms"],
+          "device_ms_by_family": busy["ms_by_family"],
+          "top_kernels_ms": busy["top_kernels"],
+          "spec": {"draft_layers": MOE_DRAFT_LAYERS,
+                   "spec_tokens": SPEC_TOKENS, **spec},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": seconds})
+    del params
+    return {"moe_serving": ring["launches"],
+            "moe_serving_block": block["launches"],
+            "moe_serve_parity": parity}
+
+
+def moe_train_phase(seed):
+    """Mixtral-8x7B at full width and MOE_TRAIN_LAYERS of its 32 layers,
+    bf16 params and grads, fp32 velocity, 2 replicas x MOE_TRAIN_SEQ
+    ``markov_lm`` tokens, every-step all-reduce: 1 + MOE_TRAIN_STEPS
+    steps on the default route (the library's batched expert product),
+    then MOE_TRAIN_STEPS steps on the ``matmul`` opt-in (the bf16 GEMM
+    kernel, forward and backward) from a fresh state from the same seed.
+    Launch counts over each route's steps (flash per layer; the GEMM 9
+    per expert and moe layer on the kernel route, none on the other),
+    the losses (aux included) of the two routes within BF16_LOSS_TOL at
+    every step, spread 0, step p50 and tokens/s of each, peak memory."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.common import KernelPolicy
+
+    base = dataclasses.replace(ARCHS[MOE_ARCH], n_layers=MOE_TRAIN_LAYERS)
+    pool = lm_pool(base, REPLICAS, MOE_TRAIN_STEPS + 1, seed + 71)
+    make_stream = lm_stream(pool)
+    items = REPLICAS
+    out = {}
+    for route, pol, steps in (
+            ("einsum", KernelPolicy("auto"), MOE_TRAIN_STEPS + 1),
+            ("kernel", KernelPolicy("auto", matmul="kernel"),
+             MOE_TRAIN_STEPS)):
+        cfg = dataclasses.replace(base, kernels=pol)
+        gc.collect()
+        torch.cuda.empty_cache()
+        state0 = lm_state(cfg, seed)
+        spreads, step_s = [], []
+
+        def wrap(step):
+            def timed(st, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, loss = step(st, batch)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                return st, loss
+            return timed
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        res = session(lm_loss(cfg), state0, make_stream, steps, items,
+                      metrics_path=os.devnull, spreads=spreads,
+                      wrap=wrap).run()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        per_step = REPLICAS * cfg.n_layers
+        gemm = 9 * cfg.moe.n_experts * moe_layers(cfg) * REPLICAS
+        want = want_counts(flash_fwd=per_step * steps,
+                           flash_dq=per_step * steps,
+                           flash_dkv=per_step * steps,
+                           matmul_bias_bf16=gemm * steps
+                           if route == "kernel" else 0)
+        if launches != want:
+            raise AssertionError(f"mixtral training ({route}) launches "
+                                 f"{launches} != {want}")
+        losses = losses_of(res)
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"mixtral training ({route}) losses "
+                                 f"{losses}")
+        if max(spreads) != 0.0:
+            raise AssertionError(f"mixtral replica spread {spreads}")
+        timed = sorted(step_s[1:])
+        out[route] = {"steps": steps, "losses": losses,
+                      "launches": launches,
+                      "gemm_launches_per_step": gemm if route == "kernel"
+                      else 0,
+                      "step_s": step_s,
+                      "step_p50_ms": statistics.median(timed) * 1e3,
+                      "tokens_per_s": REPLICAS * MOE_TRAIN_SEQ
+                      / statistics.median(timed),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated()
+                      / 1e9}
+        del state0, res
+    errs = [abs(a - b) for a, b in zip(out["kernel"]["losses"],
+                                       out["einsum"]["losses"])]
+    if max(errs) > BF16_LOSS_TOL:
+        raise AssertionError(f"mixtral GEMM kernel vs batched product "
+                             f"losses {out['kernel']['losses']} / "
+                             f"{out['einsum']['losses']}")
+    emit({"phase": "moe_train", "config": base.name,
+          "layers": MOE_TRAIN_LAYERS, "of_layers": ARCHS[MOE_ARCH].n_layers,
+          "d_model": base.d_model, "params": base.n_params(),
+          "dtype": base.dtype, "replicas": REPLICAS,
+          "tokens_per_replica": MOE_TRAIN_SEQ,
+          "capacity_factor": base.moe.capacity_factor, "routes": out,
+          "loss_abs_err_kernel_vs_einsum": errs,
+          "loss_tol": BF16_LOSS_TOL})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out["kernel"]["launches"]
+
+
+def im2col_bf16_phase(model_cfg, seed):
+    """The faithful AlexNet under the bf16 preset on the im2col route
+    (``F.unfold`` + the bf16 GEMM kernel), 2 x 32, 3 steps: the GEMM
+    kernel's launches (14 per replica and step) and the bf16 LRN's, no
+    conv kernel, and the losses against the fused bf16 conv route within
+    BF16_LOSS_TOL."""
+    import dataclasses
+
+    from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.numerics import get_policy
+
+    npol = get_policy("bf16")
+    cfg = dataclasses.replace(model_cfg, numerics=npol,
+                              kernels=KernelPolicy("auto",
+                                                   conv2d="im2col_ref"))
+    fused_cfg = dataclasses.replace(cfg, kernels=KernelPolicy("auto"))
+    pool, mean = host_pool(cfg, IM2COL_BATCH * REPLICAS, 3, seed + 73)
+    make_stream = pool_stream(pool, mean, cfg, seed)
+    steps, items = 3, IM2COL_BATCH * REPLICAS
+    sess = session(alexnet_loss(cfg), init_state(cfg, seed), make_stream,
+                   steps, items, staging="queue", metrics_path=os.devnull,
+                   numerics=npol)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = sess.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    want = want_counts(
+        lrn_bf16=sum(cs.lrn for cs in cfg.convs) * REPLICAS * steps,
+        matmul_bias_bf16=(3 * len(cfg.convs) - 1) * REPLICAS * steps)
+    if launches != want:
+        raise AssertionError(f"bf16 im2col launches {launches} != {want}")
+    losses = losses_of(res)
+    fused = losses_of(session(alexnet_loss(fused_cfg),
+                              init_state(fused_cfg, seed), make_stream,
+                              steps, items, staging="queue",
+                              metrics_path=os.devnull, numerics=npol).run())
+    errs = [abs(a - b) for a, b in zip(losses, fused)]
+    if not all(map(math.isfinite, losses)) or max(errs) > BF16_LOSS_TOL:
+        raise AssertionError(f"bf16 im2col vs fused losses {losses} / "
+                             f"{fused}")
+    emit({"phase": "train_im2col_bf16", "config": cfg.name,
+          "numerics": npol.describe(), "replicas": REPLICAS,
+          "per_replica_batch": IM2COL_BATCH, "steps": steps,
+          "launches": launches,
+          "matmul_per_replica_step": "5 forward + 5 dw + 4 dx",
+          "losses": losses, "fused_bf16_losses": fused,
+          "loss_abs_err": errs, "loss_tol": BF16_LOSS_TOL, "wall_s": wall})
+    return launches
+
+
+def moe_cli_phase():
+    """The CLIs on Mixtral at full width, cut in depth to fit beside the
+    other chains: the train CLI at 1 layer, 2 replicas x 2 x 256 tokens,
+    3 steps (27 GB of state), and the serve CLI at 2 layers (6 GB of
+    weights), 8 requests on the ring."""
+    losses, train_s, head = _train_losses(
+        ["--arch", MOE_ARCH, "--layers", "1", "--seq-len", "256",
+         "--batch", "4", "--replicas", "2", "--steps", "3",
+         "--log-every", "1"], "mixtral")
+    if sorted(losses) != [1, 2, 3] or "arch=mixtral-8x7b" not in head:
+        raise AssertionError(f"the mixtral train CLI: steps "
+                             f"{sorted(losses)}, header {head!r}")
+    _, serve_s = _serve_cli(["--arch", MOE_ARCH, "--layers", "2",
+                             "--requests", "8", "--capacity", "512"],
+                            "mixtral")
+    emit({"phase": "moe_cli", "train_layers": 1, "serve_layers": 2,
+          "train_losses": [losses[s] for s in (1, 2, 3)],
+          "seconds": {"train": train_s, "serve": serve_s}})
+
+
 def lm_cli_phase():
     """The LM train CLI at full width, 2 layers, 2 x 2 x 256: 6 steps
     with a checkpoint after step 4, resumed from it to 6; steps 5 and 6
@@ -4154,6 +4679,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     totals.update(bf16_kernel_phase(gen, ALEXNET_FAITHFUL, TRAIN_BATCH))
+    totals.update(gemm_bf16_phase(gen))
     mark("kernel")
     totals.update(flash_phase(gen))
     mark("flash")
@@ -4172,6 +4698,9 @@ def main() -> int:
     mark("train_bf16")
     by_path["train_im2col"] = im2col_phase(ALEXNET_FAITHFUL, args.seed)
     mark("train_im2col")
+    by_path["train_im2col_bf16"] = im2col_bf16_phase(ALEXNET_FAITHFUL,
+                                                     args.seed)
+    mark("train_im2col_bf16")
     by_path["lm_train"] = lm_train_phase(args.seed)
     mark("lm_train")
     serve_waves = lm_serving_phase(args.seed)
@@ -4188,13 +4717,18 @@ def main() -> int:
     mark("rwkv_train")
     by_path["rg_train"] = recurrent_train_phase("recurrentgemma-9b",
                                                 args.seed)
+    mark("rg_train")
+    by_path.update(moe_serve_phase(args.seed))
+    mark("moe_serving")
+    by_path["moe_train"] = moe_train_phase(args.seed)
     # the tier's workers and the CLIs run in child processes: mark() hands
     # the cached memory back
-    mark("rg_train")
+    mark("moe_train")
     by_path["lm_tier"] = tier_phase(args.seed)
     mark("tier")
     # each CLI chain is child processes at 1-3 layers: they share the card
-    side_by_side(cli_phase, lm_cli_phase, recurrent_cli_phase)
+    side_by_side(cli_phase, lm_cli_phase, recurrent_cli_phase,
+                 moe_cli_phase)
     mark("cli")
 
     src = "src/repro_torch/kernels"
@@ -4212,6 +4746,11 @@ def main() -> int:
                               "train_bf16"),
         "lrn_bf16": (f"{src}/lrn/csrc/lrn.cu",
                      "src/repro/kernels/lrn/lrn.py:37", "train_bf16"),
+        # the GEMM's bf16 entry: Mixtral's expert FFN under the matmul
+        # opt-in (also the bf16 im2col route's)
+        "matmul_bias_bf16": (f"{src}/conv2d/csrc/matmul_bias_bf16.cu",
+                             "src/repro/kernels/conv2d/conv2d.py:50",
+                             "moe_train"),
     }
     # the main path is bf16: the tensor-core forward, dq and dk/dv (their
     # fp32 kernels are flash_fwd.cu and flash_bwd.cu)
@@ -4248,6 +4787,10 @@ def main() -> int:
                if "tensor_core_cases" in tot else {}),
             **{k: tot[k] for k in ("max_rel_err", "tolerance",
                                    "mma_sync_ms") if k in tot}})
+    if not all(k["launches"] > 0 for k in kernels):
+        raise AssertionError("a kernel was not launched on its main path: "
+                             + str({k["name"]: k["launches"]
+                                    for k in kernels}))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "seconds_at_end_of": seconds})
     print(card(), flush=True)

@@ -10,6 +10,13 @@ Each op resolves to one of two implementations:
 ``auto`` (the default) picks the kernel for a CUDA tensor and the plain
 version for a CPU tensor.  ``plain`` on a CUDA tensor is an explicit
 request (parity checks on the card); nothing falls back to it.
+
+``matmul="kernel"`` is an explicit opt-in, the counterpart of the
+reference's ``matmul="pallas"``: it routes the MoE expert FFN's GEMMs
+through ``kernels.conv2d.ops.matmul_bias`` (one call per expert weight),
+under ``backend`` as every other op.  ``backend`` never turns it on (the
+reference's ``wants_pallas``): the default (None) keeps the library's
+batched product.
 """
 from __future__ import annotations
 
@@ -39,6 +46,9 @@ DECODE_ATTENTION = (None, "auto", "xla")
 # any device
 RWKV6 = (None, "auto", "chunked")
 RGLRU = (None, "auto", "xla")
+# ``matmul``: None is the library's batched product (the reference's XLA
+# einsum); ``kernel`` the explicit opt-in to the matmul_bias kernel
+MATMUL = (None, "kernel")
 
 
 def _check_backend(name: str, value) -> None:
@@ -52,13 +62,15 @@ class KernelPolicy:
     ``conv2d`` picks the conv formulation (``CONV2D``), ``attention`` the
     attention implementation (``ATTENTION``), ``decode_attention`` the
     single-token decode attention (``DECODE_ATTENTION``), ``rwkv6`` and
-    ``rglru`` the two recurrences (``RWKV6``, ``RGLRU``)."""
+    ``rglru`` the two recurrences (``RWKV6``, ``RGLRU``), ``matmul`` the
+    MoE expert FFN's GEMMs (``MATMUL``; opt-in only)."""
     backend: str = "auto"
     conv2d: Optional[str] = None
     attention: Optional[str] = None
     decode_attention: Optional[str] = None
     rwkv6: Optional[str] = None
     rglru: Optional[str] = None
+    matmul: Optional[str] = None
 
     def __post_init__(self):
         _check_backend("backend", self.backend)
@@ -77,7 +89,8 @@ class KernelPolicy:
             raise ValueError(f"decode_attention must be one of "
                              f"{DECODE_ATTENTION}, got "
                              f"{self.decode_attention!r}")
-        for name, known in (("rwkv6", RWKV6), ("rglru", RGLRU)):
+        for name, known in (("rwkv6", RWKV6), ("rglru", RGLRU),
+                            ("matmul", MATMUL)):
             if getattr(self, name) not in known:
                 raise ValueError(f"{name} must be one of {known}, got "
                                  f"{getattr(self, name)!r}")

@@ -19,23 +19,27 @@ the operands' dtype, which the reference leaves to XLA's conv-grad and
 this port to the library's (``aten.convolution_backward``, TF32 off).
 
 ``matmul_bias(x, w, b, ...)`` is (M,K) @ (K,N) + b with the bias/ReLU
-epilogue; its backward is two more launches of the same kernel,
-``dx = dy @ w^T`` and ``dw = x^T @ dy``, with the transposes read in
-place.  Where the output tiles are too few to fill the card,
-``gemm_split`` deals each tile's reduction out over several blocks, whose
-partials a second kernel adds in a fixed order (one launch all the
-same).  ``conv2d_im2col`` is the two-stage parity formulation built on
-it: ``F.unfold`` patches (the reference's XLA patch extraction) times
-the reordered, block-diagonal weight matrix.  The GEMM kernel is fp32
-only: a bf16 operand raises ``NotImplementedError`` (ROADMAP.md queue A
-item 6, sub-item A6b) rather than fall back.
+epilogue, in the operands' dtype (x, w and b share one): fp32 operands
+launch ``matmul_bias_f32`` (``csrc/matmul_bias.cu``, the fp32 FMA pipes),
+bf16 ones ``matmul_bias_bf16`` (``csrc/matmul_bias_bf16.cu``, the tensor
+cores, fp32 accumulation over the whole reduction, one rounding to
+bf16), as the reference kernel accumulates in fp32 and writes x's dtype.
+Its backward is two more launches of the same entry, ``dx = dy @ w^T``
+and ``dw = x^T @ dy``, with the transposes read in place.  Where the
+output tiles are too few to fill the card, ``gemm_split`` deals each
+tile's reduction out over several blocks, whose fp32 partials a second
+kernel adds in a fixed order (one launch all the same).
+``conv2d_im2col`` is the two-stage parity formulation built on it:
+``F.unfold`` patches (the reference's XLA patch extraction) times the
+reordered, block-diagonal weight matrix, in fp32 or bf16.
 
 Under ``backend="auto"`` a CUDA tensor runs the kernels and a CPU tensor
 the plain versions (``ref``).  ``conv2d_fused.launches`` counts forward
 launches of the fp32 entry and ``conv2d_fused.launches_bf16`` of the bf16
 one (the backward is the library's), of which
 ``conv2d_fused.launches_bf16_wgmma`` took the wgmma body;
-``matmul_bias.launches`` counts every launch, backward included.
+``matmul_bias.launches`` counts every launch of the fp32 GEMM entry and
+``matmul_bias.launches_bf16`` of the bf16 one, backward included.
 """
 from __future__ import annotations
 
@@ -63,13 +67,16 @@ _CONV_ENTRIES = {torch.float32: ("conv2d_fused_f32", "launches",
                                   _CONV_BF16_ARGTYPES)}
 # the bf16 entry's bodies, by the code it takes
 CONV_BF16_BODIES = {"wgmma": 1, "mma_sync": 2}
-_A6B = ("bf16 operands on the matmul_bias kernel (the im2col conv route) "
-        "are not ported yet: see ROADMAP.md queue A item 6 (A6b, "
-        "matmul_bias in bf16)")
-# The GEMM kernel's output tile (GEMM_BM rows, gemm_bn(N) columns) and its
-# reduction chunk (csrc/matmul_bias.cu's BM, BK and the N <= 64 pick of
+# the GEMM's entry per operand dtype and the launch count it adds to
+_MATMUL_ENTRIES = {torch.float32: ("matmul_bias_f32", "launches"),
+                   torch.bfloat16: ("matmul_bias_bf16", "launches_bf16")}
+# The fp32 GEMM kernel's output tile (GEMM_BM rows, gemm_bn(N) columns) and
+# its reduction chunk (csrc/matmul_bias.cu's BM, BK and the N <= 64 pick of
 # launch_tiles; tests/test_torch_matmul.py reads them from the source).
 GEMM_BM, GEMM_BK = 128, 16
+# The bf16 kernel's (csrc/matmul_bias_bf16.cu's BM, BN and BK): one tile of
+# 128 x 128 at every N, chunks of 32.
+GEMM_BF16_BM, GEMM_BF16_BN, GEMM_BF16_BK = 128, 128, 32
 GEMM_MIN_CHUNKS = 8      # a split's reduction runs at least this many chunks
 # gemm_split's cost model, in chunk-times (one block's step of GEMM_BK over
 # its tile): a block's cost outside its reduction (the ring's fill, the
@@ -84,6 +91,12 @@ GEMM_MIN_CHUNKS = 8      # a split's reduction runs at least this many chunks
 GEMM_FILL_CHUNKS = 4
 GEMM_CHUNK_S = 1.4e-6
 HBM_RATE = 3.35e12
+# The bf16 kernel borrows the model and GEMM_FILL_CHUNKS / GEMM_MIN_CHUNKS;
+# only its chunk-time is its own, and an estimate, not a fit: a 128 x 128
+# x 32 chunk moves 16 KB into its SM, 0.65 us at one SM's share (1/132) of
+# the 3.35 TB/s, and its 1 MFLOP takes 0.14 us at one SM's share of 989
+# TFLOP/s, so the estimate sits between the two.
+GEMM_BF16_CHUNK_S = 0.5e-6
 # The fused conv kernel's output tile (CONV_BM rows, one of CONV_BNS
 # columns) and reduction chunk (csrc/conv2d_fused.cu's BM, BK and the bn
 # cases of conv2d_fused_f32; tests/test_torch_conv2d.py reads them from the
@@ -414,55 +427,70 @@ conv2d_fused.launches_bf16_wgmma = 0
 
 # --------------------------------------------------- blocked GEMM --------
 
-def _layout(name: str, t: torch.Tensor) -> int:
+def _layout(name: str, t: torch.Tensor, dtypes=(torch.float32,)) -> int:
     """1 when ``t`` is the transpose of a contiguous matrix (the kernel
     reads it in place), 0 when it is contiguous; raises otherwise."""
     if t.dim() != 2:
         raise ValueError(f"{name} must be a matrix, got shape "
                          f"{tuple(t.shape)}")
     if t.is_contiguous():
-        common.check_operand(name, t, 2)
+        common.check_operand(name, t, 2, dtypes)
         return 0
     if t.t().is_contiguous():
-        common.check_operand(f"{name}^T", t.t(), 2)
+        common.check_operand(f"{name}^T", t.t(), 2, dtypes)
         return 1
     raise ValueError(f"{name} must be contiguous or the transpose of a "
                      "contiguous matrix")
 
 
-def gemm_bn(n: int) -> int:
-    """Output columns per block of the GEMM kernel for N = ``n``."""
+def gemm_bn(n: int, dtype=torch.float32) -> int:
+    """Output columns per block of the GEMM kernel of ``dtype`` for N =
+    ``n``."""
+    if dtype == torch.bfloat16:
+        return GEMM_BF16_BN
     return 64 if n <= 64 else 128
 
 
-def gemm_ranges(k: int, n_split: int) -> list:
-    """The runs ``[lo, hi)`` of the ``ceil(k / GEMM_BK)`` reduction chunks
-    that the GEMM kernel's splits take when ``n_split`` are asked: split z
-    takes the z-th run of ``ceil(chunks / n_split)`` (the kernel's
-    ``c_lo`` / ``c_hi``).  Empty runs are left out, so the list's length
-    is the split that covers the chunks with none empty."""
-    chunks = -(-k // GEMM_BK)
+def _gemm_consts(dtype) -> tuple:
+    """(rows per tile, reduction chunk, chunk-time in s) of the GEMM
+    kernel of ``dtype``."""
+    if dtype == torch.bfloat16:
+        return GEMM_BF16_BM, GEMM_BF16_BK, GEMM_BF16_CHUNK_S
+    return GEMM_BM, GEMM_BK, GEMM_CHUNK_S
+
+
+def gemm_ranges(k: int, n_split: int, dtype=torch.float32) -> list:
+    """The runs ``[lo, hi)`` of the ``ceil(k / bk)`` reduction chunks
+    that the GEMM kernel of ``dtype`` (chunks of ``GEMM_BK`` in fp32,
+    ``GEMM_BF16_BK`` in bf16) deals to its splits when ``n_split`` are
+    asked: split z takes the z-th run of ``ceil(chunks / n_split)`` (the
+    kernel's ``c_lo`` / ``c_hi``).  Empty runs are left out, so the
+    list's length is the split that covers the chunks with none empty."""
+    chunks = -(-k // _gemm_consts(dtype)[1])
     per = -(-chunks // n_split)
     return [(lo, min(chunks, lo + per)) for lo in range(0, chunks, per)]
 
 
 @functools.lru_cache(maxsize=1024)
-def gemm_split(m: int, n: int, k: int, sms: int) -> int:
-    """Blocks over which the GEMM kernel deals out each output tile's
-    reduction chunks (``gemm_ranges``), none empty and every one but the
-    last at least ``GEMM_MIN_CHUNKS`` long.  It minimises the run's time
-    in waves on a card with ``sms`` SMs: ``ceil(tiles * n_split / sms)``
-    waves of blocks, each taking its chunks plus ``GEMM_FILL_CHUNKS``,
-    plus every split's partial through HBM.  So a grid that fills whole
-    waves keeps 1, and a small grid with a long reduction (conv1's dw)
-    splits until its blocks fill the card."""
-    tiles = -(-m // GEMM_BM) * -(-n // gemm_bn(n))
-    chunks = -(-k // GEMM_BK)
-    partial = 8.0 * m * n / HBM_RATE / GEMM_CHUNK_S
+def gemm_split(m: int, n: int, k: int, sms: int,
+               dtype=torch.float32) -> int:
+    """Blocks over which the GEMM kernel of ``dtype`` deals out each
+    output tile's reduction chunks (``gemm_ranges``), none empty and
+    every one but the last at least ``GEMM_MIN_CHUNKS`` long.  It
+    minimises the run's time in waves on a card with ``sms`` SMs:
+    ``ceil(tiles * n_split / sms)`` waves of blocks, each taking its
+    chunks plus ``GEMM_FILL_CHUNKS``, plus every split's fp32 partial
+    through HBM.  So a grid that fills whole waves keeps 1, and a small
+    grid with a long reduction (conv1's dw) splits until its blocks fill
+    the card."""
+    bm, bk, chunk_s = _gemm_consts(dtype)
+    tiles = -(-m // bm) * -(-n // gemm_bn(n, dtype))
+    chunks = -(-k // bk)
+    partial = 8.0 * m * n / HBM_RATE / chunk_s
     best, best_cost = 1, None
     for want in range(1, min(chunks // GEMM_MIN_CHUNKS,
                              -(-4 * sms // tiles)) + 1):
-        runs = gemm_ranges(k, want)
+        runs = gemm_ranges(k, want, dtype)
         split, per = len(runs), runs[0][1]
         cost = (-(-tiles * split // sms) * (per + GEMM_FILL_CHUNKS)
                 + (split > 1) * split * partial)
@@ -472,40 +500,44 @@ def gemm_split(m: int, n: int, k: int, sms: int) -> int:
 
 
 def _matmul(x, w, b, relu, backend, n_split=None):
-    """One product: the kernel launch, or the plain version.  The kernel
-    splits the reduction as ``gemm_split`` picks, or over the runs of
-    ``gemm_ranges(K, n_split)`` when ``n_split`` is given (kernel_sweep.py
-    times the choices)."""
+    """One product: the kernel launch of the operands' dtype, or the
+    plain version.  The kernel splits the reduction as ``gemm_split``
+    picks, or over the runs of ``gemm_ranges(K, n_split)`` when
+    ``n_split`` is given (kernel_sweep.py times the choices)."""
+    for name, t in (("w", w), ("b", b)):
+        if t is not None and t.dtype != x.dtype:
+            raise ValueError(f"matmul_bias: {name} is {t.dtype}, x is "
+                             f"{x.dtype}; the operands share one dtype")
     if common.route(backend, x) == "plain":
         return conv_ref.matmul_bias_ref(x, w, b, relu)
-    if torch.bfloat16 in (x.dtype, w.dtype):
-        raise NotImplementedError(_A6B)
+    dtypes = tuple(_MATMUL_ENTRIES)
     m, k = x.shape
     n = w.shape[1]
-    trans_a = _layout("x", x)
-    trans_b = _layout("w", w)
+    trans_a = _layout("x", x, dtypes)
+    trans_b = _layout("w", w, dtypes)
     if b is not None:
-        common.check_operand("b", b, 1)
+        common.check_operand("b", b, 1, dtypes)
     if n > 65535 * 64:
         raise ValueError(f"N = {n} exceeds the kernel's grid")
-    y = torch.empty((m, n), device=x.device, dtype=torch.float32)
-    common.check_operand("y", y, 2)
+    y = torch.empty((m, n), device=x.device, dtype=x.dtype)
+    common.check_operand("y", y, 2, dtypes)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    n_split = (gemm_split(m, n, k, sms) if n_split is None
-               else len(gemm_ranges(k, n_split)))
+    n_split = (gemm_split(m, n, k, sms, x.dtype) if n_split is None
+               else len(gemm_ranges(k, n_split, x.dtype)))
     part = None
     if n_split > 1:
         part = torch.empty((n_split, m, n), device=x.device,
                            dtype=torch.float32)
         common.check_operand("part", part, 3)
-    fn = _build.function("matmul_bias_f32", _MATMUL_ARGTYPES)
+    entry, counter = _MATMUL_ENTRIES[x.dtype]
+    fn = _build.function(entry, _MATMUL_ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
              y.data_ptr(), None if part is None else part.data_ptr(), m, n,
              k, trans_a, trans_b, int(relu), n_split,
              torch.cuda.current_stream().cuda_stream)
     if err:
-        raise _build.launch_error("matmul_bias_f32", err)
-    matmul_bias.launches += 1
+        raise _build.launch_error(entry, err)
+    setattr(matmul_bias, counter, getattr(matmul_bias, counter) + 1)
     return y
 
 
@@ -525,18 +557,21 @@ class _MatmulBias(torch.autograd.Function):
             dy = dy * (y > 0).to(dy.dtype)
         dy = dy.contiguous()
         db = dy.sum(0) if ctx.needs_input_grad[2] else None
-        # the same kernel on permuted operands, transposes read in place
-        dx = (_matmul(dy, w.t(), None, False, backend)
+        # the same kernel on permuted operands, transposes read in place,
+        # in the cotangent's dtype (y's), cast to the operands' as the
+        # reference's _matmul_bias_bwd does
+        dx = (_matmul(dy, w.t(), None, False, backend).to(x.dtype)
               if ctx.needs_input_grad[0] else None)
-        dw = (_matmul(x.t(), dy, None, False, backend)
+        dw = (_matmul(x.t(), dy, None, False, backend).to(w.dtype)
               if ctx.needs_input_grad[1] else None)
         return dx, dw, db, None, None
 
 
 def matmul_bias(x, w, b=None, *, relu: bool = False, backend: str = "auto"):
-    """(M,K) @ (K,N) + b(N,) -> (M,N) float32 with the bias add and
-    optional ReLU fused.  ``x`` and ``w`` may be transposed views of
-    contiguous matrices.  Differentiable."""
+    """(M,K) @ (K,N) + b(N,) -> (M,N) in x's dtype (fp32 or bf16, shared
+    by w and b) with the bias add and optional ReLU fused, accumulated in
+    fp32.  ``x`` and ``w`` may be transposed views of contiguous
+    matrices.  Differentiable."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w.shape)} do "
                          "not chain")
@@ -549,6 +584,7 @@ def matmul_bias(x, w, b=None, *, relu: bool = False, backend: str = "auto"):
 
 
 matmul_bias.launches = 0
+matmul_bias.launches_bf16 = 0
 
 
 # ------------------------------------------------ two-stage im2col -------
@@ -583,11 +619,8 @@ def conv2d_im2col(x, w, *, stride: int, padding: int, bias=None,
                   backend: str = "auto"):
     """Two-stage conv: ``F.unfold`` patches, then ``matmul_bias`` against
     the reordered weights.  x (B,H,W,Cin), w (K,K,Cin/G,Cout) ->
-    (B,OH,OW,Cout).  Differentiable.  fp32 only: bf16 operands raise
-    ``NotImplementedError`` (ROADMAP.md queue A item 6, A6b) on every
-    device, as the route has no bf16 kernel to hold a plain version to."""
-    if torch.bfloat16 in (x.dtype, w.dtype):
-        raise NotImplementedError(_A6B)
+    (B,OH,OW,Cout) in x's dtype (fp32 or bf16, shared by w and the
+    bias).  Differentiable."""
     k, _, wcin, cout = w.shape
     if wcin * groups != x.shape[-1]:
         raise ValueError(f"w in-channels {wcin} x groups {groups} != "

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the conv kernels: the grouped NHWC x HWIO conv
-with bias and ReLU, and the blocked GEMM with its bias/ReLU epilogue.
+with bias and ReLU, and the blocked GEMM with its bias/ReLU epilogue, each
+in fp32 over upcast operands and cast once to x's dtype.
 
 ``conv2d_ref`` repeats the arithmetic of the reference kernel
 (``repro/kernels/conv2d/conv2d.py::_conv_fused_kernel``): for every kernel
@@ -50,10 +51,12 @@ def conv2d_ref(x, w, stride: int, padding: int, groups: int = 1, *,
 
 
 def matmul_bias_ref(x, w, b=None, relu: bool = False):
-    """(M,K) @ (K,N) + b(N,) in fp32, optional ReLU: the arithmetic of
-    ``repro/kernels/conv2d/ref.py::matmul_bias_ref``.  Takes transposed
-    views as they are."""
+    """(M,K) @ (K,N) + b(N,) in fp32 over upcast operands, optional ReLU,
+    cast once to x's dtype: the arithmetic of the reference kernel
+    (``repro/kernels/conv2d/conv2d.py::_matmul_kernel``), the plain
+    version of the fp32 and bf16 entries alike.  Takes transposed views
+    as they are."""
     y = x.float() @ w.float()
     if b is not None:
         y = y + b.float()
-    return torch.relu(y) if relu else y
+    return (torch.relu(y) if relu else y).to(x.dtype)

@@ -25,7 +25,8 @@ ending in ``serve OK``:
 ``--arch alexnet`` is the reference CLI's legacy net (``ALEXNET``:
 ungrouped, LRN before the pool) at full width, 227x227x3 images and 1000
 classes; ``--smoke`` serves the reduced ``ALEXNET_SMOKE``.  An LM (a
-dense one such as ``olmo-1b`` or ``gemma-7b``, ``rwkv6-7b`` or
+dense one such as ``olmo-1b`` or ``gemma-7b``, a mixture-of-experts one,
+``mixtral-8x7b`` or ``llama4-maverick-400b-a17b``, ``rwkv6-7b`` or
 ``recurrentgemma-9b``) serves at its published width in its config's
 dtype (bf16; ``--dtype`` sets the numerics policy's ``param_dtype``
 over it); ``--layers`` cuts its depth, and
@@ -33,8 +34,9 @@ over it); ``--layers`` cuts its depth, and
 ``--d-model`` size it).  Prompts are random tokens, their lengths drawn
 around ``--prompt-len``; the run reports generated tokens/s, TTFT
 p50/p99 and the per-token latency of each request's decode (p50/p99).
-``--block-size`` serves from the shared-prefix block pool (the dense
-family only: the engine refuses it for the recurrent state),
+``--block-size`` serves from the shared-prefix block pool (the dense and
+moe families with full attention only: the engine refuses it for the
+recurrent state and for a sliding window, as the reference's),
 ``--ticks-per-dispatch`` runs K decode ticks per host read, and
 ``--kv-cache-dtype`` stores the KV cache in another type (int8 with
 fp32 scales).  ``--draft-layers k`` decodes speculatively (greedy)
@@ -55,8 +57,11 @@ It runs on ``cuda`` unless ``--device cpu`` is given, and exits non-zero
 when CUDA is asked for and absent.  TF32 is off on the card, in every
 process of a tier alike.  ``--numerics bf16`` serves under the bf16
 preset: bf16 params (AlexNet's images are cast to them and run the bf16
-conv and LRN kernels) and a bf16 KV cache for the LMs.  The other LM
-families (moe, vlm, encdec) and the replica mesh are not ported yet.
+conv and LRN kernels) and a bf16 KV cache for the LMs.  A moe arch's
+prefill dispatches at its configured (dropping) capacity factor and its
+decode is dropless, as the reference's.  The vlm (queue A item 8, A8b)
+and encdec (A8c) families and the replica mesh (item 12) are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -77,7 +82,10 @@ from repro_torch.serving import Request, Router, ServingEngine
 from repro_torch.serving.spec_decode import truncated_draft
 
 LM_ARCHS = sorted(a for a, c in ARCHS.items()
-                  if c.family in ("dense", "ssm", "hybrid"))
+                  if c.family in ("dense", "moe", "ssm", "hybrid"))
+# the LM families still to port, and their ROADMAP items
+NOT_PORTED_ITEMS = {"vlm": "queue A item 8 (A8b, the vlm family)",
+                    "encdec": "queue A item 8 (A8c, the encdec family)"}
 
 
 def build_parser():
@@ -171,8 +179,9 @@ def check_ported(args) -> None:
     """Raise for the reference flag values the port does not run yet,
     naming their ROADMAP item."""
     if args.arch != "alexnet" and args.arch not in LM_ARCHS:
-        raise not_ported(f"serving --arch {args.arch} "
-                         f"({ARCHS[args.arch].family})", "queue A item 8")
+        family = ARCHS[args.arch].family
+        raise not_ported(f"serving --arch {args.arch} ({family})",
+                         NOT_PORTED_ITEMS.get(family, "queue A item 8"))
     if args.images:
         raise not_ported("--images", "queue A item 8 (A8b, the vlm family)")
 

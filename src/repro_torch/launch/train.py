@@ -1,7 +1,8 @@
 """Training CLI of the port: the paper's parameter-averaging data
 parallelism on one GPU (or, when asked, on the CPU), for the paper's
-AlexNet and for the dense and recurrent LMs of the zoo (``--arch
-olmo-1b``, ``--arch rwkv6-7b``, ``--arch recurrentgemma-9b``, ...).
+AlexNet and for the dense, mixture-of-experts and recurrent LMs of the
+zoo (``--arch olmo-1b``, ``--arch mixtral-8x7b``, ``--arch rwkv6-7b``,
+``--arch recurrentgemma-9b``, ...).
 
 Builds the model, loss and data streams, the optimizer (SGD momentum or
 AdamW), the LR controller and the exchange, and hands the loop to
@@ -26,6 +27,8 @@ each leaf's delta from the consensus, with error feedback.
         --replicas 2 --batch 8 --seq-len 2048 --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
         --layers 8 --replicas 2 --batch 8 --seq-len 2048 --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \\
+        --layers 2 --replicas 2 --batch 2 --seq-len 2048 --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
         --smoke --steps 2 --batch 4 --seq-len 32 --replicas 2 --device cpu
     # checkpoint every 10 steps, then pick up where a killed run stopped:
@@ -51,10 +54,13 @@ params and compute (AlexNet's images are cast to bf16 at the loss, its
 conv and LRN run their bf16 kernels), fp32 master weights in the
 optimizer state, which the exchange averages, and dynamic loss scaling
 that skips a non-finite step on every replica at once (docs/numerics.md
-has the contract; the README says where the port differs).  The im2col
-conv route is fp32 only: its first forward raises under it (ROADMAP
-queue A item 6, A6b).  The moe, vlm and encdec families and model
-parallelism are not ported yet and raise; the mesh engine is one flat
+has the contract; the README says where the port differs); with
+``--conv-backend im2col_ref`` the convs run on the bf16 GEMM kernel.  A
+moe arch's loss is the cross-entropy plus its aux load-balance loss, and
+its expert FFN is the library's batched product (the reference's CLI has
+no flag for the ``matmul`` kernel opt-in, nor has this one).  The vlm
+(queue A item 8, A8b) and encdec (A8c) families and model parallelism
+(item 12) are not ported yet and raise; the mesh engine is one flat
 group (the reference's two-axis ``('pod', 'data')`` layout is queue A
 item 12).
 """
@@ -90,7 +96,10 @@ from repro_torch.train_loop import (EVAL_SEED_OFFSET, TrainSession,
 from repro_torch.tree import tree_leaves, tree_map
 
 CONV_BACKENDS = {"fused": None, "im2col_ref": "im2col_ref"}
-LM_FAMILIES = ("dense", "ssm", "hybrid")
+LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the LM families still to port, and their ROADMAP items
+NOT_PORTED_ITEMS = {"vlm": "queue A item 8 (A8b, the vlm family)",
+                    "encdec": "queue A item 8 (A8c, the encdec family)"}
 ATTN_IMPLS = ["auto", "xla", "chunked", "qloop", "flash"]
 
 
@@ -109,7 +118,8 @@ class Build:
 def build_parser():
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", default="alexnet",
-                    help="alexnet or a dense or recurrent LM of the zoo ("
+                    help="alexnet or a dense, moe or recurrent LM of the "
+                    "zoo ("
                     + ", ".join(sorted(a for a, c in ARCHS.items()
                                        if c.family in LM_FAMILIES)) + ")")
     ap.add_argument("--smoke", action="store_true",
@@ -215,10 +225,12 @@ def check_ported(args) -> None:
         if args.arch not in ARCHS:
             raise SystemExit(f"unknown --arch {args.arch!r}; known: "
                              f"alexnet, {', '.join(sorted(ARCHS))}")
-        if ARCHS[args.arch].family not in LM_FAMILIES:
-            raise not_ported(f"--arch {args.arch} ({ARCHS[args.arch].family}"
-                             ")", "queue A item 8 (the remaining LM "
-                             "families)")
+        family = ARCHS[args.arch].family
+        if family not in LM_FAMILIES:
+            raise not_ported(f"--arch {args.arch} ({family})",
+                             NOT_PORTED_ITEMS.get(
+                                 family, "queue A item 8 (the remaining LM "
+                                 "families)"))
     if args.model_parallel != 1:
         raise not_ported("--model-parallel", "queue A item 12 (the model "
                          "axis needs two or more GPUs)")

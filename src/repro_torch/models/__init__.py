@@ -1,12 +1,15 @@
 """Model API of the port: init, logits, loss and the decode-state surface
 by family (the counterpart of ``repro/models/__init__.py``).
 
-Ported: the conv family (AlexNet) and the ``dense``, ``ssm`` (RWKV6)
-and ``hybrid`` (RG-LRU + local attention) LM families
-(``transformer``).  ``init`` returns an ``AlexNet`` module for conv and a
-params tree in the reference's structure for the LMs; ``logits_fn`` /
-``loss_fn`` take a params tree and a batch dict for all.  The LM loss is
-next-token cross-entropy: ``logits[:, :-1]`` against ``labels[:, 1:]``.
+Ported: the conv family (AlexNet) and the ``dense``, ``moe``
+(mixture-of-experts FFN, ``moe.py``), ``ssm`` (RWKV6) and ``hybrid``
+(RG-LRU + local attention) LM families (``transformer``).  ``init``
+returns an ``AlexNet`` module for conv and a params tree in the
+reference's structure for the LMs; ``logits_fn`` returns (logits, aux)
+and ``loss_fn`` takes a params tree and a batch dict for all.  The LM
+loss is next-token cross-entropy, ``logits[:, :-1]`` against
+``labels[:, 1:]``, plus the moe layers' aux load-balance loss (0 for the
+other families), as the reference's.
 
 The **DecodeState contract** (the reference's docs/serving.md):
 
@@ -28,8 +31,8 @@ Speculative decoding's primitives: ``decode_seq(params, cfg, state,
 tokens, commit_len)`` runs T tokens per row in one call and commits each
 row's first ``commit_len[b]``; ``decode_seq_pending`` is its forward,
 which writes nothing, and ``commit_pending`` its commit, in place, with
-``pos`` advanced by ``commit_len``.  The other LM families (moe, vlm,
-encdec) come with later slices (ROADMAP queue A); asking for them
+``pos`` advanced by ``commit_len``.  The vlm and encdec families come
+with later slices (ROADMAP queue A item 8, A8b and A8c); asking for them
 raises.
 """
 from __future__ import annotations
@@ -46,14 +49,18 @@ from repro_torch.models.layers import softmax_xent
 
 _NOT_PORTED = ("family {family!r} ({name}) is not ported to PyTorch yet: "
                "see ROADMAP.md queue A ({what})")
-FAMILIES = ("conv", "dense", "ssm", "hybrid")
+FAMILIES = ("conv", "dense", "moe", "ssm", "hybrid")
+# the families still to port, and their ROADMAP items
+_NOT_PORTED_ITEMS = {"vlm": "item 8, A8b: the vlm family",
+                     "encdec": "item 8, A8c: the encdec family"}
 
 
 def _check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(_NOT_PORTED.format(
             family=cfg.family, name=cfg.name,
-            what="item 8, the remaining LM families"))
+            what=_NOT_PORTED_ITEMS.get(cfg.family,
+                                       "item 8, the remaining LM families")))
 
 
 def init(cfg, generator: torch.Generator, *, device=None):
@@ -66,22 +73,23 @@ def init(cfg, generator: torch.Generator, *, device=None):
 
 
 def logits_fn(params, cfg, batch):
-    """Logits of a params tree on a batch dict (``images`` for conv,
-    ``tokens`` for the LMs); fp32."""
+    """(fp32 logits, aux) of a params tree on a batch dict (``images`` for
+    conv, ``tokens`` for the LMs); aux is the moe layers' summed aux loss
+    (an fp32 scalar), 0.0 for conv."""
     _check_family(cfg)
     if cfg.family == "conv":
-        return alexnet.forward(params, cfg, batch["images"])
+        return alexnet.forward(params, cfg, batch["images"]), 0.0
     return transformer.forward(params, cfg, batch["tokens"])
 
 
 def loss_fn(params, cfg, batch):
     """Classification cross-entropy for conv; next-token cross-entropy
-    for the LMs."""
-    logits = logits_fn(params, cfg, batch)
+    for the LMs; each plus the aux loss (nonzero for moe alone)."""
+    logits, aux = logits_fn(params, cfg, batch)
     labels = batch["labels"]
     if cfg.family == "conv":
-        return softmax_xent(logits[:, None, :], labels[:, None])
-    return softmax_xent(logits[:, :-1], labels[:, 1:])
+        return softmax_xent(logits[:, None, :], labels[:, None]) + aux
+    return softmax_xent(logits[:, :-1], labels[:, 1:]) + aux
 
 
 @dataclasses.dataclass

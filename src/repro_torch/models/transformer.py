@@ -1,8 +1,9 @@
-"""Decoder-only transformer for the ``dense``, ``ssm`` and ``hybrid``
-families (the counterpart of ``repro/models/transformer.py``), through a
-per-layer *pattern* of block kinds:
+"""Decoder-only transformer for the ``dense``, ``moe``, ``ssm`` and
+``hybrid`` families (the counterpart of ``repro/models/transformer.py``),
+through a per-layer *pattern* of block kinds:
 
   ``dense``  attention (full or sliding-window per config) + MLP
+  ``moe``    attention + mixture-of-experts FFN (``moe.py``)
   ``attn``   local (sliding-window) attention + MLP      [hybrid]
   ``rec``    RG-LRU recurrent block + MLP                [hybrid]
   ``rwkv``   RWKV6 time-mix + channel-mix                [ssm]
@@ -17,7 +18,11 @@ checkpoints copy them as they are.  The forward runs the layers in the
 reference's superblock-major order (``blocks[0][i]``, ``blocks[1][i]``,
 ... for each i, then ``rem_blocks``; the reference scans the
 superblocks), unbinding the stacked leaves; unbind's backward stacks the
-layers' grads in one pass.
+layers' grads in one pass.  ``forward`` returns the logits and the sum of
+the ``moe`` layers' aux losses (0 for the other kinds), as the
+reference's.  A ``moe`` layer dispatches with the configured, dropping,
+capacity factor in ``forward`` and a prefill, and dropless (capacity
+factor E) in every decode path, as the reference's (``_decode_moe_cf``).
 
 Decode: ``init_decode_cache`` stacks one cache per layer in the same
 tree (a ring KV cache for ``dense`` and ``attn``, the recurrent state for
@@ -33,8 +38,8 @@ ring write for the attention kinds, a re-run of the length-masked carry
 from the stored sublayer inputs for the recurrent kinds.  A prefill
 starts from the fresh cache's zero state, so its ``rwkv`` layers run the
 WKV kernel (``rwkv.time_mix_seq``); a ``forward`` from a carried cache,
-and a chunk, take the plain chunked WKV with the state.  The other
-families (moe, vlm) are not ported (ROADMAP queue A item 8).
+and a chunk, take the plain chunked WKV with the state.  The vlm family
+is not ported (ROADMAP queue A item 8, A8b).
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ import torch
 
 from repro_torch.kernels.common import device_of
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (embed_apply, embed_init, mlp_apply,
@@ -55,13 +61,16 @@ def block_kinds(cfg) -> tuple:
     """The pattern of block kinds one superblock repeats."""
     if cfg.family == "dense":
         return ("dense",)
+    if cfg.family == "moe":
+        k = cfg.moe.every_k
+        return ("dense",) * (k - 1) + ("moe",) if k > 1 else ("moe",)
     if cfg.family == "ssm":
         return ("rwkv",)
     if cfg.family == "hybrid":
         return tuple(cfg.layer_pattern or ("rec", "rec", "attn"))
     raise NotImplementedError(
         f"family {cfg.family!r} ({cfg.name}) is not ported yet: see "
-        "ROADMAP.md queue A item 8")
+        "ROADMAP.md queue A item 8 (A8b: vlm; A8c: encdec)")
 
 
 def _split(cfg):
@@ -87,7 +96,8 @@ def block_init(cfg, generator, kind: str, device):
         p["mix"] = rglru_mod.rglru_block_init(cfg, generator, dt, device)
     else:
         p["attn"] = attn.attn_init(cfg, generator, dt, device)
-    p["ffn"] = mlp_init(cfg, generator, dt, device)
+    p["ffn"] = (moe_mod.moe_init(cfg, generator, dt, device)
+                if kind == "moe" else mlp_init(cfg, generator, dt, device))
     return p
 
 
@@ -108,13 +118,25 @@ def init(cfg, generator: torch.Generator, *, device=None) -> dict:
     dt = param_dtype(cfg)
     params = {"embed": embed_init(cfg, gen, dt, dev),
               "final_norm": norm_init(cfg, dt, dev)}
-    params["blocks"] = tuple(
-        tree_map(lambda *xs: torch.stack(xs),
-                 *[block_init(cfg, gen, kind, dev) for _ in range(n_super)])
-        for kind in pattern) if n_super else ()
+    params["blocks"] = tuple(_stacked_init(cfg, gen, kind, dev, n_super)
+                             for kind in pattern) if n_super else ()
     params["rem_blocks"] = tuple(block_init(cfg, gen, pattern[i], dev)
                                  for i in range(rem))
     return params
+
+
+def _stacked_init(cfg, gen, kind, dev, n: int) -> dict:
+    """``n`` layers of ``kind`` drawn one after another, each copied into
+    its row of the stacked leaves as it is drawn, so the peak is the
+    stack and one layer (Mixtral's 16 layers are 47 GB in bf16)."""
+    out = None
+    for i in range(n):
+        layer = block_init(cfg, gen, kind, dev)
+        if out is None:
+            out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)),
+                           layer)
+        tree_map(lambda o, x: o[i].copy_(x), out, layer)
+    return out
 
 
 def _write(cache, new) -> None:
@@ -126,9 +148,29 @@ def _write(cache, new) -> None:
             cache[key].copy_(value)
 
 
+def _ffn(p, cfg, kind, x, decode=False):
+    """The block's FFN: (y, aux) for ``moe`` (dropless when ``decode``,
+    else at the config's capacity factor), (y, None) for the MLP kinds."""
+    if kind == "moe":
+        return moe_mod.moe_apply(p["ffn"], cfg, x, _decode_moe_cf(cfg)
+                                 if decode else None)
+    return mlp_apply(p["ffn"], cfg, x), None
+
+
+def _decode_moe_cf(cfg) -> float:
+    """Decode is dropless (capacity factor E makes the capacity tokens *
+    top_k): which tokens a dropping dispatch keeps depends on the tokens
+    that share it, so a served token's logits would change with its
+    co-scheduled slots and with tick batching, breaking speculative and
+    multi-tick token identity.  Training and prefill keep the
+    configured (dropping) factor."""
+    return float(cfg.moe.n_experts)
+
+
 def block_apply_seq(p, cfg, kind, h, *, cache=None, length=None,
                     zero_state=False):
-    """One full-sequence block: h (B,S,d) -> h (B,S,d).  With ``cache``
+    """One full-sequence block: h (B,S,d) -> (h (B,S,d), aux: the moe
+    FFN's fp32 aux loss, or None for the other kinds).  With ``cache``
     (this layer's views of the decode cache) the block resumes from it
     and writes its state after the prefix back in place, per row up to
     ``length`` when given: the ``rwkv`` / ``rec`` state, or the ring's K/V
@@ -147,7 +189,7 @@ def block_apply_seq(p, cfg, kind, h, *, cache=None, length=None,
         if cache is not None:
             _write(cache, {"tm_shift": tm_shift, "wkv": wkv,
                            "cm_shift": cm_shift})
-        return h + y
+        return h + y, None
     x = norm_apply(p["norm1"], cfg, h)
     if kind == "rec":
         y, new = rglru_mod.rglru_seq(
@@ -162,8 +204,8 @@ def block_apply_seq(p, cfg, kind, h, *, cache=None, length=None,
                                 window=cfg.sliding_window, cache=cache,
                                 length=length)
     h = h + y
-    x = norm_apply(p["norm2"], cfg, h)
-    return h + mlp_apply(p["ffn"], cfg, x)
+    y, aux = _ffn(p, cfg, kind, norm_apply(p["norm2"], cfg, h))
+    return h + y, aux
 
 
 def block_apply_decode(p, cfg, kind, h, cache, pos, table=None):
@@ -191,7 +233,7 @@ def block_apply_decode(p, cfg, kind, h, cache, pos, table=None):
         h = h + attn.decode_attention(p["attn"], cfg, x, cache, pos,
                                       window=cfg.sliding_window, table=table)
     x = norm_apply(p["norm2"], cfg, h)
-    return h + mlp_apply(p["ffn"], cfg, x)
+    return h + _ffn(p, cfg, kind, x, decode=True)[0]
 
 
 def block_apply_decode_seq(p, cfg, kind, h, cache, pos, commit_len):
@@ -226,7 +268,7 @@ def block_decode_seq_pending(p, cfg, kind, h, cache, pos):
             p["attn"], cfg, x, cache, pos, window=cfg.sliding_window)
     h = h + y
     x = norm_apply(p["norm2"], cfg, h)
-    return h + mlp_apply(p["ffn"], cfg, x), pending
+    return h + _ffn(p, cfg, kind, x, decode=True)[0], pending
 
 
 def _commit_state(cache, new, cl) -> None:
@@ -287,22 +329,26 @@ def _all_layers(tree, cfg) -> list:
 
 def forward(params, cfg, tokens, *, cache=None, length=None,
             zero_state=False):
-    """tokens (B,S) -> fp32 logits (B,S,V).  With ``cache`` (an
+    """tokens (B,S) -> (fp32 logits (B,S,V), aux: the fp32 sum of the
+    ``moe`` layers' aux losses, 0 without any).  With ``cache`` (an
     ``init_decode_cache`` tree) the layers resume from it and write their
     state after the prefix in place (per row up to ``length``), and the
-    result is (logits, cache); ``zero_state`` says the cache is fresh
-    (``block_apply_seq``)."""
+    result is (logits, aux, cache); ``zero_state`` says the cache is
+    fresh (``block_apply_seq``)."""
     h = embed_apply(params["embed"], cfg, tokens)
     layers = _all_layers(params, cfg)
     caches = [None] * len(layers) if cache is None \
         else _all_layers(cache, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for kind, layer, c in zip(layer_kinds(cfg), layers, caches,
                               strict=True):
-        h = block_apply_seq(layer, cfg, kind, h, cache=c, length=length,
-                            zero_state=zero_state)
+        h, a = block_apply_seq(layer, cfg, kind, h, cache=c, length=length,
+                               zero_state=zero_state)
+        if a is not None:
+            aux = aux + a
     h = norm_apply(params["final_norm"], cfg, h)
     logits = unembed_apply(params["embed"], cfg, h)
-    return logits if cache is None else (logits, cache)
+    return (logits, aux) if cache is None else (logits, aux, cache)
 
 
 def prefill(params, cfg, tokens, capacity: int, *, length=None):
@@ -312,8 +358,9 @@ def prefill(params, cfg, tokens, capacity: int, *, length=None):
     prefilled unpadded at its own length."""
     cache = init_decode_cache(cfg, tokens.shape[0], capacity,
                               device=tokens.device)
-    return forward(params, cfg, tokens, cache=cache, length=length,
-                   zero_state=True)
+    logits, _, cache = forward(params, cfg, tokens, cache=cache,
+                               length=length, zero_state=True)
+    return logits, cache
 
 
 def _block_cache_init(cfg, kind, batch, capacity, device, lead=()):
@@ -420,7 +467,7 @@ def param_shapes(cfg) -> dict:
         else:
             p["attn"] = {"wq": (d, hq, hd), "wk": (d, hkv, hd),
                          "wv": (d, hkv, hd), "wo": (hq, hd, d)}
-        p["ffn"] = ffn
+        p["ffn"] = moe_mod.param_shapes(cfg) if kind == "moe" else ffn
         return p
 
     embed = {"tok": (v, d)}

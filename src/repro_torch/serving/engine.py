@@ -1,7 +1,7 @@
 """Slot-based continuous-batching serving engine (the counterpart of
 ``repro/serving/engine.py``), for image classification (the conv family)
-and for the dense, ssm (RWKV6) and hybrid (RG-LRU + local attention)
-LMs.
+and for the dense, moe (mixture-of-experts FFN), ssm (RWKV6) and hybrid
+(RG-LRU + local attention) LMs.
 
 The engine keeps ``slots`` rows and runs the reference's admission
 fixpoint on every ``step``:
@@ -35,7 +35,14 @@ With ``block_size > 0`` the KV cache is a shared, ref-counted pool of
 blocks read through per-slot block tables (``serving/blocks.py``):
 requests with a common prompt prefix share its blocks, and an exact
 repeat of a prompt (greedy engines) admits with no forward at all.  The
-pool holds attention K/V only, so it serves the dense family alone.
+pool holds attention K/V only, so it serves the dense and moe families
+alone (full attention only, as the reference's).
+
+A moe prompt's prefill dispatches at the configured, dropping, capacity
+factor, so which tokens an expert drops depends on the tokens that share
+the forward: the engine batches and pads prompts exactly as the
+reference's does (one right-padded bucket per admission), which is what
+keeps its streams equal to the reference's.  Decode is dropless.
 
 The multi-process tier (``serving/tier.py``, ``serving/router.py``) moves
 live rows between engines: ``export_slot`` snapshots one row (its
@@ -46,7 +53,7 @@ hands back every live row's snapshot and the queue.
 
 Everything runs under ``torch.inference_mode()``, and the decode state
 is written in place.  The replica mesh (ROADMAP queue A item 12) and the
-LM families the port has not got (item 8) raise.
+LM families the port has not got (item 8: vlm, encdec) raise.
 """
 from __future__ import annotations
 
@@ -232,11 +239,11 @@ class ServingEngine:
     def _init_lm_state(self, num_blocks: int) -> None:
         cfg, slots, dev = self.cfg, self.slots, self.device
         if self.block_size > 0:
-            if cfg.family != "dense":
+            if cfg.family not in ("dense", "moe"):
                 raise ValueError(
                     f"block-table caches need a pure-attention family "
-                    f"(dense), got {cfg.family!r} ({cfg.name}): the pool "
-                    "holds K/V blocks, not recurrent state")
+                    f"(dense/moe), got {cfg.family!r} ({cfg.name}): the "
+                    "pool holds K/V blocks, not recurrent state")
             if cfg.sliding_window is not None:
                 raise NotImplementedError(
                     "block-table caches need full attention: a windowed "

@@ -60,7 +60,7 @@ def check_spec_pair(tcfg, dcfg, *, temperature: float, ticks: int) -> None:
         if cfg.family not in models.FAMILIES:
             raise NotImplementedError(
                 f"a {cfg.family!r} {name} ({cfg.name}) is not ported yet: "
-                "see ROADMAP.md queue A item 8")
+                "see ROADMAP.md queue A item 8 (A8b: vlm; A8c: encdec)")
         if cfg.family not in SPEC_FAMILIES:
             raise NotImplementedError(
                 f"spec decode needs a {SPEC_FAMILIES} {name}, got "

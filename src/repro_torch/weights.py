@@ -9,7 +9,7 @@ holds the same arrays in the same layouts, so the bridge copies them
 bit for bit in both directions.  Arrays cross as numpy (convert JAX
 arrays with ``np.asarray``).
 
-The LMs (dense, ssm, hybrid): ``lm_from_reference`` / ``lm_to_reference`` copy the
+The LMs (dense, moe, ssm, hybrid): ``lm_from_reference`` / ``lm_to_reference`` copy the
 reference's params tree (``repro.models.init``) as it is, tuples and the
 empty ``{}`` of a non-parametric norm included; leaves keep their dtype
 (bf16 crosses bit for bit as its 16-bit pattern; numpy names the type

@@ -123,9 +123,9 @@ def test_policy_backends_on_cpu():
 
 
 def test_other_families_are_not_ported():
-    # conv and dense are ported, their decode states too; the other LM
-    # families raise, at init and at the decode state
-    cfg = types.SimpleNamespace(family="moe", name="mixtral-8x7b")
+    # conv, dense and moe are ported, their decode states too; the other
+    # LM families raise, at init and at the decode state
+    cfg = types.SimpleNamespace(family="vlm", name="phi-3-vision-4.2b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         models.init(cfg, torch.Generator(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -281,3 +281,220 @@ def test_cuda_split_is_deterministic(cuda):
         first = ops.matmul_bias(xt, wt)
         second = ops.matmul_bias(xt, wt)
     assert torch.equal(first, second)
+
+
+# ------------------------------------------------------------- bf16 ------
+# The bf16 entry and its plain version compute one fp32 sum over upcast
+# operands and round it to bf16 once, as the reference kernel does; sums
+# taken in another order round to the neighbouring bf16 value now and then.
+# So an element may differ by one bf16 ulp, or, near zero (where a bf16 ulp
+# is far below the fp32 sums' own error), by BF16_ATOL of the output's max.
+BF16_ATOL = 1e-5
+BF16_GRAD_RTOL = 2 ** -6     # db: a bf16 sum, reduced in another order
+
+
+def _bf16(a, device=None):
+    return torch.from_numpy(a).to(device=device, dtype=torch.bfloat16)
+
+
+def _ulp_check(got, want):
+    """Every element of ``got`` within one bf16 ulp of ``want``'s, or
+    within ``BF16_ATOL`` of max |want| (see above).  Returns the number of
+    elements that differ at all."""
+    g, w = got.float(), want.float()
+    ulp = torch.where(w == 0, torch.full_like(w, 2.0 ** -133),
+                      2.0 ** (torch.floor(torch.log2(w.abs())) - 7))
+    err = (g - w).abs()
+    atol = BF16_ATOL * w.abs().max()
+    bad = (err > ulp * 1.0001) & (err > atol)
+    assert not bad.any(), (f"{int(bad.sum())} elements beyond one bf16 ulp;"
+                           f" worst {float(err.max())}")
+    return int((g != w).sum())
+
+
+def _jax_bf16(a):
+    return jnp.asarray(a).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["linear", "relu"])
+@pytest.mark.parametrize("m,k,n,trans", [(100, 70, 50, False),
+                                         (37, 363, 96, False),
+                                         (65, 93, 40, True)],
+                         ids=["even", "odd_k_and_m", "transposed"])
+def test_bf16_forward_matches_reference(m, k, n, trans, relu):
+    """bf16 in, bf16 out: the port's plain version against the reference
+    kernel in interpret mode, odd K and M, and x as a transposed view."""
+    x, w, b = _mats(m, k, n, seed=9)
+    xt = (torch.from_numpy(np.ascontiguousarray(x.T)).bfloat16().t()
+          if trans else _bf16(x))
+    got = ops.matmul_bias(xt, _bf16(w), _bf16(b), relu=relu)
+    assert got.dtype == torch.bfloat16
+    want = jax_conv.matmul_bias(_jax_bf16(x), _jax_bf16(w), _jax_bf16(b),
+                                relu=relu, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    _ulp_check(got, torch.from_numpy(np.asarray(want, np.float32)))
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["linear", "relu"])
+def test_bf16_grads_match_jax_grad(relu):
+    """dx, dw (the same kernel, bf16 out) and db (a bf16 sum) against the
+    reference's custom_vjp."""
+    x, w, b = _mats(45, 37, 24, seed=10)
+
+    def jloss(x_, w_, b_):
+        y = jax_conv.matmul_bias(x_, w_, b_, relu=relu, interpret=True)
+        return jnp.sum(jnp.cos(y).astype(jnp.float32))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(_jax_bf16(x), _jax_bf16(w),
+                                              _jax_bf16(b))
+    xt, wt, bt = (_bf16(a).requires_grad_() for a in (x, w, b))
+    torch.cos(ops.matmul_bias(xt, wt, bt, relu=relu)).float().sum() \
+        .backward()
+    for name, got, ref_ in zip("xwb", (xt.grad, wt.grad, bt.grad), want):
+        assert got.dtype == torch.bfloat16, name
+        want_t = torch.from_numpy(np.asarray(ref_, np.float32))
+        if name == "b":
+            torch.testing.assert_close(got.float(), want_t,
+                                       rtol=BF16_GRAD_RTOL, atol=1e-3)
+        else:
+            _ulp_check(got, want_t)
+
+
+def test_bf16_im2col_conv_matches_reference():
+    """``conv2d_im2col`` in bf16 against the reference's
+    ``pallas_im2col_ref`` route (its ``conv2d_im2col``) in interpret
+    mode: the patches are exact, so the GEMM's one rounding is all that
+    can differ."""
+    x, w = _registry_example(True, seed=11)
+    b = np.linspace(-0.5, 0.5, w.shape[-1]).astype(np.float32)
+    kw = dict(stride=1, padding=1, relu=True, groups=2)
+    got = ops.conv2d_im2col(_bf16(x), _bf16(w), bias=_bf16(b), **kw)
+    assert got.dtype == torch.bfloat16
+    want = jax_ops.conv2d_im2col(_jax_bf16(x), _jax_bf16(w),
+                                 bias=_jax_bf16(b), interpret=True, **kw)
+    _ulp_check(got, torch.from_numpy(np.asarray(want, np.float32)))
+
+
+def test_bf16_operands_share_one_dtype():
+    with pytest.raises(ValueError, match="share one dtype"):
+        ops.matmul_bias(torch.zeros(4, 5, dtype=torch.bfloat16),
+                        torch.zeros(5, 3))
+
+
+def test_gemm_bf16_tile_constants_match_the_kernel():
+    """``GEMM_BF16_BM``, ``GEMM_BF16_BN`` and ``GEMM_BF16_BK`` mirror the
+    bf16 kernel's BM, BN and BK."""
+    src = (Path(ops.__file__).parent / "csrc"
+           / "matmul_bias_bf16.cu").read_text()
+    got = {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                               src).group(1)) for name in ("BM", "BN", "BK")}
+    assert got == {"BM": ops.GEMM_BF16_BM, "BN": ops.GEMM_BF16_BN,
+                   "BK": ops.GEMM_BF16_BK}
+    assert ops.gemm_bn(16, torch.bfloat16) == ops.GEMM_BF16_BN
+
+
+@pytest.mark.parametrize("m,n,k", [
+    (640, 4096, 14336),     # Mixtral's w_out dx at capacity 640
+    (16, 14336, 4096),      # a decode product
+    (363, 96, 96800),       # conv1's dw at batch 32
+])
+def test_gemm_split_bf16_covers_each_chunk_once(m, n, k):
+    n_split = ops.gemm_split(m, n, k, 132, torch.bfloat16)
+    ranges = ops.gemm_ranges(k, n_split, torch.bfloat16)
+    chunks = -(-k // ops.GEMM_BF16_BK)
+    assert len(ranges) == n_split >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == chunks
+    for (lo, hi), (nxt, _) in zip(ranges, ranges[1:] + [(chunks, 0)]):
+        assert lo < hi == nxt
+
+
+# the bf16 kernel's edge cases: M, K or N of 1, K off the 32-wide chunk,
+# ragged tiles, every transposed-operand flag, rows of odd length (the
+# narrow copy path), ReLU on and off, a split reduction
+CUDA_BF16_CASES = [
+    # m, k, n, trans_a, trans_b, bias, relu
+    (1, 32, 64, False, False, True, True),
+    (64, 1, 64, False, False, True, False),
+    (65, 17, 1, False, False, False, False),
+    (100, 70, 50, False, False, True, True),
+    (150, 96, 37, True, False, False, False),
+    (97, 363, 96, False, True, False, False),
+    (363, 1000, 96, True, False, False, False),
+    (130, 40, 136, True, True, True, True),
+    (1, 1, 1, True, True, True, False),
+    (16, 4096, 1024, False, False, False, False),
+    (641, 256, 520, False, False, True, False),
+    (363, 20000, 96, True, False, False, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,trans_a,trans_b,bias,relu", CUDA_BF16_CASES)
+def test_cuda_bf16_kernel_matches_plain(cuda, m, k, n, trans_a, trans_b,
+                                        bias, relu):
+    x, w, b = _mats(m, k, n, seed=12)
+    xt = (_bf16(np.ascontiguousarray(x.T), cuda).t() if trans_a
+          else _bf16(x, cuda))
+    wt = (_bf16(np.ascontiguousarray(w.T), cuda).t() if trans_b
+          else _bf16(w, cuda))
+    bt = _bf16(b, cuda) if bias else None
+    before = ops.matmul_bias.launches_bf16
+    with torch.no_grad():
+        got = ops.matmul_bias(xt, wt, bt, relu=relu)
+        torch.cuda.synchronize()
+    assert ops.matmul_bias.launches_bf16 == before + 1
+    assert got.dtype == torch.bfloat16
+    _ulp_check(got, ref.matmul_bias_ref(xt, wt, bt, relu))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_operands_at_the_end_of_their_storage(cuda):
+    """x and w as the last rows of larger buffers, with ragged M, N and K
+    and rows of odd length: the kernel reads nothing past them (a read
+    past the end of the allocation would fault or bring in garbage)."""
+    for (m, k, n) in ((37, 363, 96), (200, 64, 72)):
+        x, w, b = _mats(m, k, n, seed=13)
+        xbuf = torch.empty((4096 * 64 + m * k,), dtype=torch.bfloat16,
+                           device=cuda)
+        wbuf = torch.empty((4096 * 64 + k * n,), dtype=torch.bfloat16,
+                           device=cuda)
+        xt = xbuf[-m * k:].view(m, k)
+        wt = wbuf[-k * n:].view(k, n)
+        xt.copy_(_bf16(x, cuda))
+        wt.copy_(_bf16(w, cuda))
+        with torch.no_grad():
+            got = ops.matmul_bias(xt, wt, _bf16(b, cuda), relu=True)
+            torch.cuda.synchronize()
+        _ulp_check(got, ref.matmul_bias_ref(xt, wt, _bf16(b, cuda), True))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_backward_launches_the_kernel_twice(cuda):
+    x, w, b = _mats(200, 75, 40, seed=14)
+    xt, wt, bt = (_bf16(a, cuda).requires_grad_() for a in (x, w, b))
+    before = ops.matmul_bias.launches_bf16
+    torch.cos(ops.matmul_bias(xt, wt, bt, relu=True)).float().sum() \
+        .backward()
+    torch.cuda.synchronize()
+    assert ops.matmul_bias.launches_bf16 == before + 3
+    xp, wp, bp = (_bf16(a, cuda).requires_grad_() for a in (x, w, b))
+    torch.cos(ops.matmul_bias(xp, wp, bp, relu=True, backend="plain")) \
+        .float().sum().backward()
+    for got, want in ((xt.grad, xp.grad), (wt.grad, wp.grad)):
+        _ulp_check(got, want)
+    torch.testing.assert_close(bt.grad.float(), bp.grad.float(),
+                               rtol=BF16_GRAD_RTOL, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_split_is_deterministic(cuda):
+    m, k, n = 363, 20000, 96
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert ops.gemm_split(m, n, k, sms, torch.bfloat16) > 1
+    x, w, _ = _mats(m, k, n, seed=15)
+    xt = _bf16(np.ascontiguousarray(x.T), cuda).t()
+    wt = _bf16(w, cuda)
+    with torch.no_grad():
+        first = ops.matmul_bias(xt, wt)
+        second = ops.matmul_bias(xt, wt)
+    assert torch.equal(first, second)

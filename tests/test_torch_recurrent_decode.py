@@ -146,8 +146,9 @@ def test_prefill_from_a_carried_state_matches_reference(pair):
         0, cfg.vocab_size, (3, 8)).astype(np.int32)
     jl, _, jcache = _jitted(_forward_from, 1)(params, jcfg,
                                               jnp.asarray(toks), js.cache)
-    pl, cache = transformer.forward(port, cfg, torch.from_numpy(toks),
-                                    cache=ps.cache)
+    pl, aux, cache = transformer.forward(port, cfg, torch.from_numpy(toks),
+                                         cache=ps.cache)
+    assert float(aux) == 0.0
     assert cache is ps.cache
     np.testing.assert_allclose(pl.numpy(), np.asarray(jl), rtol=TOL,
                                atol=TOL)

@@ -105,7 +105,8 @@ def test_model_matches_reference(name, n_layers, policy):
     for t in leaves:
         t.requires_grad_()
     tb = tree_map(torch.from_numpy, batch)
-    logits = models.logits_fn(p, cfg, tb)
+    logits, aux = models.logits_fn(p, cfg, tb)
+    assert float(aux) == 0.0
     np.testing.assert_allclose(logits.detach().numpy(),
                                np.asarray(want_logits), rtol=TOL, atol=TOL)
     loss = models.loss_fn(p, cfg, tb)

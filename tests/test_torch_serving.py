@@ -132,8 +132,16 @@ def test_sample_top_k_support_and_generator():
 
 @pytest.mark.parametrize("family", ["moe", "vlm", "encdec"])
 def test_engine_serves_the_conv_family_only(family):
-    """conv and the dense, ssm and hybrid LMs serve; a family not ported
-    yet still raises, naming its ROADMAP item."""
+    """conv and the dense, moe, ssm and hybrid LMs serve (a reduced
+    mixtral-8x7b engine builds its ring); a family not ported yet still
+    raises, naming its ROADMAP item."""
+    if family == "moe":
+        cfg = reduced(ARCHS["mixtral-8x7b"], 2, 64)
+        params = models.init(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        eng = ServingEngine(params, cfg, slots=2, capacity=16)
+        assert eng.state.cache["blocks"][0]["k"].shape[:3] == (2, 2, 16)
+        return
     cfg = types.SimpleNamespace(family=family, name=f"a-{family}-arch")
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         ServingEngine(_model(), cfg)

@@ -444,9 +444,9 @@ def test_spec_gates():
         ServingEngine(port, cfg, draft_params=port, draft_cfg=small)
     with pytest.raises(ValueError, match="speculative decoding"):
         ServingEngine(port, cfg, capacity=CAPACITY, block_size=8, **spec)
-    moe = reduced(ARCHS["mixtral-8x7b"], 2, WIDTH)
+    vlm = reduced(ARCHS["phi-3-vision-4.2b"], 2, WIDTH)
     with pytest.raises(NotImplementedError, match="queue A item 8"):
-        ServingEngine(port, cfg, draft_params=port, draft_cfg=moe)
+        ServingEngine(port, cfg, draft_params=port, draft_cfg=vlm)
 
 
 # ------------------------------------------------------------ on the card --
