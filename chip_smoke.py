@@ -31,10 +31,13 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    bf16 (yardsticks only) and the bound (989 TFLOP/s bf16 or 3.35 TB/s);
    then ``matmul_bias``'s bf16 entry (``gemm_bf16``) at Mixtral's expert
    products at capacity 640 (forward, dx, dw), the decode products at M
-   = 16 and AlexNet's 14 im2col products at batch 32, each element within
-   one bf16 ulp of the plain version (or 1e-5 of max |y| near zero),
-   the differing elements counted, two calls bit-equal, timed beside the
-   plain version, ``torch.matmul`` in bf16 (a yardstick) and the bound;
+   = 16 and AlexNet's 14 im2col products at batch 32, each on the body
+   the rule must pick (wgmma; swap_ab at M = 16; mma_sync for conv1's
+   unaligned rows), each element within one bf16 ulp of the plain
+   version (or 1e-5 of max |y| near zero), the differing elements
+   counted, two calls bit-equal, timed beside the plain version, the
+   mma_sync body at the same shape, ``torch.matmul`` in bf16 (both
+   yardsticks) and the bound, with the body's width, units and blocks;
 4. flash kernel phase: the flash-attention forward, dq and dk/dv kernels
    against their plain versions (fp32: 2e-4 forward, 2e-3 grads; bf16:
    3e-2) at the LM training shape (B=4, H=16, S=2048, hd=128, causal) and
@@ -207,8 +210,9 @@ Run from the root of a checkout.  It imports ``repro_torch`` from
    tokens with the first 2 layers; training at full width and 2 of 32
    layers, 2 x 2048 tokens, bf16 params, fp32 velocity: 4 steps on the
    batched product, then 3 on the GEMM kernel from a fresh state of the
-   same seed (288 GEMM launches a step), the losses within 2e-2, step
-   p50, tokens/s and peak memory of each;
+   same seed (288 GEMM launches a step, all on the TMA bodies; its first
+   step traced: the GEMM's device ms a step), the losses within 2e-2,
+   step p50, tokens/s and peak memory of each;
 13. tier phase: ``olmo-1b`` as a multi-process tier on the card, 2 engine
    workers of 8 slots (capacity 2048) and a prefill worker, each a
    ``python -m repro_torch.launch.serve --role ...`` process on the
@@ -3929,70 +3933,156 @@ def mixtral_gemm_cases(cfg, cap):
             ("mixtral", "dw w_out", f, cap, d, True, False, 1)]
 
 
-def gemm_bf16_phase(gen):
-    """``matmul_bias``'s bf16 entry at the products the main paths give
-    it: Mixtral's expert FFN at C = 640 (2048 tokens x top-2 x 1.25 / 8;
-    forward, dx and dw), a decode tick's products at M = 16 (8 slots x
-    top-2, dropless), and AlexNet's 14 im2col products at batch 32, bf16
-    operands.  Each against the plain version (fp32 sum, one rounding):
-    every element within one bf16 ulp, or, near zero, within
-    GEMM_BF16_ATOL of max |y| (where a bf16 ulp is below the fp32 sums'
-    own error); the count of elements that differ (``bf16_flips``); two
-    calls bit-equal.  Timed beside the plain version, ``torch.matmul`` in
-    bf16 (+ bias, ReLU; a yardstick only) and the bound, max(2MNK / 989
-    TFLOP/s, bytes / 3.35 TB/s).  The totals sum one expert's 9 products
-    of a training step (the main path)."""
+def gemm_bf16_ulp_check(what, got, want) -> float:
+    """Every element of ``got`` within one bf16 ulp of ``want``'s, or,
+    near zero, within GEMM_BF16_ATOL of max |want| (where a bf16 ulp is
+    below the fp32 sums' own error); all finite.  Returns max |err|."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ulp = torch.where(w == 0, torch.full_like(w, 2.0 ** -133),
+                      2.0 ** (torch.floor(torch.log2(w.abs())) - 7))
+    top = w.abs().max().item()
+    beyond = int(((err > ulp * 1.0001)
+                  & (err > GEMM_BF16_ATOL * top)).sum().item())
+    if beyond or not torch.isfinite(g).all():
+        raise AssertionError(f"{what}: {beyond} elements beyond one bf16 "
+                             f"ulp (max |err| {err.max().item():.3e})")
+    return err.max().item()
+
+
+def gemm_bf16_cases():
+    """(group, product, M, K, N, trans_a, trans_b, launches per expert in
+    a replica's training step, the body the rule must pick) of the bf16
+    GEMM's main-path shapes: Mixtral's expert FFN at C = 640 (2048 tokens
+    x top-2 x 1.25 / 8), a decode tick's products at M = 16 (8 slots x
+    top-2, dropless), and AlexNet's 14 im2col products at batch 32
+    (conv1's 363-wide patch rows on the mma_sync body)."""
     from repro_torch.configs import ALEXNET_FAITHFUL, ARCHS
-    from repro_torch.kernels.conv2d import ops as conv_ops
-    from repro_torch.kernels.conv2d.ref import matmul_bias_ref
     from repro_torch.models.moe import capacity
 
-    dev, bf = torch.device("cuda"), torch.bfloat16
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mix = ARCHS[MOE_ARCH]
     cap = capacity(MOE_TRAIN_SEQ, mix.moe.top_k, mix.moe.capacity_factor,
                    mix.moe.n_experts)
-    cases = mixtral_gemm_cases(mix, cap)
+    cases = [c + ("wgmma",) for c in mixtral_gemm_cases(mix, cap)]
     cases += [("decode", "fwd w_in/w_gate", 16, mix.d_model, mix.d_ff,
-               False, False, 0),
+               False, False, 0, "swap_ab"),
               ("decode", "fwd w_out", 16, mix.d_ff, mix.d_model, False,
-               False, 0)]
-    cases += [(f"alexnet {layer}", product, m, k, n, ta, tb, 0)
+               False, 0, "swap_ab")]
+    cases += [(f"alexnet {layer}", product, m, k, n, ta, tb, 0,
+               "mma_sync" if layer == "conv1" else "wgmma")
               for layer, product, m, k, n, ta, tb in gemm_cases(
                   ALEXNET_FAITHFUL, IM2COL_BATCH)]
+    return cases
+
+
+def gemm_bf16_operands(gen, m, k, n, ta, tb, relu):
+    """bf16 operands of one product, made on the card: x (M,K) (a
+    transposed view where ``ta``), w (K,N) scaled by K^-1/2 (where ``tb``
+    a transposed view), and a bias where ``relu``."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    a = torch.randn((k, m) if ta else (m, k), generator=gen,
+                    device=dev).to(bf)
+    b = (torch.randn((n, k) if tb else (k, n), generator=gen, device=dev)
+         * k ** -0.5).to(bf)
+    bias = (torch.randn((n,), generator=gen, device=dev).to(bf)
+            if relu else None)
+    return (a.t() if ta else a), (b.t() if tb else b), bias
+
+
+def gemm_bf16_units(conv_ops, m, n, body, bn, split) -> int:
+    """The work units of one launch: output tiles times splits (a TMA
+    body's 128-row tiles run along N on swap_ab)."""
+    rows, cols = (n, m) if body == "swap_ab" else (m, n)
+    bm = (conv_ops.GEMM_BF16_BM if body == "mma_sync"
+          else conv_ops.GEMM_BF16_TMA_BM)
+    return -(-rows // bm) * -(-cols // bn) * split
+
+
+def device_ms_by_kernel(fn, calls=5) -> dict:
+    """Device ms a call of each kernel that ``fn`` launches (its name up
+    to its arguments), from a ``torch.profiler`` trace of ``calls`` warm
+    calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gemm_trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)["traceEvents"]
+    out = {}
+    for e in trace:
+        if e.get("cat") == "kernel":
+            name = e["name"].replace("void ", "").replace(
+                "(anonymous namespace)::", "").split("(")[0][:80]
+            out[name] = out.get(name, 0.0) + e["dur"] / 1e3 / calls
+    if not out:
+        raise AssertionError("the profiler traced no kernel on the device")
+    return out
+
+
+def gemm_bf16_phase(gen):
+    """``matmul_bias``'s bf16 entry at the products the main paths give
+    it (``gemm_bf16_cases``), bf16 operands, each on the body
+    ``gemm_plan_bf16`` picks, which must be the one the case names
+    (``launches_bf16_wgmma`` counting the TMA bodies' launches).  Each
+    against the plain version (fp32 sum, one rounding): every element
+    within one bf16 ulp, or, near zero, within GEMM_BF16_ATOL of max |y|
+    (``gemm_bf16_ulp_check``); the count of elements that differ
+    (``bf16_flips``); two calls bit-equal.  Timed beside the plain
+    version, the ``mma_sync`` body at the same shape (a yardstick where
+    the rule picks a TMA body), ``torch.matmul`` in bf16 (+ bias, ReLU;
+    a yardstick only) and the bound, max(2MNK / 989 TFLOP/s, bytes / 3.35
+    TB/s).  Mixtral's and decode's products, where the kernel and
+    ``torch.matmul`` are closest, are also traced: each one's device ms a
+    call by kernel (``device_ms_by_kernel``: the body beside the split's
+    sum, the library's kernels).  The totals sum one expert's 9 products
+    of a training step (the main path); one more line sums the decode and
+    AlexNet groups."""
+    from repro_torch.kernels.conv2d import ops as conv_ops
+    from repro_torch.kernels.conv2d.ref import matmul_bias_ref
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-           "max_abs_err": 0.0, "flops": 0.0, "bytes": 0.0}
-    for group, product, m, k, n, ta, tb, per_expert in cases:
-        a = torch.randn((k, m) if ta else (m, k), generator=gen,
-                        device=dev).to(bf)
-        b = (torch.randn((n, k) if tb else (k, n), generator=gen,
-                         device=dev) * k ** -0.5).to(bf)
-        a, b = (a.t() if ta else a), (b.t() if tb else b)
+           "mma_sync_ms": 0.0, "max_abs_err": 0.0, "flops": 0.0,
+           "bytes": 0.0}
+    sums = {}
+    for group, product, m, k, n, ta, tb, per_expert, want_body in \
+            gemm_bf16_cases():
         relu = group.startswith("alexnet") and product == "forward"
-        bias = (torch.randn((n,), generator=gen, device=dev).to(bf)
-                if relu else None)
+        a, b, bias = gemm_bf16_operands(gen, m, k, n, ta, tb, relu)
         what = f"matmul_bias_bf16 {group} {product}"
+        body, bn, split = conv_ops.gemm_plan_bf16(
+            m, n, k, ta, tb, conv_ops._aligned(a, ta),
+            conv_ops._aligned(b, tb), sms)
+        if body != want_body:
+            raise AssertionError(f"{what}: the rule picks {body}, not "
+                                 f"{want_body}")
         with torch.inference_mode():
+            wg0 = conv_ops.matmul_bias.launches_bf16_wgmma
             got = conv_ops.matmul_bias(a, b, bias, relu=relu, backend="cuda")
             torch.cuda.synchronize()
+            if (conv_ops.matmul_bias.launches_bf16_wgmma - wg0
+                    != (body != "mma_sync")):
+                raise AssertionError(f"{what}: launches_bf16_wgmma did not "
+                                     f"count the {body} body")
             want = matmul_bias_ref(a, b, bias, relu)
-            g, w = got.float(), want.float()
-            err = (g - w).abs()
-            ulp = torch.where(w == 0, torch.full_like(w, 2.0 ** -133),
-                              2.0 ** (torch.floor(torch.log2(w.abs())) - 7))
-            top = w.abs().max().item()
-            beyond = int(((err > ulp * 1.0001)
-                          & (err > GEMM_BF16_ATOL * top)).sum().item())
-            if beyond or not torch.isfinite(g).all():
-                raise AssertionError(f"{what}: {beyond} elements beyond one "
-                                     f"bf16 ulp (max |err| "
-                                     f"{err.max().item():.3e})")
+            err = gemm_bf16_ulp_check(what, got, want)
             flips = bf16_flips(got, want)
-            split = conv_ops.gemm_split(m, n, k, sms, bf)
             if not torch.equal(got, conv_ops.matmul_bias(
                     a, b, bias, relu=relu, backend="cuda")):
                 raise AssertionError(f"{what}: two calls differ (split "
                                      f"{split})")
+
+            def old():
+                return conv_ops._matmul(a, b, bias, relu, "cuda",
+                                        body="mma_sync")
 
             def library():
                 y = torch.matmul(a, b)
@@ -4003,6 +4093,19 @@ def gemm_bf16_phase(gen):
             lib_flips = bf16_flips(library(), want)
             k_ms = time_ms(lambda: conv_ops.matmul_bias(
                 a, b, bias, relu=relu, backend="cuda"), reps=10)
+            traced = {}
+            if group in ("mixtral", "decode"):
+                traced = {
+                    "device_ms_by_kernel": device_ms_by_kernel(
+                        lambda: conv_ops.matmul_bias(
+                            a, b, bias, relu=relu, backend="cuda")),
+                    "library_device_ms_by_kernel":
+                        device_ms_by_kernel(library)}
+            if body == "mma_sync":
+                o_ms = k_ms
+            else:
+                gemm_bf16_ulp_check(what + " mma_sync", old(), want)
+                o_ms = time_ms(old, reps=10)
             p_ms = time_ms(lambda: matmul_bias_ref(a, b, bias, relu),
                            reps=10)
             l_ms = time_ms(library, reps=10)
@@ -4010,33 +4113,46 @@ def gemm_bf16_phase(gen):
         nbytes = 2.0 * (m * k + k * n + m * n + (n if bias is not None
                                                  else 0))
         bound, bound_by = _bound(flops, nbytes, BF16_PEAK)
+        units = gemm_bf16_units(conv_ops, m, n, body, bn, split)
         row = {"phase": "kernel", "kernel": "matmul_bias_bf16",
                "group": group, "product": product, "m": m, "k": k, "n": n,
                "trans_a": ta, "trans_b": tb, "relu": relu,
                "launches_per_expert_step": per_expert,
-               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "body": body, "bn": bn, "split": split, "units": units,
+               "blocks": (units if body == "mma_sync" else min(units, sms)),
+               "kernel_ms": k_ms, "mma_sync_ms": o_ms, "plain_ms": p_ms,
+               "library_ms": l_ms,
                "library": "torch.matmul in bf16 (+ bias, ReLU)",
                "bound_ms": bound, "bound_by": bound_by,
                "assumes": "989 TFLOP/s bf16 tensor cores, 3.35 TB/s",
                "flops": flops, "bytes": nbytes,
                "tflops": flops / (k_ms * 1e-3) / 1e12,
-               "share_of_bound": bound / k_ms,
-               "blocks": (-(-m // conv_ops.GEMM_BF16_BM)
-                          * -(-n // conv_ops.GEMM_BF16_BN) * split),
-               "split": split, "max_err": err.max().item(),
-               "bf16_flips": flips, "library_flips": lib_flips}
+               "share_of_bound": bound / k_ms, "max_err": err,
+               "bf16_flips": flips, "library_flips": lib_flips, **traced}
         emit(row)
         tot["max_abs_err"] = max(tot["max_abs_err"], row["max_err"])
         for key, src in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
                          ("bound_ms", "bound_ms"),
-                         ("library_ms", "library_ms"), ("flops", "flops"),
+                         ("library_ms", "library_ms"),
+                         ("mma_sync_ms", "mma_sync_ms"), ("flops", "flops"),
                          ("bytes", "bytes")):
             tot[key] += per_expert * row[src]
-        del a, b, got, want, g, w, err, ulp
+        key = group.split()[0] + ("" if body == "mma_sync"
+                                  or group == "decode" else " tma")
+        agg = sums.setdefault(key, {"kernel_ms": 0.0, "mma_sync_ms": 0.0,
+                                    "library_ms": 0.0, "bound_ms": 0.0,
+                                    "products": 0})
+        for k_ in ("kernel_ms", "mma_sync_ms", "library_ms", "bound_ms"):
+            agg[k_] += row[k_]
+        agg["products"] += 1
+        del a, b, got, want
     tot["bound_by"] = _bound(tot["flops"], tot["bytes"], BF16_PEAK)[1]
     tot["tolerance"] = (f"1 bf16 ulp, or {GEMM_BF16_ATOL} x max |y| near "
                         "zero")
     tot["library"] = "torch.matmul in bf16"
+    emit({"phase": "gemm_bf16_sums", "one_expert_step": {
+        k_: tot[k_] for k_ in ("ms", "mma_sync_ms", "library_ms",
+                               "bound_ms")}, "groups": sums})
     return {"matmul_bias_bf16": tot}
 
 
@@ -4240,11 +4356,17 @@ def moe_train_phase(seed):
     Launch counts over each route's steps (flash per layer; the GEMM 9
     per expert and moe layer on the kernel route, none on the other),
     the losses (aux included) of the two routes within BF16_LOSS_TOL at
-    every step, spread 0, step p50 and tokens/s of each, peak memory."""
+    every step, spread 0, step p50 and tokens/s of each, peak memory.
+    The kernel route's launches all take the TMA bodies
+    (``launches_bf16_wgmma``), and its first step (untimed) is traced:
+    the GEMM kernel's device ms a step beside the step p50."""
     import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import ARCHS
     from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.kernels.conv2d.ops import matmul_bias
 
     base = dataclasses.replace(ARCHS[MOE_ARCH], n_layers=MOE_TRAIN_LAYERS)
     pool = lm_pool(base, REPLICAS, MOE_TRAIN_STEPS + 1, seed + 71)
@@ -4261,11 +4383,19 @@ def moe_train_phase(seed):
         state0 = lm_state(cfg, seed)
         spreads, step_s = [], []
 
+        traced = []
+
         def wrap(step):
             def timed(st, batch):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                st, loss = step(st, batch)
+                if route == "kernel" and not step_s:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        st, loss = step(st, batch)
+                        torch.cuda.synchronize()
+                    traced.append(prof)
+                else:
+                    st, loss = step(st, batch)
                 torch.cuda.synchronize()
                 step_s.append(time.perf_counter() - t0)
                 return st, loss
@@ -4274,11 +4404,18 @@ def moe_train_phase(seed):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
+        matmul_bias.launches_bf16_wgmma = 0
         res = session(lm_loss(cfg), state0, make_stream, steps, items,
                       metrics_path=os.devnull, spreads=spreads,
                       wrap=wrap).run()
         torch.cuda.synchronize()
         launches = read_counts()
+        if matmul_bias.launches_bf16_wgmma != launches["matmul_bias_bf16"]:
+            raise AssertionError(
+                f"mixtral training ({route}): "
+                f"{matmul_bias.launches_bf16_wgmma} of "
+                f"{launches['matmul_bias_bf16']} GEMM launches on the TMA "
+                "bodies")
         per_step = REPLICAS * cfg.n_layers
         gemm = 9 * cfg.moe.n_experts * moe_layers(cfg) * REPLICAS
         want = want_counts(flash_fwd=per_step * steps,
@@ -4306,7 +4443,18 @@ def moe_train_phase(seed):
                       / statistics.median(timed),
                       "peak_mem_gb": torch.cuda.max_memory_allocated()
                       / 1e9}
-        del state0, res
+        if traced:
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "moe_train_trace.json")
+                traced[0].export_chrome_trace(path)
+                busy = device_busy(path, lm_family)
+            out[route]["traced_step"] = {
+                "step": 1, "busy_ms": busy["busy_ms"],
+                "matmul_bias_bf16_ms": busy["ms_by_family"].get(
+                    "matmul_bias", 0.0),
+                "ms_by_family": busy["ms_by_family"],
+                "top_kernels": busy["top_kernels"]}
+        del state0, res, traced
     errs = [abs(a - b) for a, b in zip(out["kernel"]["losses"],
                                        out["einsum"]["losses"])]
     if max(errs) > BF16_LOSS_TOL:
@@ -4335,6 +4483,7 @@ def im2col_bf16_phase(model_cfg, seed):
     import dataclasses
 
     from repro_torch.kernels.common import KernelPolicy
+    from repro_torch.kernels.conv2d.ops import matmul_bias
     from repro_torch.numerics import get_policy
 
     npol = get_policy("bf16")
@@ -4350,6 +4499,7 @@ def im2col_bf16_phase(model_cfg, seed):
                    numerics=npol)
     torch.cuda.synchronize()
     zero_counts()
+    matmul_bias.launches_bf16_wgmma = 0
     t0 = time.perf_counter()
     res = sess.run()
     torch.cuda.synchronize()
@@ -4360,6 +4510,11 @@ def im2col_bf16_phase(model_cfg, seed):
         matmul_bias_bf16=(3 * len(cfg.convs) - 1) * REPLICAS * steps)
     if launches != want:
         raise AssertionError(f"bf16 im2col launches {launches} != {want}")
+    # all but conv1's two products (363-wide patch rows) on the wgmma body
+    tma = (3 * len(cfg.convs) - 3) * REPLICAS * steps
+    if matmul_bias.launches_bf16_wgmma != tma:
+        raise AssertionError(f"bf16 im2col: {matmul_bias.launches_bf16_wgmma}"
+                             f" GEMM launches on the wgmma body, not {tma}")
     losses = losses_of(res)
     fused = losses_of(session(alexnet_loss(fused_cfg),
                               init_state(fused_cfg, seed), make_stream,
@@ -4374,6 +4529,7 @@ def im2col_bf16_phase(model_cfg, seed):
           "per_replica_batch": IM2COL_BATCH, "steps": steps,
           "launches": launches,
           "matmul_per_replica_step": "5 forward + 5 dw + 4 dx",
+          "matmul_wgmma_launches": matmul_bias.launches_bf16_wgmma,
           "losses": losses, "fused_bf16_losses": fused,
           "loss_abs_err": errs, "loss_tol": BF16_LOSS_TOL, "wall_s": wall})
     return launches
@@ -4661,7 +4817,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     emit({"phase": "build", "seconds": build_s, "library": str(lib)})
     for line in (lib.parent / "build.log").read_text().splitlines():
-        if "ptxas info" in line or "error" in line.lower():
+        if ("ptxas info" in line or "error" in line.lower()
+                or line.startswith("== ")):
             print(line)
 
     global CYCLES_PER_MS

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time the split, chunk and tile choices of the GEMM, fused conv (fp32
-and bf16), decode, WKV and RG-LRU kernels on one NVIDIA GPU.
+"""Time the split, chunk and tile choices of the GEMM (fp32 and bf16),
+fused conv (fp32 and bf16), decode, WKV and RG-LRU kernels on one NVIDIA
+GPU.
 
-    python3 kernel_sweep.py [--kernels decode wkv rglru conv conv_bf16 gemm]
+    python3 kernel_sweep.py [--kernels decode wkv rglru conv conv_bf16 gemm
+                             gemm_bf16]
 
 Run from the root of a checkout; it imports ``repro_torch`` from ``src/``
 and ``chip_smoke``'s helpers (never ``jax`` or ``repro``), builds the
@@ -13,6 +15,18 @@ kernel's ``chip_smoke`` tolerance of its plain version:
   replica-step (``chip_smoke.gemm_cases``): the time at the split
   ``gemm_split`` picks and at every split of ``SPLITS`` that leaves no
   split shorter than ``GEMM_MIN_CHUNKS`` chunks;
+* ``matmul_bias_bf16``, each main-path product of the bf16 GEMM
+  (``chip_smoke.gemm_bf16_cases``: Mixtral's 6 expert-FFN product kinds
+  at C = 640, decode's 2 at M = 16, AlexNet's 14 im2col products at batch
+  32), and decode's two at M = 32 and 64: the time of the body
+  ``gemm_plan_bf16`` picks at its (width, split) and at every width of
+  that body (``GEMM_BF16_BNS``, or the swap_ab width that holds M) with
+  every split of ``BF16_SPLITS`` that leaves no split shorter than
+  ``GEMM_BF16_MIN_CHUNKS`` chunks, and of the mma_sync body at its rule
+  (``gemm_split``) and at every split of ``SPLITS`` that leaves no split
+  shorter than ``GEMM_MIN_CHUNKS``; then the least-squares fit of the
+  rules' constants to those times (``fit_gemm_bf16``: the source of the
+  ``GEMM_BF16_*`` chunk-times);
 * ``conv2d_fused``, each AlexNet conv at the serving batch (8, both
   AlexNets) and the training batch (128): the time at the (width, split)
   ``conv_tiles`` picks and at every width of ``CONV_BNS`` with every split
@@ -49,6 +63,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SPLITS = [1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 88]
 CONV_SPLITS = [1, 2, 3, 4, 6, 8]
+BF16_SPLITS = [1, 2, 3, 4, 6, 8, 12]
 DECODE_CHUNKS = [64, 128, 256, 512, 1024, 2048]
 RING_CASES = ("serve", "gqa", "window")
 WKV_CHUNKS = [16, 32, 64, 128, 256, 512]
@@ -92,6 +107,197 @@ def gemm_sweep(cs, gen, dev, sms):
                  "ms_by_split": {str(z): t for z, t in times.items()}})
     cs.emit({"matmul_bias_rule_sum_ms": rule_sum,
              "matmul_bias_best_sum_ms": best_sum})
+
+
+def gemm_bf16_sweep_cases(cs):
+    """``chip_smoke.gemm_bf16_cases`` and decode's two products at M = 32
+    and 64 (the swap_ab body's other widths: a short prompt's prefill on
+    the GEMM kernel)."""
+    cases = cs.gemm_bf16_cases()
+    for m in (32, 64):
+        cases += [(f"decode m{m}", c[1], m) + c[3:]
+                  for c in cases if c[0] == "decode"]
+    return cases
+
+
+def _tma_model_terms(ops, m, n, k, body, bn, split, sms, fill):
+    """The terms of ``gemm_tiles_bf16``'s cost for one (body, bn, split)
+    at fill ``fill``: the chunk-time's factor, whether the sum kernel
+    runs, and the partials' HBM time in us."""
+    bf = torch.bfloat16
+    rows, cols = (n, m) if body == "swap_ab" else (m, n)
+    runs = ops.gemm_ranges(k, split, bf, body)
+    split, per = len(runs), runs[0][1]
+    tiles = -(-rows // ops.GEMM_BF16_TMA_BM) * -(-cols // bn)
+    waves = -(-tiles * split // sms)
+    partial_us = (split > 1) * split * 8.0 * m * n / ops.HBM_RATE * 1e6
+    return waves * (per + fill), float(split > 1), partial_us
+
+
+def fit_gemm_bf16(points, sms):
+    """Least-squares fits (relative error) of the bf16 GEMM rules' models
+    to timed points ``(m, n, k, planned_body, {(body, bn, split): ms})``:
+
+    * the TMA bodies (``gemm_tiles_bf16``): a launch's fixed time, one
+      chunk-time per (body, width), ``GEMM_BF16_SUM_US`` and, by a search
+      over a grid, ``GEMM_BF16_FILL_CHUNKS``, on every TMA point;
+    * the mma_sync body (``gemm_split``, ``GEMM_BF16_RESIDENT`` blocks an
+      SM): a launch's time and ``GEMM_BF16_CHUNK_S``, on the points of the
+      shapes the plan gives that body (the narrow copy path it runs on
+      the main path).
+
+    Then, with the fitted TMA model, which timed choice it would pick at
+    each TMA shape against the fastest one.  Returns a dict."""
+    import numpy as np
+    from repro_torch.kernels.conv2d import ops
+
+    bf = torch.bfloat16
+    keys = ([("wgmma", w) for w in ops.GEMM_BF16_BNS]
+            + [("swap_ab", w) for w in ops.GEMM_BF16_SWAP_BNS])
+    tma = [(m, n, k, c, t) for m, n, k, _, times in points
+           for c, t in times.items() if c[0] != "mma_sync"]
+
+    def solve(fill):
+        a = np.zeros((len(tma), len(keys) + 2))
+        y = np.zeros(len(tma))
+        for i, (m, n, k, (body, bn, split), ms) in enumerate(tma):
+            factor, summed, partial_us = _tma_model_terms(
+                ops, m, n, k, body, bn, split, sms, fill)
+            us = ms * 1e3
+            a[i, 0] = 1.0 / us
+            a[i, 1 + keys.index((body, bn))] = factor / us
+            a[i, -1] = summed / us
+            y[i] = (us - partial_us) / us
+        used = a.any(axis=0)
+        x = np.zeros(a.shape[1])
+        x[used] = np.linalg.lstsq(a[:, used], y, rcond=None)[0]
+        return x, float(np.sqrt(np.mean((a @ x - y) ** 2)))
+
+    fill, (x, rms) = min(((f, solve(f)) for f in np.arange(0.0, 8.01, 0.25)),
+                         key=lambda p: p[1][1])
+
+    def model_us(m, n, k, choice):
+        factor, summed, partial_us = _tma_model_terms(
+            ops, m, n, k, *choice, sms, fill)
+        return (x[0] + factor * x[1 + keys.index(choice[:2])]
+                + summed * x[-1] + partial_us)
+
+    fastest, shapes, pick_sum, best_sum = 0, 0, 0.0, 0.0
+    for m, n, k, planned, times in points:
+        if planned == "mma_sync":
+            continue
+        mine = {c: t for c, t in times.items() if c[0] == planned}
+        pick = min(mine, key=lambda c: model_us(m, n, k, c))
+        best = min(mine, key=mine.get)
+        shapes += 1
+        fastest += pick == best
+        pick_sum += mine[pick]
+        best_sum += mine[best]
+
+    rows, y = [], []
+    for m, n, k, planned, times in points:
+        if planned != "mma_sync":
+            continue
+        tiles = (-(-m // ops.GEMM_BF16_BM)
+                 * -(-n // ops.gemm_bn(n, bf)))
+        for (body, _, split), ms in times.items():
+            if body != "mma_sync":
+                continue
+            runs = ops.gemm_ranges(k, split, bf)
+            split, per = len(runs), runs[0][1]
+            waves = -(-tiles * split // (sms * ops.GEMM_BF16_RESIDENT))
+            partial_s = (split > 1) * split * 8.0 * m * n / ops.HBM_RATE
+            s_ = ms * 1e-3
+            rows.append([1.0 / s_, waves * (per + ops.GEMM_FILL_CHUNKS)
+                         / s_])
+            y.append((s_ - partial_s) / s_)
+    mma = {}
+    if rows:
+        a, y = np.array(rows), np.array(y)
+        z = np.linalg.lstsq(a, y, rcond=None)[0]
+        mma = {"launch_us": float(z[0] * 1e6), "chunk_s": float(z[1]),
+               "points": len(rows),
+               "rms": float(np.sqrt(np.mean((a @ z - y) ** 2)))}
+    return {"tma": {"launch_us": float(x[0]),
+                    "chunk_us": {str(w): float(x[1 + keys.index(("wgmma", w))])
+                                 for w in ops.GEMM_BF16_BNS},
+                    "swap_chunk_us": {
+                        str(w): float(x[1 + keys.index(("swap_ab", w))])
+                        for w in ops.GEMM_BF16_SWAP_BNS},
+                    "sum_us": float(x[-1]), "fill_chunks": float(fill),
+                    "points": len(tma), "rms": rms},
+            "mma_sync": mma,
+            "fitted_model_picks": {"shapes": shapes, "fastest": fastest,
+                                   "pick_sum_ms": pick_sum,
+                                   "best_sum_ms": best_sum}}
+
+
+def gemm_bf16_sweep(cs, gen, sms):
+    from repro_torch.kernels.conv2d import ops
+    from repro_torch.kernels.conv2d.ref import matmul_bias_ref
+
+    bf = torch.bfloat16
+    rule_sum = best_sum = mma_sum = 0.0
+    points = []
+    for group, product, m, k, n, ta, tb, _, _ in gemm_bf16_sweep_cases(cs):
+        relu = group.startswith("alexnet") and product == "forward"
+        a, w, bias = cs.gemm_bf16_operands(gen, m, k, n, ta, tb, relu)
+        with torch.inference_mode():
+            want = matmul_bias_ref(a, w, bias, relu)
+        body, *rule = ops.gemm_plan_bf16(m, n, k, ta, tb,
+                                         ops._aligned(a, ta),
+                                         ops._aligned(w, tb), sms)
+        rule = tuple(rule)
+        what = f"matmul_bias_bf16 {group} {product}"
+        choices = {("mma_sync",) + (ops.GEMM_BF16_BN, z)
+                   for z in {ops.gemm_split(m, n, k, sms, bf)} | {
+                       len(ops.gemm_ranges(k, z, bf)) for z in SPLITS
+                       if z <= max(1, -(-k // ops.GEMM_BF16_BK)
+                                   // ops.GEMM_MIN_CHUNKS)}}
+        if body != "mma_sync":
+            chunks = -(-k // ops.GEMM_BF16_TMA_BK)
+            most = max(1, chunks // ops.GEMM_BF16_MIN_CHUNKS)
+            choices |= {(body, bn, len(ops.gemm_ranges(k, z, bf, body)))
+                        for bn in ops.gemm_widths_bf16(m, body == "swap_ab",
+                                                       tb)
+                        for z in BF16_SPLITS if z <= most}
+            choices.add((body,) + rule)
+        picked = (body,) + rule
+        times = {}
+        for choice in sorted(choices):
+            def call(choice=choice):
+                return ops._matmul(a, w, bias, relu, "cuda", body=choice[0],
+                                   bn=choice[1], n_split=choice[2])
+
+            with torch.inference_mode():
+                # the rule's pick within one bf16 ulp; the others, whose
+                # fp32 sums may run in long unsplit chains (conv1's dw: 96,800
+                # terms), within chip_smoke's bf16 kernel tolerance
+                if choice == picked:
+                    cs.gemm_bf16_ulp_check(f"{what} {choice}", call(), want)
+                else:
+                    cs.bf16_check(f"{what} {choice}", call(), want)
+                times[choice] = cs.time_ms(call, reps=5)
+        mma = min((c for c in times if c[0] == "mma_sync"), key=times.get)
+        best = min(times, key=times.get)
+        points.append((m, n, k, body, times))
+        if not group.startswith("decode m"):
+            rule_sum += times[picked]
+            best_sum += times[best]
+            mma_sum += times[mma]
+        cs.emit({"kernel": "matmul_bias_bf16", "group": group,
+                 "product": product, "m": m, "k": k, "n": n,
+                 "trans_a": ta, "trans_b": tb, "rule": list(picked),
+                 "rule_ms": times[picked], "best": list(best),
+                 "best_ms": times[best], "mma_sync_best": list(mma),
+                 "mma_sync_best_ms": times[mma],
+                 "ms_by_choice": {"x".join(map(str, c)): t
+                                  for c, t in times.items()}})
+        del a, w, want
+    cs.emit({"matmul_bias_bf16_rule_sum_ms": rule_sum,
+             "matmul_bias_bf16_best_sum_ms": best_sum,
+             "matmul_bias_bf16_mma_sync_best_sum_ms": mma_sum})
+    cs.emit({"matmul_bias_bf16_fit": fit_gemm_bf16(points, sms)})
 
 
 def conv_sweep(cs, gen, dev, sms):
@@ -327,7 +533,8 @@ def rglru_sweep(cs, gen, sms):
              "rglru_fwd_best_sum_ms": best_sum})
 
 
-SWEEPS = ("decode", "wkv", "rglru", "conv", "conv_bf16", "gemm")
+SWEEPS = ("decode", "wkv", "rglru", "conv", "conv_bf16", "gemm",
+          "gemm_bf16")
 
 
 def main() -> int:
@@ -357,7 +564,8 @@ def main() -> int:
               "rglru": lambda: rglru_sweep(cs, gen, sms),
               "conv": lambda: conv_sweep(cs, gen, dev, sms),
               "conv_bf16": lambda: conv_bf16_sweep(cs, gen, dev, sms),
-              "gemm": lambda: gemm_sweep(cs, gen, dev, sms)}
+              "gemm": lambda: gemm_sweep(cs, gen, dev, sms),
+              "gemm_bf16": lambda: gemm_bf16_sweep(cs, gen, sms)}
     for name in args.kernels:
         sweeps[name]()
     return 0

@@ -7,7 +7,9 @@ runs on first use, into ``build/repro_torch_kernels/<hash>/`` at the
 root of the checkout (gitignored), keyed by a hash of the sources, the
 headers beside them (``csrc/*.cuh``) and the flags: a changed source
 builds anew, an unchanged one loads the library already built.  ``build.log`` beside it keeps ``ptxas``'s
-register and shared-memory report.
+register and shared-memory report, after a ``== <source> (exit <code>,
+<seconds> s)`` line per source: when its ``nvcc`` ended, counted from
+the start of the build.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 _KERNELS = Path(__file__).resolve().parent
@@ -67,16 +70,29 @@ def build() -> Path:
     tmp = Path(tempfile.mkdtemp(dir=BUILD_ROOT, prefix=".tmp-"))
     try:
         srcs = sources()
+        t0 = time.perf_counter()
         procs = [(s, subprocess.Popen(
             [nvcc, *ARCH, *FLAGS, "-c", str(s), "-o",
              str(tmp / (s.stem + ".o"))],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
             for s in srcs]
+        ended = {}
+
+        def wait(s, p):
+            out, _ = p.communicate()
+            ended[s] = (out, time.perf_counter() - t0)
+
+        waiters = [threading.Thread(target=wait, args=sp) for sp in procs]
+        for t in waiters:
+            t.start()
+        for t in waiters:
+            t.join()
         log = []
         failed = []
         for s, p in procs:
-            out, _ = p.communicate()
-            log.append(f"== {s.name} (exit {p.returncode})\n{out}")
+            out, took = ended[s]
+            log.append(f"== {s.name} (exit {p.returncode}, {took:.1f} s)\n"
+                       f"{out}")
             if p.returncode:
                 failed.append(s.name)
         if failed:

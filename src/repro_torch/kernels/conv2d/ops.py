@@ -24,11 +24,16 @@ launch ``matmul_bias_f32`` (``csrc/matmul_bias.cu``, the fp32 FMA pipes),
 bf16 ones ``matmul_bias_bf16`` (``csrc/matmul_bias_bf16.cu``, the tensor
 cores, fp32 accumulation over the whole reduction, one rounding to
 bf16), as the reference kernel accumulates in fp32 and writes x's dtype.
-Its backward is two more launches of the same entry, ``dx = dy @ w^T``
-and ``dw = x^T @ dy``, with the transposes read in place.  Where the
-output tiles are too few to fill the card, ``gemm_split`` deals each
-tile's reduction out over several blocks, whose fp32 partials a second
-kernel adds in a fixed order (one launch all the same).
+The bf16 entry has three bodies, picked by shape and alignment before the
+launch (``gemm_plan_bf16``): ``wgmma`` (warp-specialised, TMA-fed, 128 x
+128-256 tiles; ``gemm_tiles_bf16``) for operands TMA can map, ``swap_ab``
+(Y^T = W^T X^T, the weight's columns along wgmma's 128 rows) for those at
+M <= 64 (decode), and ``mma_sync`` (``gemm_split``) for the rest (AlexNet
+conv1's 363-wide patches).  Its backward is two more launches of the same
+entry, ``dx = dy @ w^T`` and ``dw = x^T @ dy``, with the transposes read
+in place.  Where the output tiles are too few to fill the card, the rule
+deals each tile's reduction out over several blocks, whose fp32 partials
+a second kernel adds in a fixed order (one launch all the same).
 ``conv2d_im2col`` is the two-stage parity formulation built on it:
 ``F.unfold`` patches (the reference's XLA patch extraction) times the
 reordered, block-diagonal weight matrix, in fp32 or bf16.
@@ -39,7 +44,9 @@ launches of the fp32 entry and ``conv2d_fused.launches_bf16`` of the bf16
 one (the backward is the library's), of which
 ``conv2d_fused.launches_bf16_wgmma`` took the wgmma body;
 ``matmul_bias.launches`` counts every launch of the fp32 GEMM entry and
-``matmul_bias.launches_bf16`` of the bf16 one, backward included.
+``matmul_bias.launches_bf16`` of the bf16 one, backward included, of
+which ``matmul_bias.launches_bf16_wgmma`` took a TMA body (``wgmma`` or
+``swap_ab``).
 """
 from __future__ import annotations
 
@@ -59,6 +66,9 @@ _CONV_BF16_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 15
                        + [ctypes.c_void_p])
 _MATMUL_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
+# the bf16 entry takes the tile width and the body as two more ints
+_MATMUL_BF16_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+    ctypes.c_void_p]
 # the fused conv's entry per operand dtype, the launch count it adds to and
 # its argument types
 _CONV_ENTRIES = {torch.float32: ("conv2d_fused_f32", "launches",
@@ -67,15 +77,20 @@ _CONV_ENTRIES = {torch.float32: ("conv2d_fused_f32", "launches",
                                   _CONV_BF16_ARGTYPES)}
 # the bf16 entry's bodies, by the code it takes
 CONV_BF16_BODIES = {"wgmma": 1, "mma_sync": 2}
-# the GEMM's entry per operand dtype and the launch count it adds to
-_MATMUL_ENTRIES = {torch.float32: ("matmul_bias_f32", "launches"),
-                   torch.bfloat16: ("matmul_bias_bf16", "launches_bf16")}
+# the GEMM's entry per operand dtype, the launch count it adds to and its
+# argument types
+_MATMUL_ENTRIES = {torch.float32: ("matmul_bias_f32", "launches",
+                                   _MATMUL_ARGTYPES),
+                   torch.bfloat16: ("matmul_bias_bf16", "launches_bf16",
+                                    _MATMUL_BF16_ARGTYPES)}
+# the bf16 GEMM entry's bodies, by the code it takes
+GEMM_BF16_BODIES = {"wgmma": 1, "mma_sync": 2, "swap_ab": 3}
 # The fp32 GEMM kernel's output tile (GEMM_BM rows, gemm_bn(N) columns) and
 # its reduction chunk (csrc/matmul_bias.cu's BM, BK and the N <= 64 pick of
 # launch_tiles; tests/test_torch_matmul.py reads them from the source).
 GEMM_BM, GEMM_BK = 128, 16
-# The bf16 kernel's (csrc/matmul_bias_bf16.cu's BM, BN and BK): one tile of
-# 128 x 128 at every N, chunks of 32.
+# The bf16 kernel's mma_sync body (csrc/matmul_bias_bf16.cu's BM, BN and
+# BK): one tile of 128 x 128 at every N, chunks of 32.
 GEMM_BF16_BM, GEMM_BF16_BN, GEMM_BF16_BK = 128, 128, 32
 GEMM_MIN_CHUNKS = 8      # a split's reduction runs at least this many chunks
 # gemm_split's cost model, in chunk-times (one block's step of GEMM_BK over
@@ -91,12 +106,43 @@ GEMM_MIN_CHUNKS = 8      # a split's reduction runs at least this many chunks
 GEMM_FILL_CHUNKS = 4
 GEMM_CHUNK_S = 1.4e-6
 HBM_RATE = 3.35e12
-# The bf16 kernel borrows the model and GEMM_FILL_CHUNKS / GEMM_MIN_CHUNKS;
-# only its chunk-time is its own, and an estimate, not a fit: a 128 x 128
-# x 32 chunk moves 16 KB into its SM, 0.65 us at one SM's share (1/132) of
-# the 3.35 TB/s, and its 1 MFLOP takes 0.14 us at one SM's share of 989
-# TFLOP/s, so the estimate sits between the two.
-GEMM_BF16_CHUNK_S = 0.5e-6
+# The bf16 kernel's mma_sync body borrows the model and GEMM_FILL_CHUNKS /
+# GEMM_MIN_CHUNKS, with its own chunk-time and two blocks resident on an SM
+# (~125 registers x 256 threads).  It runs only operands TMA cannot map,
+# whose rows take the narrow copy path, so its chunk-time is fitted to that
+# path's times alone (kernel_sweep.py --kernels gemm_bf16, fit_gemm_bf16,
+# on an H100 80GB HBM3 at 700 W: AlexNet conv1's forward and its dw at 13
+# (split) points, 2.9 % rms with a fixed 28 us a call; the dw took 0.1393
+# ms at 87 splits, which the second resident block makes one wave).
+GEMM_BF16_CHUNK_S = 2.57e-6
+GEMM_BF16_RESIDENT = 2
+# The bf16 kernel's TMA bodies (csrc/matmul_bias_bf16.cu's TMA_BM, TMA_BK,
+# WGMMA_WIDTHS and SWAP_WIDTHS; tests/test_torch_matmul.py reads them from
+# the source): tiles of 128 rows (of M, or of N on the swap_ab body) by one
+# of GEMM_BF16_BNS (GEMM_BF16_SWAP_BNS) columns, a reduction step of 64, a
+# persistent block of 384 threads per SM.  gemm_tiles_bf16's cost model: a
+# unit's chunk takes GEMM_BF16_CHUNK_US[bn] (GEMM_BF16_SWAP_CHUNK_US[bn]) of
+# its SM's time and its epilogue GEMM_BF16_FILL_CHUNKS chunks more; a split
+# adds the partials' HBM traffic and GEMM_BF16_SUM_US for the kernel that
+# adds them; a split's run is at least GEMM_BF16_MIN_CHUNKS chunks.  The
+# swap_ab body takes M <= GEMM_BF16_SWAP_MAX_M.  The constants are the
+# least-squares fit (relative error) that kernel_sweep.py --kernels
+# gemm_bf16 prints (fit_gemm_bf16), the mean of two sweeps on an H100 80GB
+# HBM3 at 700 W, rounded: with a fixed 6.8 us a call they reproduce the 372
+# timed (body, width, split) points of its 26 shapes (Mixtral's expert
+# products, decode's at M = 16, 32 and 64, AlexNet's aligned im2col
+# products) to 9.7 % rms, and the rule picks the fastest timed choice at
+# 22 of the 26 (their sum 1.7237 ms against the fastest choices' 1.7205;
+# AlexNet conv4's dw the worst, 0.0408 against 0.0384).
+GEMM_BF16_TMA_BM, GEMM_BF16_TMA_BK = 128, 64
+GEMM_BF16_CHUNK_US = {128: 0.36, 160: 0.42, 192: 0.46, 256: 0.59}
+GEMM_BF16_SWAP_CHUNK_US = {16: 0.39, 32: 0.40, 64: 0.41}
+GEMM_BF16_FILL_CHUNKS = 4.25
+GEMM_BF16_SUM_US = 4.41
+GEMM_BF16_MIN_CHUNKS = 2
+GEMM_BF16_SWAP_MAX_M = 64
+GEMM_BF16_BNS = tuple(sorted(GEMM_BF16_CHUNK_US))
+GEMM_BF16_SWAP_BNS = tuple(sorted(GEMM_BF16_SWAP_CHUNK_US))
 # The fused conv kernel's output tile (CONV_BM rows, one of CONV_BNS
 # columns) and reduction chunk (csrc/conv2d_fused.cu's BM, BK and the bn
 # cases of conv2d_fused_f32; tests/test_torch_conv2d.py reads them from the
@@ -445,7 +491,8 @@ def _layout(name: str, t: torch.Tensor, dtypes=(torch.float32,)) -> int:
 
 def gemm_bn(n: int, dtype=torch.float32) -> int:
     """Output columns per block of the GEMM kernel of ``dtype`` for N =
-    ``n``."""
+    ``n`` (in bf16, of its ``mma_sync`` body; ``gemm_plan_bf16`` gives
+    every body's)."""
     if dtype == torch.bfloat16:
         return GEMM_BF16_BN
     return 64 if n <= 64 else 128
@@ -453,20 +500,25 @@ def gemm_bn(n: int, dtype=torch.float32) -> int:
 
 def _gemm_consts(dtype) -> tuple:
     """(rows per tile, reduction chunk, chunk-time in s) of the GEMM
-    kernel of ``dtype``."""
+    kernel of ``dtype`` (in bf16, of its ``mma_sync`` body)."""
     if dtype == torch.bfloat16:
         return GEMM_BF16_BM, GEMM_BF16_BK, GEMM_BF16_CHUNK_S
     return GEMM_BM, GEMM_BK, GEMM_CHUNK_S
 
 
-def gemm_ranges(k: int, n_split: int, dtype=torch.float32) -> list:
+def gemm_ranges(k: int, n_split: int, dtype=torch.float32,
+                body: str = "mma_sync") -> list:
     """The runs ``[lo, hi)`` of the ``ceil(k / bk)`` reduction chunks
-    that the GEMM kernel of ``dtype`` (chunks of ``GEMM_BK`` in fp32,
-    ``GEMM_BF16_BK`` in bf16) deals to its splits when ``n_split`` are
-    asked: split z takes the z-th run of ``ceil(chunks / n_split)`` (the
-    kernel's ``c_lo`` / ``c_hi``).  Empty runs are left out, so the
-    list's length is the split that covers the chunks with none empty."""
-    chunks = -(-k // _gemm_consts(dtype)[1])
+    that the GEMM kernel of ``dtype`` (chunks of ``GEMM_BK`` in fp32;
+    in bf16 ``GEMM_BF16_BK`` on the ``mma_sync`` body and
+    ``GEMM_BF16_TMA_BK`` on the TMA bodies) deals to its splits when
+    ``n_split`` are asked: split z takes the z-th run of ``ceil(chunks /
+    n_split)`` (the kernel's ``c_lo`` / ``c_hi``).  Empty runs are left
+    out, so the list's length is the split that covers the chunks with
+    none empty."""
+    bk = (GEMM_BF16_TMA_BK if dtype == torch.bfloat16 and body != "mma_sync"
+          else _gemm_consts(dtype)[1])
+    chunks = -(-k // bk)
     per = -(-chunks // n_split)
     return [(lo, min(chunks, lo + per)) for lo in range(0, chunks, per)]
 
@@ -478,13 +530,15 @@ def gemm_split(m: int, n: int, k: int, sms: int,
     output tile's reduction chunks (``gemm_ranges``), none empty and
     every one but the last at least ``GEMM_MIN_CHUNKS`` long.  It
     minimises the run's time in waves on a card with ``sms`` SMs:
-    ``ceil(tiles * n_split / sms)`` waves of blocks, each taking its
-    chunks plus ``GEMM_FILL_CHUNKS``, plus every split's fp32 partial
-    through HBM.  So a grid that fills whole waves keeps 1, and a small
+    ``ceil(tiles * n_split / slots)`` waves of blocks (``slots``: ``sms``,
+    or ``GEMM_BF16_RESIDENT`` blocks an SM on the bf16 mma_sync body),
+    each taking its chunks plus ``GEMM_FILL_CHUNKS``, plus every split's
+    fp32 partial through HBM.  So a grid that fills whole waves keeps 1, and a small
     grid with a long reduction (conv1's dw) splits until its blocks fill
     the card."""
     bm, bk, chunk_s = _gemm_consts(dtype)
     tiles = -(-m // bm) * -(-n // gemm_bn(n, dtype))
+    slots = sms * (GEMM_BF16_RESIDENT if dtype == torch.bfloat16 else 1)
     chunks = -(-k // bk)
     partial = 8.0 * m * n / HBM_RATE / chunk_s
     best, best_cost = 1, None
@@ -492,18 +546,117 @@ def gemm_split(m: int, n: int, k: int, sms: int,
                              -(-4 * sms // tiles)) + 1):
         runs = gemm_ranges(k, want, dtype)
         split, per = len(runs), runs[0][1]
-        cost = (-(-tiles * split // sms) * (per + GEMM_FILL_CHUNKS)
+        cost = (-(-tiles * split // slots) * (per + GEMM_FILL_CHUNKS)
                 + (split > 1) * split * partial)
         if best_cost is None or cost < best_cost:
             best, best_cost = split, cost
     return best
 
 
-def _matmul(x, w, b, relu, backend, n_split=None):
+def gemm_widths_bf16(m: int, swap: bool, trans_b: bool) -> list:
+    """The tile widths a TMA body takes: on the wgmma body every one of
+    ``GEMM_BF16_BNS`` that is a multiple of 64 (an MN-major w comes in
+    panels of 64 columns), any where w is read transposed (K-major); on
+    the swap_ab body the narrowest of ``GEMM_BF16_SWAP_BNS`` that holds M
+    (the widest for a larger M)."""
+    if swap:
+        return [min([w for w in GEMM_BF16_SWAP_BNS if w >= m]
+                    or [GEMM_BF16_SWAP_BNS[-1]])]
+    return [w for w in GEMM_BF16_BNS if trans_b or w % 64 == 0]
+
+
+@functools.lru_cache(maxsize=1024)
+def gemm_tiles_bf16(m: int, n: int, k: int, swap: bool, trans_b: bool,
+                    sms: int) -> tuple:
+    """(bn, n_split) for a TMA body of the bf16 GEMM (``swap``: the
+    swap_ab body) on an (m, k) @ (k, n) product, w stored transposed where
+    ``trans_b``, and a card with ``sms`` SMs: the tile width (one of
+    ``gemm_widths_bf16``) and the units over
+    which each tile's reduction chunks are dealt out (``gemm_ranges``).
+    It minimises the run's time in the model above: the busiest SM's units
+    (``ceil(units / sms)`` of them), each taking its chunks plus
+    ``GEMM_BF16_FILL_CHUNKS``, plus, for a split, the sum kernel and
+    every split's fp32 partial through HBM.  Ties go to the wider tile and
+    to fewer splits."""
+    body = "swap_ab" if swap else "wgmma"
+    rows, cols = (n, m) if swap else (m, n)
+    table = GEMM_BF16_SWAP_CHUNK_US if swap else GEMM_BF16_CHUNK_US
+    chunks = -(-k // GEMM_BF16_TMA_BK)
+    partial_us = 8.0 * m * n / HBM_RATE * 1e6
+    best, best_cost = None, None
+    for bn in sorted(gemm_widths_bf16(m, swap, trans_b), reverse=True):
+        tiles = -(-rows // GEMM_BF16_TMA_BM) * -(-cols // bn)
+        for want in range(1, max(1, min(chunks // GEMM_BF16_MIN_CHUNKS,
+                                        -(-4 * sms // tiles))) + 1):
+            runs = gemm_ranges(k, want, torch.bfloat16, body)
+            split, per = len(runs), runs[0][1]
+            waves = -(-tiles * split // sms)
+            cost = (waves * (per + GEMM_BF16_FILL_CHUNKS) * table[bn]
+                    + (split > 1) * (GEMM_BF16_SUM_US + split * partial_us))
+            if best_cost is None or cost < best_cost - 1e-9:
+                best, best_cost = (bn, split), cost
+    return best
+
+
+def gemm_plan_bf16(m: int, n: int, k: int, trans_a: bool, trans_b: bool,
+                   aligned_a: bool, aligned_b: bool, sms: int, body=None,
+                   tiles=None) -> tuple:
+    """(body, bn, n_split) of a bf16 launch on an (m, k) @ (k, n) product,
+    x stored transposed where ``trans_a``, w where ``trans_b``;
+    ``aligned_*``: the operand's base is 16-byte aligned and its rows a
+    multiple of 8 values apart, so TMA can map it.  The body: ``wgmma``
+    where TMA maps both operands and N % 8 == 0 (whole 16-byte output
+    pieces), ``swap_ab`` there at M <= ``GEMM_BF16_SWAP_MAX_M`` with x not
+    transposed, ``mma_sync`` elsewhere; or ``body`` when given (a TMA body
+    raises where it cannot take the operands).  Then the tile width and
+    split of that body's rule (``gemm_tiles_bf16``, or ``gemm_split`` for
+    ``mma_sync``), or of ``tiles`` = (bn, n_split) over that body's runs.
+    ``_matmul`` names the body to the entry point, which runs it or
+    refuses it and never picks another."""
+    tma = aligned_a and aligned_b and n % 8 == 0
+    swap = m <= GEMM_BF16_SWAP_MAX_M and not trans_a
+    if body is None:
+        body = "mma_sync" if not tma else "swap_ab" if swap else "wgmma"
+    elif body not in GEMM_BF16_BODIES:
+        raise ValueError(f"body must be one of {tuple(GEMM_BF16_BODIES)}, "
+                         f"got {body!r}")
+    elif body != "mma_sync" and not tma:
+        raise ValueError(f"the {body} body needs operands TMA can map "
+                         "(16-byte aligned, rows a multiple of 8 values "
+                         "apart) and N % 8 == 0")
+    elif body == "swap_ab" and trans_a:
+        raise ValueError("the swap_ab body reads x in its (M, K) storage "
+                         "only")
+    if tiles is not None:
+        if tiles[0] not in ([GEMM_BF16_BN] if body == "mma_sync" else
+                            gemm_widths_bf16(m, body == "swap_ab",
+                                             trans_b)):
+            raise ValueError(f"the {body} body does not take width "
+                             f"{tiles[0]} here")
+        return body, tiles[0], len(gemm_ranges(k, tiles[1], torch.bfloat16,
+                                               body))
+    if body == "mma_sync":
+        return body, GEMM_BF16_BN, gemm_split(m, n, k, sms, torch.bfloat16)
+    return (body,) + gemm_tiles_bf16(m, n, k, body == "swap_ab",
+                                     bool(trans_b), sms)
+
+
+def _aligned(t: torch.Tensor, trans: int) -> bool:
+    """Whether TMA can map the storage of ``t`` (read in place, ``trans``
+    as ``_layout`` says): a 16-byte aligned base, rows a multiple of 8
+    values apart."""
+    pitch = t.shape[0] if trans else t.shape[1]
+    return t.data_ptr() % 16 == 0 and pitch % 8 == 0
+
+
+def _matmul(x, w, b, relu, backend, n_split=None, body=None, bn=None):
     """One product: the kernel launch of the operands' dtype, or the
-    plain version.  The kernel splits the reduction as ``gemm_split``
-    picks, or over the runs of ``gemm_ranges(K, n_split)`` when
-    ``n_split`` is given (kernel_sweep.py times the choices)."""
+    plain version.  The fp32 kernel splits the reduction as
+    ``gemm_split`` picks, or over the runs of ``gemm_ranges(K, n_split)``
+    when ``n_split`` is given; bf16 operands run the body, width and split
+    ``gemm_plan_bf16`` picks, or ``body`` (``"wgmma"``, ``"swap_ab"`` or
+    ``"mma_sync"``), ``bn`` and ``n_split`` where given (kernel_sweep.py
+    and chip_smoke.py time the choices)."""
     for name, t in (("w", w), ("b", b)):
         if t is not None and t.dtype != x.dtype:
             raise ValueError(f"matmul_bias: {name} is {t.dtype}, x is "
@@ -522,22 +675,38 @@ def _matmul(x, w, b, relu, backend, n_split=None):
     y = torch.empty((m, n), device=x.device, dtype=x.dtype)
     common.check_operand("y", y, 2, dtypes)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    n_split = (gemm_split(m, n, k, sms, x.dtype) if n_split is None
-               else len(gemm_ranges(k, n_split, x.dtype)))
+    if x.dtype == torch.bfloat16:
+        shape = (m, n, k, trans_a, trans_b, _aligned(x, trans_a),
+                 _aligned(w, trans_b), sms)
+        rule = gemm_plan_bf16(*shape, body)
+        body = rule[0]
+        if bn is not None or n_split is not None:
+            rule = gemm_plan_bf16(*shape, body, (bn or rule[1],
+                                                 n_split or rule[2]))
+        _, bn, n_split = rule
+        extra = (bn, n_split, GEMM_BF16_BODIES[body])
+    elif body is not None or bn is not None:
+        raise ValueError("body and bn apply to bf16 operands only")
+    else:
+        n_split = (gemm_split(m, n, k, sms) if n_split is None
+                   else len(gemm_ranges(k, n_split)))
+        extra = (n_split,)
     part = None
     if n_split > 1:
         part = torch.empty((n_split, m, n), device=x.device,
                            dtype=torch.float32)
         common.check_operand("part", part, 3)
-    entry, counter = _MATMUL_ENTRIES[x.dtype]
-    fn = _build.function(entry, _MATMUL_ARGTYPES)
+    entry, counter, argtypes = _MATMUL_ENTRIES[x.dtype]
+    fn = _build.function(entry, argtypes)
     err = fn(x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
              y.data_ptr(), None if part is None else part.data_ptr(), m, n,
-             k, trans_a, trans_b, int(relu), n_split,
+             k, trans_a, trans_b, int(relu), *extra,
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise _build.launch_error(entry, err)
     setattr(matmul_bias, counter, getattr(matmul_bias, counter) + 1)
+    if body in ("wgmma", "swap_ab"):
+        matmul_bias.launches_bf16_wgmma += 1
     return y
 
 
@@ -585,6 +754,7 @@ def matmul_bias(x, w, b=None, *, relu: bool = False, backend: str = "auto"):
 
 matmul_bias.launches = 0
 matmul_bias.launches_bf16 = 0
+matmul_bias.launches_bf16_wgmma = 0
 
 
 # ------------------------------------------------ two-stage im2col -------

@@ -383,14 +383,98 @@ def test_bf16_operands_share_one_dtype():
 
 def test_gemm_bf16_tile_constants_match_the_kernel():
     """``GEMM_BF16_BM``, ``GEMM_BF16_BN`` and ``GEMM_BF16_BK`` mirror the
-    bf16 kernel's BM, BN and BK."""
+    bf16 kernel's mma_sync body's BM, BN and BK; ``GEMM_BF16_TMA_BM``,
+    ``GEMM_BF16_TMA_BK``, ``GEMM_BF16_BNS`` and ``GEMM_BF16_SWAP_BNS`` its
+    TMA bodies' TMA_BM, TMA_BK and the widths each is built for."""
     src = (Path(ops.__file__).parent / "csrc"
            / "matmul_bias_bf16.cu").read_text()
     got = {name: int(re.search(rf"constexpr int {name} = (\d+);",
-                               src).group(1)) for name in ("BM", "BN", "BK")}
+                               src).group(1))
+           for name in ("BM", "BN", "BK", "TMA_BM", "TMA_BK")}
     assert got == {"BM": ops.GEMM_BF16_BM, "BN": ops.GEMM_BF16_BN,
-                   "BK": ops.GEMM_BF16_BK}
+                   "BK": ops.GEMM_BF16_BK, "TMA_BM": ops.GEMM_BF16_TMA_BM,
+                   "TMA_BK": ops.GEMM_BF16_TMA_BK}
+    widths = {name: tuple(sorted(int(w) for w in re.findall(
+        r"X\((\d+)\)", re.search(rf"#define {name}\(X\) (.*)",
+                                  src).group(1))))
+              for name in ("WGMMA_WIDTHS", "SWAP_WIDTHS")}
+    assert widths == {"WGMMA_WIDTHS": ops.GEMM_BF16_BNS,
+                      "SWAP_WIDTHS": ops.GEMM_BF16_SWAP_BNS}
     assert ops.gemm_bn(16, torch.bfloat16) == ops.GEMM_BF16_BN
+    # decode's M = 16 takes the swap_ab body's narrowest width: no idle
+    # rows of x in a tile
+    body, bn, _ = ops.gemm_plan_bf16(16, 14336, 4096, False, False, True,
+                                     True, 132)
+    assert (body, bn) == ("swap_ab", ops.GEMM_BF16_SWAP_BNS[0]) == \
+        ("swap_ab", 16)
+
+
+def _mixtral_products(cap=640):
+    """(m, k, n, trans_a, trans_b) of Mixtral-8x7B's expert FFN products
+    at capacity ``cap`` (chip_smoke.mixtral_gemm_cases): the forward of
+    w_in / w_gate and w_out, then each one's dx and dw."""
+    from repro_torch.configs import ARCHS
+
+    d, f = ARCHS["mixtral-8x7b"].d_model, ARCHS["mixtral-8x7b"].d_ff
+    return [(cap, d, f, False, False), (cap, f, d, False, False),
+            (cap, f, d, False, True), (d, cap, f, True, False),
+            (cap, d, f, False, True), (f, cap, d, True, False)]
+
+
+def _alexnet_products(batch=32):
+    """(layer, m, k, n, trans_a, trans_b) of the faithful AlexNet's
+    im2col products in one replica-step (chip_smoke.gemm_cases): per conv
+    the forward, dw and, past conv1, dx."""
+    from repro_torch.configs import ALEXNET_FAITHFUL as cfg
+
+    out, c_in, hw = [], cfg.in_channels, cfg.image_size
+    for i, cs in enumerate(cfg.convs):
+        oh = (hw + 2 * cs.padding - cs.kernel) // cs.stride + 1
+        m, k, n = batch * oh * oh, c_in * cs.kernel ** 2, cs.out_channels
+        out.append((i, m, k, n, False, False))
+        if i > 0:
+            out.append((i, m, n, k, False, True))
+        out.append((i, k, m, n, True, False))
+        hw = (oh - 3) // 2 + 1 if cs.pool else oh
+        c_in = cs.out_channels
+    return out
+
+
+def _takes(m, k, n, trans_a, trans_b):
+    """The bodies that can run a product on fresh (aligned) tensors: the
+    TMA bodies need each operand's rows a multiple of 8 values apart and
+    N % 8 == 0, swap_ab x in its (M, K) storage."""
+    tma = (m if trans_a else k) % 8 == 0 and (k if trans_b else n) % 8 == 0
+    return {"mma_sync"} | ({"wgmma"} if tma and n % 8 == 0 else set()) | (
+        {"swap_ab"} if tma and n % 8 == 0 and not trans_a else set())
+
+
+def test_gemm_plan_bf16_picks_each_body():
+    """Mixtral's 9 training products at C = 640 go to the wgmma body, the
+    two decode products (M = 16) to swap_ab, AlexNet conv1's two products
+    (363-wide patch rows) to mma_sync and its other 12 to wgmma; every
+    edge case of CUDA_BF16_CASES to a body that takes it, and a body
+    forced where it cannot run raises."""
+    def body(m, k, n, ta, tb):
+        pa = (m if ta else k) % 8 == 0
+        pb = (k if tb else n) % 8 == 0
+        return ops.gemm_plan_bf16(m, n, k, ta, tb, pa, pb, 132)[0]
+
+    assert {body(*p) for p in _mixtral_products()} == {"wgmma"}
+    assert [body(16, 4096, 14336, False, False),
+            body(16, 14336, 4096, False, False)] == ["swap_ab"] * 2
+    got = [(layer, body(*p)) for layer, *p in _alexnet_products()]
+    assert len(got) == 14
+    assert [b for layer, b in got if layer == 0] == ["mma_sync"] * 2
+    assert [b for layer, b in got if layer > 0] == ["wgmma"] * 12
+    for m, k, n, ta, tb, _, _ in CUDA_BF16_CASES:
+        assert body(m, k, n, ta, tb) in _takes(m, k, n, ta, tb)
+    with pytest.raises(ValueError, match="TMA can map"):
+        ops.gemm_plan_bf16(97, 96, 363, False, True, False, True, 132,
+                           body="wgmma")
+    with pytest.raises(ValueError, match="swap_ab"):
+        ops.gemm_plan_bf16(16, 96, 64, True, False, True, True, 132,
+                           body="swap_ab")
 
 
 @pytest.mark.parametrize("m,n,k", [
@@ -399,13 +483,23 @@ def test_gemm_bf16_tile_constants_match_the_kernel():
     (363, 96, 96800),       # conv1's dw at batch 32
 ])
 def test_gemm_split_bf16_covers_each_chunk_once(m, n, k):
-    n_split = ops.gemm_split(m, n, k, 132, torch.bfloat16)
-    ranges = ops.gemm_ranges(k, n_split, torch.bfloat16)
-    chunks = -(-k // ops.GEMM_BF16_BK)
-    assert len(ranges) == n_split >= 1
-    assert ranges[0][0] == 0 and ranges[-1][1] == chunks
-    for (lo, hi), (nxt, _) in zip(ranges, ranges[1:] + [(chunks, 0)]):
-        assert lo < hi == nxt
+    """Each body's split, at its rule and at forced splits, covers the
+    reduction's chunks (32 wide on mma_sync, 64 on the TMA bodies) once,
+    none empty."""
+    picks = {"mma_sync": ops.gemm_split(m, n, k, 132, torch.bfloat16)}
+    for body in ("wgmma", "swap_ab"):
+        picks[body] = ops.gemm_plan_bf16(m, n, k, False, False, True, True,
+                                         132, body=body)[2]
+    for body, rule in picks.items():
+        bk = ops.GEMM_BF16_BK if body == "mma_sync" else ops.GEMM_BF16_TMA_BK
+        chunks = -(-k // bk)
+        for n_split in (rule, 3, 7):
+            ranges = ops.gemm_ranges(k, n_split, torch.bfloat16, body)
+            assert 1 <= len(ranges) <= n_split
+            assert len(ranges) == n_split or n_split != rule
+            assert ranges[0][0] == 0 and ranges[-1][1] == chunks
+            for (lo, hi), (nxt, _) in zip(ranges, ranges[1:] + [(chunks, 0)]):
+                assert lo < hi == nxt
 
 
 # the bf16 kernel's edge cases: M, K or N of 1, K off the 32-wide chunk,
@@ -498,3 +592,224 @@ def test_cuda_bf16_split_is_deterministic(cuda):
         first = ops.matmul_bias(xt, wt)
         second = ops.matmul_bias(xt, wt)
     assert torch.equal(first, second)
+
+
+# every CUDA_BF16_CASES case through each body that takes it
+BODY_CASES = [(body,) + case for case in CUDA_BF16_CASES
+              for body in ("wgmma", "swap_ab", "mma_sync")
+              if body in _takes(*case[:5])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body,m,k,n,trans_a,trans_b,bias,relu", BODY_CASES)
+def test_cuda_bf16_each_body_matches_plain(cuda, body, m, k, n, trans_a,
+                                           trans_b, bias, relu):
+    x, w, b = _mats(m, k, n, seed=16)
+    xt = (_bf16(np.ascontiguousarray(x.T), cuda).t() if trans_a
+          else _bf16(x, cuda))
+    wt = (_bf16(np.ascontiguousarray(w.T), cuda).t() if trans_b
+          else _bf16(w, cuda))
+    bt = _bf16(b, cuda) if bias else None
+    before = (ops.matmul_bias.launches_bf16,
+              ops.matmul_bias.launches_bf16_wgmma)
+    with torch.no_grad():
+        got = ops._matmul(xt, wt, bt, relu, "cuda", body=body)
+        torch.cuda.synchronize()
+    assert (ops.matmul_bias.launches_bf16,
+            ops.matmul_bias.launches_bf16_wgmma) == (
+        before[0] + 1, before[1] + (body != "mma_sync"))
+    _ulp_check(got, ref.matmul_bias_ref(xt, wt, bt, relu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(640, 1024, 4096), (16, 1024, 4096)],
+                         ids=["mixtral", "decode"])
+@pytest.mark.parametrize("trans_a,trans_b", [(False, False), (False, True),
+                                             (True, False)],
+                         ids=["fwd", "dx", "dw"])
+def test_cuda_bf16_model_shapes_match_plain(cuda, m, k, n, trans_a,
+                                            trans_b):
+    """Mixtral's and decode's products at a reduced K, in the three
+    layouts the forward and backward give the kernel, on the body the
+    rule picks (wgmma, or swap_ab at M = 16 with x in its storage)."""
+    x, w, b = _mats(m, k, n, seed=17)
+    xt = (_bf16(np.ascontiguousarray(x.T), cuda).t() if trans_a
+          else _bf16(x, cuda))
+    wt = (_bf16(np.ascontiguousarray(w.T), cuda).t() if trans_b
+          else _bf16(w, cuda))
+    bt = _bf16(b, cuda)
+    before = ops.matmul_bias.launches_bf16_wgmma
+    with torch.no_grad():
+        got = ops.matmul_bias(xt, wt, bt)
+        torch.cuda.synchronize()
+    assert ops.matmul_bias.launches_bf16_wgmma == before + 1
+    _ulp_check(got, ref.matmul_bias_ref(xt, wt, bt, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body,m,k,n", [("wgmma", 300, 4096, 256),
+                                        ("swap_ab", 16, 8192, 1024)])
+def test_cuda_bf16_tma_split_is_deterministic(cuda, body, m, k, n):
+    """A split reduction on each TMA body: two calls bit-equal, and within
+    one bf16 ulp of the plain version."""
+    x, w, _ = _mats(m, k, n, seed=18)
+    xt, wt = _bf16(x, cuda), _bf16(w, cuda)
+    with torch.no_grad():
+        first = ops._matmul(xt, wt, None, False, "cuda", body=body,
+                            n_split=4)
+        second = ops._matmul(xt, wt, None, False, "cuda", body=body,
+                             n_split=4)
+        torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _ulp_check(first, ref.matmul_bias_ref(xt, wt, None, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body,m,k,n", [("wgmma", 200, 136, 72),
+                                        ("swap_ab", 37, 72, 96)])
+def test_cuda_bf16_tma_operands_at_the_end_of_their_storage(cuda, body, m,
+                                                            k, n):
+    """x and w as the last rows of larger buffers, with ragged M, N and K
+    tiles: TMA's zero fill reads nothing past them."""
+    x, w, b = _mats(m, k, n, seed=19)
+    xbuf = torch.empty((4096 * 64 + m * k,), dtype=torch.bfloat16,
+                       device=cuda)
+    wbuf = torch.empty((4096 * 64 + k * n,), dtype=torch.bfloat16,
+                       device=cuda)
+    xt = xbuf[-m * k:].view(m, k)
+    wt = wbuf[-k * n:].view(k, n)
+    xt.copy_(_bf16(x, cuda))
+    wt.copy_(_bf16(w, cuda))
+    with torch.no_grad():
+        got = ops._matmul(xt, wt, _bf16(b, cuda), True, "cuda", body=body)
+        torch.cuda.synchronize()
+    _ulp_check(got, ref.matmul_bias_ref(xt, wt, _bf16(b, cuda), True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body,m", [("wgmma", 130), ("swap_ab", 16)])
+def test_cuda_bf16_tma_relu_keeps_a_nan(cuda, body, m):
+    """A NaN in x reaches its row of y through the bias and the ReLU on
+    each TMA body (the ReLU keeps a NaN, as the reference's does), and
+    the other rows stay finite."""
+    x, w, b = _mats(m, 64, 72, seed=20)
+    x[3, 5] = np.nan
+    xt, wt, bt = _bf16(x, cuda), _bf16(w, cuda), _bf16(b, cuda)
+    with torch.no_grad():
+        got = ops._matmul(xt, wt, bt, True, "cuda", body=body)
+        torch.cuda.synchronize()
+    assert torch.isnan(got[3]).all()
+    rest = torch.cat([got[:3], got[4:]])
+    assert torch.isfinite(rest).all()
+    _ulp_check(rest, torch.cat([ref.matmul_bias_ref(xt[:3], wt, bt, True),
+                                ref.matmul_bias_ref(xt[4:], wt, bt, True)]))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_tma_backward_launches_the_kernel_twice(cuda):
+    """Aligned operands: the forward, dx (w read transposed) and dw (x
+    read transposed) all on the wgmma body."""
+    x, w, b = _mats(200, 72, 40, seed=21)
+    xt, wt, bt = (_bf16(a, cuda).requires_grad_() for a in (x, w, b))
+    before = (ops.matmul_bias.launches_bf16,
+              ops.matmul_bias.launches_bf16_wgmma)
+    torch.cos(ops.matmul_bias(xt, wt, bt, relu=True)).float().sum() \
+        .backward()
+    torch.cuda.synchronize()
+    assert (ops.matmul_bias.launches_bf16,
+            ops.matmul_bias.launches_bf16_wgmma) == (before[0] + 3,
+                                                     before[1] + 3)
+    xp, wp, bp = (_bf16(a, cuda).requires_grad_() for a in (x, w, b))
+    torch.cos(ops.matmul_bias(xp, wp, bp, relu=True, backend="plain")) \
+        .float().sum().backward()
+    for got, want in ((xt.grad, xp.grad), (wt.grad, wp.grad)):
+        _ulp_check(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_a,trans_b", [(False, False), (False, True),
+                                             (True, False)],
+                         ids=["fwd", "dx", "dw"])
+def test_cuda_bf16_tma_store_panels_across_tiles(cuda, trans_a, trans_b):
+    """At width 192 a warp stores three 64-column panels a tile through two
+    staging buffers; with one reduction chunk a tile and several tiles an
+    SM, a tile's last store is still reading while the next tile's first
+    panel is staged.  Two calls bit-equal and within one bf16 ulp."""
+    m, k, n = 4096, 64, 192 * 16
+    x, w, b = _mats(m, k, n, seed=22)
+    xt = (_bf16(np.ascontiguousarray(x.T), cuda).t() if trans_a
+          else _bf16(x, cuda))
+    wt = (_bf16(np.ascontiguousarray(w.T), cuda).t() if trans_b
+          else _bf16(w, cuda))
+    bt = _bf16(b, cuda)
+    with torch.no_grad():
+        first = ops._matmul(xt, wt, bt, True, "cuda", body="wgmma", bn=192,
+                            n_split=1)
+        second = ops._matmul(xt, wt, bt, True, "cuda", body="wgmma",
+                             bn=192, n_split=1)
+        torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _ulp_check(first, ref.matmul_bias_ref(xt, wt, bt, True))
+
+
+def test_gemm_bf16_fit_recovers_the_rules_constants():
+    """kernel_sweep.fit_gemm_bf16 (the source of the GEMM_BF16_*
+    constants) recovers a model's constants from times that model made,
+    at Mixtral's, decode's (M 16, 32, 64) and AlexNet's shapes, and then
+    picks the fastest timed choice at every TMA shape."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import kernel_sweep as ks
+
+    bf, sms = torch.bfloat16, 132
+    chunk = {("wgmma", 128): 0.4, ("wgmma", 160): 0.45,
+             ("wgmma", 192): 0.5, ("wgmma", 256): 0.66,
+             ("swap_ab", 16): 0.41, ("swap_ab", 32): 0.46,
+             ("swap_ab", 64): 0.55}
+    launch_us, sum_us, fill, chunk_s = 5.0, 4.0, 4.25, 2.5e-6
+    shapes = [(m, n, k, False, tb) for m, k, n, _, tb in
+              _mixtral_products()[:3]]
+    shapes += [(m, n, k, False, False) for m in (16, 32, 64)
+               for k, n in ((4096, 14336), (14336, 4096))]
+    shapes += [(m, n, k, ta, tb) for _, m, k, n, ta, tb in
+               _alexnet_products()[2:6]]
+    shapes += [(m, n, k, ta, tb) for layer, m, k, n, ta, tb in
+               _alexnet_products() if layer == 0]
+    points = []
+    for m, n, k, ta, tb in shapes:
+        body = ops.gemm_plan_bf16(m, n, k, ta, tb, (m if ta else k) % 8 == 0,
+                                  (k if tb else n) % 8 == 0, sms)[0]
+        times = {}
+        if body == "mma_sync":
+            tiles = -(-m // ops.GEMM_BF16_BM) * -(-n // ops.GEMM_BF16_BN)
+            for z in (1, 2, 4, 8, 16):
+                runs = ops.gemm_ranges(k, z, bf)
+                split, per = len(runs), runs[0][1]
+                waves = -(-tiles * split // (sms * ops.GEMM_BF16_RESIDENT))
+                s_ = (launch_us * 1e-6 + waves * (per + ops.GEMM_FILL_CHUNKS)
+                      * chunk_s + (split > 1) * split * 8.0 * m * n
+                      / ops.HBM_RATE)
+                times[("mma_sync", ops.GEMM_BF16_BN, split)] = s_ * 1e3
+        else:
+            for bn in ops.gemm_widths_bf16(m, body == "swap_ab", tb):
+                for z in (1, 2, 3, 4, 6):
+                    split = len(ops.gemm_ranges(k, z, bf, body))
+                    factor, summed, partial_us = ks._tma_model_terms(
+                        ops, m, n, k, body, bn, split, sms, fill)
+                    times[(body, bn, split)] = 1e-3 * (
+                        launch_us + factor * chunk[(body, bn)]
+                        + summed * sum_us + partial_us)
+        points.append((m, n, k, body, times))
+    fit = ks.fit_gemm_bf16(points, sms)
+    tma = fit["tma"]
+    assert tma["fill_chunks"] == fill and tma["rms"] < 1e-9
+    assert tma["launch_us"] == pytest.approx(launch_us)
+    assert tma["sum_us"] == pytest.approx(sum_us)
+    for (body, bn), us in chunk.items():
+        table = tma["chunk_us" if body == "wgmma" else "swap_chunk_us"]
+        assert table[str(bn)] == pytest.approx(us), (body, bn)
+    assert fit["mma_sync"]["chunk_s"] == pytest.approx(chunk_s)
+    assert fit["mma_sync"]["launch_us"] == pytest.approx(launch_us)
+    picks = fit["fitted_model_picks"]
+    assert picks["fastest"] == picks["shapes"] == len(shapes) - 2
